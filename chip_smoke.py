@@ -18,6 +18,12 @@ without printing a result:
 4. conv kernel vs plain — every ``PAPER_CNN`` low-bit layer geometry at
    full width, batch 8, in all three modes, plus a Cin % 32 != 0 and a
    stride-2 VALID geometry: ``torch.equal``;
+4b. the dense backend's tensor-core kernels vs plain — the dense GeMM at
+   the shapes of phase 3 and the dense conv at the geometries of phase 4,
+   each mode, with and without bias: ``torch.equal`` to the plain version
+   and to the popcount kernel; the u8 and u4 kernels at every
+   ``GEMM_GRID`` shape and an odd depth, operands over the full 0..255 /
+   0..15 range: ``torch.equal``;
 5. the main path, launch counters zeroed just before and read just
    after: ``qmm`` and ``packed_matmul`` requests at the paper's GEMM_GRID
    diagonal in all three modes, then ``PaperCNN(PAPER_CNN)`` at full
@@ -27,13 +33,29 @@ without printing a result:
    run through the plain versions, layer by layer; each low-bit layer
    must equal the materializing oracle (im2col + ``qmm``); a small CNN
    on the card must match the CPU run to 1e-5;
+5b. the second main path, counters zeroed just before and read just
+   after: ``qmm`` at the GEMM_GRID diagonal for f32, u8, u4 and, on
+   ``backend="dense"``, TNN/TBN/BNN, then ``PaperCNN(PAPER_CNN,
+   backend="dense")`` on 4 batches of 256 (the first a warm-up).  Every
+   dense and affine kernel must have launched; the dense qmm outputs, the
+   dense CNN's logits and every layer's map must be ``torch.equal`` to
+   the popcount run's; u8/u4 ``qmm`` equal to the plain backend;
+5c. Table III on the card: the integer cores of the six algorithms (f32
+   ``torch.matmul``, the u8 and u4 kernels, the TNN/TBN/BNN popcount
+   int32 kernels) over all 64 ``GEMM_GRID`` shapes on pre-packed
+   operands — mean time per algorithm on the host clock (CUDA events
+   around back-to-back calls) and on the device (``torch.profiler``),
+   and the ratio matrix ``E[T_row / T_col]`` of
+   ``benchmarks/bench_matmul.py``;
 6. times — CUDA events after warm-up, per kernel x mode at the main
    path's shapes: kernel, plain version, the least time the card could
    take (popcounts at 16 per clock per SM on 132 SMs at the maximum SM
    clock, or bytes at 3.35 TB/s, whichever is larger) and one PyTorch
    call computing the same product on +-1/0 values (``library_ms``, a
    yardstick the port never calls), plus each kernel's own device time
-   and one CNN batch's device time by kernel from ``torch.profiler``;
+   and one CNN batch's device time by kernel from ``torch.profiler``
+   (popcount and dense); the tensor-core kernels' bound is 2*m*n*k at the
+   int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger;
 7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -65,6 +87,18 @@ GEMM_REPLACES = {
 CONV_REPLACES = "src/repro/kernels/conv_fused.py:369"
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/lowbit_gemm.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/lowbit_conv.cu"
+DENSE_SOURCE = "src/repro_torch/kernels/csrc/dense_tc.cu"
+AFFINE_SOURCE = "src/repro_torch/kernels/csrc/affine_gemm.cu"
+DENSE_GEMM_REPLACES = "src/repro/kernels/dense_fused.py:104"
+DENSE_CONV_REPLACES = "src/repro/kernels/dense_fused.py:181"
+AFFINE_REPLACES = {"u8": "src/repro/kernels/int8_matmul.py:28",
+                   "u4": "src/repro/kernels/int4_matmul.py:66"}
+INT8_OPS_PER_S = 1.979e15    # H100 SXM data sheet, dense int8 tensor cores
+TABLE3 = ("f32", "u8", "u4", "tnn", "tbn", "bnn")
+# The paper's Cortex-A73 speed-ups (time of the second / time of the
+# first), as benchmarks/bench_matmul.py prints them.
+PAPER_A73 = {"tnn/f32": 3.63, "tbn/f32": 3.75, "bnn/f32": 10.9, "tnn/u8": 2.51,
+             "tnn/u4": 1.44, "bnn/tnn": 2.99}
 BATCH, BATCHES = 256, 4
 
 
@@ -114,11 +148,39 @@ def profiled(fn):
     return sorted(rows, key=lambda r: -r[1]), host_ms
 
 
-def kernel_device_ms(fn, pattern: str):
-    """Device ms of the kernels named like ``pattern`` in one ``fn()``,
-    or None when the profiler recorded none."""
-    total = sum(ms for name, ms, _ in profiled(fn)[0] if pattern in name)
-    return total or None
+def kernel_device_ms(fn, pattern: str, reps: int = 1):
+    """Device ms per ``fn()`` of the kernels named like ``pattern`` (""
+    for every kernel), over ``reps`` calls, or None when the profiler
+    recorded none."""
+    def run():
+        for _ in range(reps):
+            fn()
+    total = sum(ms for name, ms, _ in profiled(run)[0] if pattern in name)
+    return total / reps or None
+
+
+def tc_bound(ops: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time for ``ops`` int8
+    tensor-core operations and ``nbytes`` of device memory traffic."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def layer_by_layer(cfg, model_a, model_b, x, check, name_of, what):
+    """Run two PaperCNNs on ``x`` layer by layer; every low-bit layer's
+    map must be equal (``check.equal`` under ``name_of(mode)``)."""
+    import torch
+
+    h_a = h_b = x
+    for i, (spec, la, lb) in enumerate(zip(cfg.convs, model_a.layers, model_b.layers)):
+        h_a, h_b = la(h_a), lb(h_b)
+        if spec.mode != "bf16":
+            check.equal(name_of(spec.mode), h_a, h_b, f"{what} layer {i}")
+        h_a, h_b = torch.relu(h_a), torch.relu(h_b)
+        if spec.pool:
+            b, hh, ww, c = h_a.shape
+            h_a = h_a.reshape(b, hh // 2, 2, ww // 2, 2, c).amax(dim=(2, 4))
+            h_b = h_b.reshape(b, hh // 2, 2, ww // 2, 2, c).amax(dim=(2, 4))
 
 
 class Checker:
@@ -187,7 +249,8 @@ def main() -> int:
         from repro_torch.cnn import PaperCNN
         from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
         from repro_torch.core import conv as tconv
-        from repro_torch.kernels import _build, conv_fused, ops
+        from repro_torch.kernels import (_build, conv_fused, dense_fused, int4_matmul,
+                                         int8_matmul, ops)
         from repro_torch.kernels.modes import QuantMode
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script ({e})",
@@ -274,6 +337,51 @@ def main() -> int:
     log(f"[conv] {len(geoms)} geometries x 3 modes x (no bias, bias): kernel == plain "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # -- 4b. dense and affine kernels vs plain ------------------------------
+    t0 = time.perf_counter()
+    for mode in MODES:
+        qm, popcount = QuantMode(mode), gemm_fns(mode)["_fused_cuda"]
+        for m, n, k in shapes:
+            a_pl, b_pl, row, col, bias = gemm_operands(mode, m, n, k, dev, gen)
+            for b in (None, bias):
+                got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, row, col, b)
+                what = f"dense gemm {mode} {m}x{n}x{k} bias={b is not None}"
+                check.equal(f"dense_gemm_{mode}", got, dense_fused.dense_matmul_fused_torch(
+                    qm, a_pl, b_pl, k, row, col, b), what)
+                if not torch.equal(got, popcount(*a_pl, *b_pl, k, row, col, b)):
+                    raise AssertionError(f"{what}: dense != popcount kernel")
+        for xs, fs, stride, padding in geoms:
+            x = torch.randn(xs, generator=gen, device=dev)
+            f = torch.randn(fs, generator=gen, device=dev)
+            bias = torch.randn((fs[-1],), generator=gen, device=dev)
+            for b in (None, bias):
+                qt = tconv.pack_conv_filters(f, qm, bias=b)
+                kh, kw_, _, cout = fs
+                args = (qm, x, conv_fused.conv_weight_planes(qt), qt.geometry, stride,
+                        padding, conv_fused.conv_act_stats(x, qm, kh, kw_, stride, padding),
+                        qt.scale.reshape(1, cout), None if b is None else b.reshape(1, cout))
+                got = dense_fused.dense_conv_fused_cuda(*args)
+                what = f"dense conv {mode} x{xs} f{fs} s{stride} {padding} bias={b is not None}"
+                check.equal(f"dense_conv_{mode}", got, dense_fused.dense_conv_fused_torch(*args),
+                            what)
+                if not torch.equal(got, ops.qconv(x, qt, stride=stride, padding=padding)):
+                    raise AssertionError(f"{what}: dense != popcount conv kernel")
+    affine_shapes = grid + [(37, 21, 131), (1, 1, 1)]
+    for m, n, k in affine_shapes:
+        a8 = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        b8 = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        check.equal("affine_gemm_u8", int8_matmul.int8_matmul_cuda(a8, b8),
+                    int8_matmul.int8_matmul_torch(a8, b8), f"u8 {m}x{n}x{k}")
+        pa = int4_matmul.pack_nibbles_rows(a8 >> 4)
+        pb = int4_matmul.pack_nibbles_cols(b8 & 0xF)
+        check.equal("affine_gemm_u4", int4_matmul.int4_matmul_cuda(pa, pb),
+                    int4_matmul.int4_matmul_torch(pa, pb), f"u4 {m}x{n}x{k}")
+    torch.cuda.synchronize()
+    log(f"[dense] gemm {len(shapes)} shapes, conv {len(geoms)} geometries, x 3 modes x "
+        f"(no bias, bias): kernel == plain == popcount kernel; [affine] u8 and u4 at "
+        f"{len(affine_shapes)} shapes, full-range operands: kernel == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # -- 5. the main path --------------------------------------------------
     rng = np.random.default_rng(0)
     requests = []
@@ -354,6 +462,112 @@ def main() -> int:
     log(f"[main] plain run equal layer by layer; conv == im2col+qmm oracle; small CNN "
         f"card vs CPU max abs err {err:.3g}")
 
+    # -- 5b. the second main path: f32/u8/u4 qmm, the dense backend ----------
+    diag = list(zip(GEMM_GRID["height"], GEMM_GRID["width"], GEMM_GRID["depth"]))
+    requests2 = []
+    for m, n, k in diag:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dev)
+        for mode in ("f32", "int8", "int4"):
+            requests2.append((mode, None, x, ops.pack_weights(w, QuantMode(mode))))
+        for mode in MODES:
+            requests2.append((mode, "dense", x, ops.pack_weights(w, QuantMode(mode))))
+    dense_model = PaperCNN(PAPER_CNN, seed=0, device=dev, backend="dense")
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    out2 = [ops.qmm(x, qt, backend=be) for _, be, x, qt in requests2]
+    dense_logits = [dense_model(images[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_logits += [dense_model(img) for img in images[1:]]
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    launches2 = _build.launches()
+
+    log(f"[main2] launches: {json.dumps(launches2, sort_keys=True)}")
+    expected2 = [f"dense_gemm_{m}" for m in MODES] + [f"dense_conv_{m}" for m in MODES] + \
+                ["affine_gemm_u8", "affine_gemm_u4"]
+    missing = [k for k in expected2 if launches2.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"second main path never launched {missing}")
+    for (mode, be, x, qt), y in zip(requests2, out2):
+        what = f"main-path qmm {mode} backend={be} {tuple(x.shape)}"
+        if y.shape != (x.shape[0], qt.out_features) or not torch.isfinite(y).all():
+            raise AssertionError(f"{what}: shape {tuple(y.shape)} or non-finite values")
+        if mode == "f32":
+            ref = torch.matmul(x.double(), qt.payload["w"].double())
+            if not torch.allclose(y.double(), ref, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"{what}: differs from the float64 product")
+        elif mode in ("int8", "int4"):
+            check.equal(f"affine_gemm_u{mode[-1]}", y, ops.qmm(x, qt, backend="torch"), what)
+        else:
+            check.equal(f"dense_gemm_{mode}", y, ops.qmm(x, qt, backend="torch"), what)
+            if not torch.equal(y, ops.qmm(x, qt)):
+                raise AssertionError(f"{what}: dense != popcount kernel")
+    for i, (got, want) in enumerate(zip(dense_logits, logits)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"dense CNN logits of batch {i} differ from the popcount CNN")
+    layer_by_layer(PAPER_CNN, dense_model, model, images[-1], check,
+                   lambda mode: f"dense_conv_{mode}", "dense vs popcount CNN")
+    log(f"[main2] PaperCNN(PAPER_CNN, backend=\"dense\") batch {BATCH}: "
+        f"{(BATCHES - 1) * BATCH / dense_s:.1f} images/s "
+        f"({dense_s * 1e3 / (BATCHES - 1):.3f} ms/batch, host clock) vs popcount "
+        f"{(BATCHES - 1) * BATCH / cnn_s:.1f} images/s ({cnn_s * 1e3 / (BATCHES - 1):.3f} "
+        f"ms/batch); logits and every layer's map equal to the popcount CNN's; qmm "
+        f"dense == popcount, u8/u4 == plain")
+
+    # -- 5c. Table III on the card -----------------------------------------
+    t0 = time.perf_counter()
+    t3_events = {a: [] for a in TABLE3}
+    t3_device = {a: [] for a in TABLE3}
+    for h, w, d in grid:
+        fa = torch.randn((h, d), generator=gen, device=dev)
+        fb = torch.randn((d, w), generator=gen, device=dev)
+        a8 = torch.randint(0, 256, (h, d), generator=gen, device=dev, dtype=torch.uint8)
+        b8 = torch.randint(0, 256, (d, w), generator=gen, device=dev, dtype=torch.uint8)
+        pa = int4_matmul.pack_nibbles_rows(a8 & 0xF)
+        pb = int4_matmul.pack_nibbles_cols(b8 & 0xF)
+        calls = {"f32": lambda: torch.matmul(fa, fb),
+                 "u8": lambda: int8_matmul.int8_matmul_cuda(a8, b8),
+                 "u4": lambda: int4_matmul.int4_matmul_cuda(pa, pb)}
+        for mode in MODES:
+            a_pl, b_pl, _, _, _ = gemm_operands(mode, h, w, d, dev, gen)
+            calls[mode] = (lambda f=gemm_fns(mode)["_cuda"], args=a_pl + b_pl + [d]: f(*args))
+        for algo in TABLE3:
+            t3_events[algo].append(cuda_ms(calls[algo], reps=20))
+            # a profiler session now and then records no device events:
+            # try again, and leave the shape out (nan) if it never does
+            dms = None
+            for _ in range(3):
+                dms = kernel_device_ms(calls[algo], "", reps=5)
+                if dms:
+                    break
+            t3_device[algo].append(dms or float("nan"))
+
+    def ratios(times):
+        return {f"{r}/{c}": float(np.nanmean([tr / tc for tr, tc in zip(times[r], times[c])]))
+                for r in TABLE3 for c in TABLE3}
+
+    r_events, r_device = ratios(t3_events), ratios(t3_device)
+    log("[table3] " + json.dumps({
+        "shapes": len(grid), "algos": list(TABLE3),
+        "what": "integer cores on pre-packed operands: f32 torch.matmul (TF32 off), "
+                "u8/u4 raw accumulator kernels, tnn/tbn/bnn popcount int32 kernels",
+        "mean_ms_events": {a: float(np.mean(v)) for a, v in t3_events.items()},
+        "mean_ms_device": {a: float(np.nanmean(v)) for a, v in t3_device.items()},
+        "device_shapes_measured": {a: int(np.isfinite(v).sum()) for a, v in t3_device.items()},
+        "grid_hwd": grid, "ms_events": t3_events, "ms_device": t3_device,
+        "ratio_events": r_events, "ratio_device": r_device,
+        "speedup_device_like_paper": {k: r_device[f"{k.split('/')[1]}/{k.split('/')[0]}"]
+                                      for k in PAPER_A73},
+        "speedup_events_like_paper": {k: r_events[f"{k.split('/')[1]}/{k.split('/')[0]}"]
+                                      for k in PAPER_A73},
+        "paper_a73_speedup": PAPER_A73, "seconds": time.perf_counter() - t0}))
+    log("[table3] device E[T_row / T_col]:   " + " ".join(f"{a:>7s}" for a in TABLE3))
+    for r in TABLE3:
+        log(f"[table3] {r:>26s} " + " ".join(f"{r_device[f'{r}/{c}']:7.3f}" for c in TABLE3))
+
     # -- 6. times ----------------------------------------------------------
     clk = max_sm_mhz * 1e6
 
@@ -370,6 +584,13 @@ def main() -> int:
         "cnn_batch_ms_host": batch_ms, "cnn_batch_ms_host_profiled": prof_ms,
         "device_kernel_ms": dev_ms, "device_busy_share": dev_ms / batch_ms,
         "top": [[name[:80], ms, calls] for name, ms, calls in rows[:12]]}))
+    rows_d, prof_ms_d = profiled(lambda: dense_model(images[-1]))
+    dev_ms_d = sum(r[1] for r in rows_d)
+    batch_ms_d = dense_s * 1e3 / (BATCHES - 1)
+    log("[profile dense] " + json.dumps({
+        "cnn_batch_ms_host": batch_ms_d, "cnn_batch_ms_host_profiled": prof_ms_d,
+        "device_kernel_ms": dev_ms_d, "device_busy_share": dev_ms_d / batch_ms_d,
+        "top": [[name[:80], ms, calls] for name, ms, calls in rows_d[:12]]}))
 
     kernels = []
     for mode in MODES:
@@ -394,8 +615,8 @@ def main() -> int:
                 ms += cuda_ms(lambda: kfn(*args), reps=200)
                 device_ms += kernel_device_ms(lambda: kfn(*args), "lowbit_gemm_kernel") or 0.0
                 plain_ms += cuda_ms(lambda: pfn(*args), reps=10)
-                av = ops._dense_values(a_pl, k, mode != "bnn").to(torch.bfloat16)
-                bv = ops._dense_values(b_pl, k, mode == "tnn").to(torch.bfloat16).t()
+                av = dense_fused.unpack_values(a_pl, k, mode != "bnn", torch.bfloat16)
+                bv = dense_fused.unpack_values(b_pl, k, mode == "tnn", torch.bfloat16).t()
                 lib_ms += cuda_ms(lambda: torch.matmul(av, bv), reps=200)
                 kw = a_pl[0].shape[1]
                 nbytes = 4 * kw * (m * len(a_pl) + n * len(b_pl)) + 4 * m * n + \
@@ -452,11 +673,121 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
             "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_bhwcok": shp})
 
+    for mode in MODES:
+        qm = QuantMode(mode)
+        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
+        by, shp = set(), []
+        for rmode, be, x, qt in requests2:
+            if rmode != mode or be != "dense":
+                continue
+            m, k = x.shape
+            n = qt.out_features
+            xa = ops.quantize_activations(x, qm)
+            a_pl = [xa[kk] for kk in ops._A_KEYS[qm]]
+            b_pl = list(ops._b_planes(qt, qm))
+            row = xa["scale"].reshape(1, 1).expand(m, 1).contiguous()
+            args = (qm, a_pl, b_pl, k, row, qt.scale.reshape(1, n))
+            ms += cuda_ms(lambda: dense_fused.dense_matmul_fused_cuda(*args), reps=200)
+            device_ms += kernel_device_ms(lambda: dense_fused.dense_matmul_fused_cuda(*args),
+                                          "dense_gemm_kernel") or 0.0
+            plain_ms += cuda_ms(lambda: dense_fused.dense_matmul_fused_torch(*args), reps=20)
+            av = dense_fused.unpack_values(a_pl, k, mode != "bnn", torch.bfloat16)
+            bv = dense_fused.unpack_values(b_pl, k, mode == "tnn", torch.bfloat16).t()
+            lib_ms += cuda_ms(lambda: torch.matmul(av, bv), reps=200)
+            kw = a_pl[0].shape[1]
+            nbytes = 4 * kw * (m * len(a_pl) + n * len(b_pl)) + 4 * m * n + 4 * (m + n)
+            b_ms, b_by = tc_bound(2 * m * n * k, nbytes)
+            bound_ms += b_ms
+            by.add(b_by)
+            shp.append([m, n, k])
+        name = f"dense_gemm_{mode}"
+        kernels.append({
+            "name": name, "route": "cuda", "source": DENSE_SOURCE,
+            "replaces": DENSE_GEMM_REPLACES, "launches": launches2.get(name, 0),
+            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
+            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
+
+    for mode in MODES:
+        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
+        by, shp = set(), []
+        for i, (spec, layer) in enumerate(zip(PAPER_CNN.convs, dense_model.layers)):
+            if spec.mode != mode:
+                continue
+            x = layer_inputs[i].contiguous()
+            qt = layer.packed
+            kh, kw_, cin, cout = qt.geometry
+            stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, spec.stride, "SAME")
+            planes = conv_fused.conv_weight_planes(qt)
+            args = (qt.mode, x, planes, qt.geometry, spec.stride, "SAME", stats,
+                    qt.scale.reshape(1, cout), None)
+            ms += cuda_ms(lambda: dense_fused.dense_conv_fused_cuda(*args), reps=20)
+            device_ms += kernel_device_ms(lambda: dense_fused.dense_conv_fused_cuda(*args),
+                                          "dense_conv_kernel") or 0.0
+            plain_ms += cuda_ms(lambda: dense_fused.dense_conv_fused_torch(*args), reps=3,
+                                warmup=1)
+            xq = conv_fused.quantize_patch_values(x, qt.mode, stats.get("thr")) \
+                .permute(0, 3, 1, 2).contiguous()
+            wq = torch.sign(qt.to_dense().reshape(kh, kw_, cin, cout).permute(3, 2, 0, 1))
+            wq = wq.contiguous()
+            lib_ms += cuda_ms(lambda: F.conv2d(xq, wq, stride=spec.stride,
+                                               padding=kh // 2), reps=20)
+            b, h, w, _ = x.shape
+            oh, ow, _, _ = conv_fused.conv_out_hw(h, w, kh, kw_, spec.stride, "SAME")
+            m, words = b * oh * ow, planes[0].shape[1]
+            nbytes = x.numel() * 4 + 4 * cout * words * len(planes) + 4 * m * cout + 4 * cout
+            b_ms, b_by = tc_bound(2 * m * cout * kh * kw_ * cin, nbytes)
+            bound_ms += b_ms
+            by.add(b_by)
+            shp.append([b, h, w, cin, cout, kh])
+        name = f"dense_conv_{mode}"
+        kernels.append({
+            "name": name, "route": "cuda", "source": DENSE_SOURCE,
+            "replaces": DENSE_CONV_REPLACES, "launches": launches2.get(name, 0),
+            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
+            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_bhwcok": shp})
+
+    for tag, qmode in (("u8", QuantMode.INT8), ("u4", QuantMode.INT4)):
+        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
+        by, shp = set(), []
+        for rmode, _, x, qt in requests2:
+            if rmode != qmode.value:
+                continue
+            m, k = x.shape
+            n = qt.out_features
+            a8 = ops.quantize_activations(x, qmode)["q"].to(torch.uint8)
+            b8 = qt.payload["q"].to(torch.uint8)
+            if tag == "u4":
+                ops_ = (int4_matmul.pack_nibbles_rows(a8), int4_matmul.pack_nibbles_cols(b8))
+                kfn, pfn = int4_matmul.int4_matmul_cuda, int4_matmul.int4_matmul_torch
+            else:
+                ops_ = (a8, b8)
+                kfn, pfn = int8_matmul.int8_matmul_cuda, int8_matmul.int8_matmul_torch
+            ms += cuda_ms(lambda: kfn(*ops_), reps=200)
+            device_ms += kernel_device_ms(lambda: kfn(*ops_), "affine_gemm_kernel") or 0.0
+            plain_ms += cuda_ms(lambda: pfn(*ops_), reps=20)
+            ad, bd = a8.double(), b8.double()
+            lib_ms += cuda_ms(lambda: torch.matmul(ad, bd), reps=200)
+            nbytes = ops_[0].numel() + ops_[1].numel() + 4 * m * n
+            b_ms, b_by = tc_bound(2 * m * n * k, nbytes)
+            bound_ms += b_ms
+            by.add(b_by)
+            shp.append([m, n, k])
+        name = f"affine_gemm_{tag}"
+        kernels.append({
+            "name": name, "route": "cuda", "source": AFFINE_SOURCE,
+            "replaces": AFFINE_REPLACES[tag], "launches": launches2.get(name, 0),
+            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
+            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
+
     log(f"[times] per kernel: ms = sum over the main path's calls of that kernel "
-        f"(GeMM: one request per GEMM_GRID diagonal shape; conv: one batch of "
-        f"{BATCH}), CUDA events around back-to-back wrapper calls; device_ms = the "
-        f"kernels' own device time from torch.profiler; bound at max SM clock "
-        f"{max_sm_mhz:.0f} MHz; total run {time.perf_counter() - t_start:.1f} s")
+        f"(GeMM, dense GeMM, u8/u4: one request per GEMM_GRID diagonal shape; conv, "
+        f"dense conv: one batch of {BATCH}), CUDA events around back-to-back wrapper "
+        f"calls; device_ms = the kernels' own device time from torch.profiler; popcount "
+        f"bound at max SM clock {max_sm_mhz:.0f} MHz, tensor-core bound at 1,979 TOP/s "
+        f"int8; total run {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,11 @@
 """Weights across from the JAX package, as numpy arrays only.
 
-The JAX package's ``QTensor`` leaves are uint32 bit planes and float32
+The JAX package's ``QTensor`` leaves are uint32 bit planes, int32 affine
+grids and zero points, float32 (or bfloat16) matrices and float32
 scales; ``np.asarray`` of each gives arrays that load here bit for bit
-(``uint32 -> int32`` is a free view).  The port imports nothing of the
-JAX package: the caller hands over the arrays and the static fields.
+(``uint32 -> int32`` is a free view, bfloat16 widens exactly to float32
+on the way and narrows back).  The port imports nothing of the JAX
+package: the caller hands over the arrays and the static fields.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from repro_torch.cnn import PaperCNN
 from repro_torch.configs.paper_cnn import PAPER_CNN, CNNConfig
 from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
-from repro_torch.kernels.qtensor import LAYOUT_BITPLANE, QTensor
+from repro_torch.kernels.qtensor import (LAYOUT_AFFINE, LAYOUT_BITPLANE,
+                                         LAYOUT_DENSE, QTensor)
 
 __all__ = ["qtensor_from_numpy", "qtensor_to_numpy", "paper_cnn_from_numpy"]
 
@@ -25,37 +28,61 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    elif a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _layout(mode: QuantMode) -> str:
+    if mode.is_float:
+        return LAYOUT_DENSE
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        return LAYOUT_AFFINE
+    return LAYOUT_BITPLANE
 
 
 def qtensor_from_numpy(payload: Dict[str, np.ndarray], scale, bias, mode,
                        shape: Tuple[int, int],
                        geometry: Optional[Tuple[int, int, int, int]] = None,
-                       device=DEFAULT_DEVICE) -> QTensor:
-    """A bit-plane QTensor from the leaves of a JAX-packed one: ``payload``
-    {key: uint32 array} (positional planes included when present),
-    ``scale`` and ``bias`` (or None) float arrays, ``mode`` (QuantMode or
-    its value), the logical (k, n) ``shape`` and the conv ``geometry``."""
+                       device=DEFAULT_DEVICE, zero=None) -> QTensor:
+    """A QTensor from the leaves of a JAX-packed one: ``payload`` {key:
+    array} (uint32 bit planes, positional planes included when present;
+    the int32 grid ``q`` of u8/u4; the matrix ``w`` of f32/bf16),
+    ``scale``, ``bias`` and the affine ``zero`` (or None), ``mode``
+    (QuantMode or its value), the logical (k, n) ``shape`` and the conv
+    ``geometry``.  The layout follows the mode."""
     dev = resolve_device(device)
+    mode = QuantMode(mode)
+    tensors = {k: _tensor(v, dev) for k, v in payload.items()}
+    if mode == QuantMode.BF16:
+        tensors["w"] = tensors["w"].to(torch.bfloat16)
+
+    def opt(a):
+        return None if a is None else _tensor(a, dev)
+
     return QTensor(
-        payload={k: _tensor(v, dev) for k, v in payload.items()},
-        scale=None if scale is None else _tensor(scale, dev),
-        mode=QuantMode(mode), shape=(int(shape[0]), int(shape[1])),
-        bias=None if bias is None else _tensor(bias, dev),
+        payload=tensors, scale=opt(scale), mode=mode,
+        shape=(int(shape[0]), int(shape[1])), bias=opt(bias), zero=opt(zero),
         geometry=None if geometry is None else tuple(int(g) for g in geometry),
-        layout=LAYOUT_BITPLANE)
+        layout=_layout(mode))
 
 
 def qtensor_to_numpy(qt: QTensor) -> Dict[str, object]:
-    """The inverse: the payload as uint32 arrays, scale and bias as float
-    arrays, and the static fields — the keyword arguments of
+    """The inverse: bit planes as uint32 arrays, the affine grid as int32,
+    a float matrix as float32 (bf16 widened exactly), scale, bias and zero
+    as arrays, and the static fields — the keyword arguments of
     :func:`qtensor_from_numpy` minus ``device``."""
     def host(t):
-        return None if t is None else t.detach().cpu().numpy()
-    return {"payload": {k: host(v).view(np.uint32)
+        if t is None:
+            return None
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    bitplane = qt.layout == LAYOUT_BITPLANE
+    return {"payload": {k: host(v).view(np.uint32) if bitplane else host(v)
                         for k, v in qt.payload.items()},
             "scale": host(qt.scale), "bias": host(qt.bias),
-            "mode": qt.mode.value, "shape": qt.shape,
+            "zero": host(qt.zero), "mode": qt.mode.value, "shape": qt.shape,
             "geometry": qt.geometry}
 
 

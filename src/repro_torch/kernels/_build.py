@@ -39,25 +39,38 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # library name -> its source in csrc/
-SOURCES = {"lowbit_gemm": "lowbit_gemm.cu", "lowbit_conv": "lowbit_conv.cu"}
+SOURCES = {"lowbit_gemm": "lowbit_gemm.cu", "lowbit_conv": "lowbit_conv.cu",
+           "dense_tc": "dense_tc.cu", "affine_gemm": "affine_gemm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> (entry point, argtypes); every entry point returns int
+# library name -> {entry point: argtypes}; every entry point returns int
 _SIGNATURES = {
     # mode, fused, a0, a1, b0, b1, m, n, kw, k_valid, row, col, bias, out,
     # stream
-    "lowbit_gemm": ("lowbit_gemm_launch",
+    "lowbit_gemm": {"lowbit_gemm_launch":
                     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                     _P]),
+                     _P]},
     # mode, x, B, H, W, C, kh, kw, stride, pad_top, pad_left, OH, OW,
     # b0, b1, cout, words, k_valid, thr, scale, col, bias, out, stream
-    "lowbit_conv": ("lowbit_conv_launch",
+    "lowbit_conv": {"lowbit_conv_launch":
                     [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+                     _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]},
+    "dense_tc": {
+        # mode, a0, a1, b0, b1, m, n, kw, k_valid, row, col, bias, out,
+        # stream
+        "dense_gemm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                              _P, _P, _P],
+        # mode, x, B, H, W, C, kh, kw, stride, pad_top, pad_left, OH, OW,
+        # b0, b1, cout, words, thr, scale, col, bias, out, stream
+        "dense_conv_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P]},
+    # u4, a, b, m, n, k, out, stream
+    "affine_gemm": {"affine_gemm_launch": [_I, _P, _P, _I, _I, _I, _P, _P]},
 }
 
 _LOCK = threading.Lock()
@@ -132,10 +145,10 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     path = build([name])[name]
     lib = ctypes.CDLL(str(path))
-    entry, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for entry, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.lowbit_error_string.argtypes = [ctypes.c_int]
     lib.lowbit_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

@@ -32,9 +32,9 @@
 // below 3.35 TB/s.  The design keeps the packed tile in shared memory so
 // the 32x smaller words, not floats, feed the popcount loop.  Not done
 // yet (later work): quantize and pack each input pixel once per CTA
-// instead of once per patch position, double-buffer the staging, and the
-// tensor-core route (+-1/0 int8 or bf16 operands through wgmma, as the
-// reference's dense conv kernel does on the MXU).
+// instead of once per patch position and double-buffer the staging.  The
+// tensor-core route (+-1/0 int8 operands, as the reference's dense conv
+// kernel does on the MXU) is dense_tc.cu's dense_conv_kernel.
 //
 // Built with --fmad=false; the epilogue uses __fmul_rn/__fadd_rn, so the
 // output is bit for bit the plain PyTorch version's.

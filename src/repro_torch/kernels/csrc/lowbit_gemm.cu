@@ -26,10 +26,9 @@
 // is POPC and logic with few shared-memory loads; 32-bit popcounts of
 // whole words (not bytes, as the paper's NEON CNT) keep the POPC count at
 // its minimum.  Not done yet (later work): double-buffered cp.async/TMA
-// staging, and the tensor-core route — unpack the planes to +-1/0 int8 or
-// bf16 in shared memory and run wgmma, as the reference's dense backend
-// does on the MXU — which trades the POPC bound for the much higher
-// int8 tensor rate.
+// staging.  The tensor-core route — the planes decoded to +-1/0 int8 in
+// shared memory, as the reference's dense backend does on the MXU — is
+// the dense backend's kernel, dense_tc.cu.
 //
 // Built with --fmad=false; the epilogue also uses __fmul_rn/__fadd_rn, so
 // each multiply and the add round on their own and the output is bit for

@@ -1,0 +1,166 @@
+// Tensor-core tile shared by the Hopper dense and affine kernels
+// (dense_tc.cu, affine_gemm.cu): 8-bit operands staged in shared memory,
+// nvcuda::wmma 16x16x16 products with int32 accumulators, and the
+// accumulator tile written back through shared memory.
+//
+// A CTA of 128 threads (4 warps, 2 x 2) owns one BM x BN output tile and
+// loops over the depth itself, BK values per step; each warp keeps a
+// 32 x 32 block of the tile as 2 x 2 int32 accumulator fragments.  An
+// operand tile is stored as BK / 16 slabs of 16 depth values, each row
+// 16 bytes, so every 16 x 16 fragment starts on a 256-byte boundary (wmma
+// wants 256-bit aligned fragment pointers) and both operands load with
+// ldm = 16: A row-major (row r, depth d at r*16 + d), B column-major
+// (depth d, column c at c*16 + d).  Values past an operand's rows or depth
+// are staged as 0 and contribute nothing.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include "lowbit_core.cuh"   // Mode, Planes, lowbit_error_string
+
+namespace tc {
+
+using namespace nvcuda;
+
+constexpr int BM = 64;            // output rows per CTA
+constexpr int BN = 64;            // output columns per CTA
+constexpr int BK = 128;           // depth values per step
+constexpr int BKW = BK / 32;      // depth words of bit planes per step
+constexpr int KS = BK / 16;       // 16-deep slabs per step
+constexpr int THREADS = 128;      // 4 warps, 2 x 2 over the tile
+constexpr int CLD = BN + 4;       // accumulator row stride in shared memory
+
+template <typename T, int ROWS> struct alignas(128) Operand {
+  T v[KS][ROWS][16];
+};
+
+// The operand tiles of a step, and afterwards the accumulator tile in
+// their place (every warp passes a __syncthreads() before the switch).
+template <typename T> struct alignas(128) Smem {
+  union {
+    struct {
+      Operand<T, BM> a;
+      Operand<T, BN> b;
+    } in;
+    int c[BM][CLD];
+  };
+};
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+
+__device__ __forceinline__ void zero_acc(Acc (&acc)[2][2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+}
+
+// acc += the staged A slab x B slab products of this warp's 32 x 32 block
+// (warp row wr, warp column wc of the 2 x 2 arrangement).
+template <typename T>
+__device__ __forceinline__ void mma_step(const Smem<T>& s, int wr, int wc,
+                                         Acc (&acc)[2][2]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wmma::load_matrix_sync(fa[i], &s.in.a.v[ks][wr * 32 + i * 16][0], 16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::load_matrix_sync(fb[j], &s.in.b.v[ks][wc * 32 + j * 16][0], 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+// Write the accumulators into s.c.  Call after the last step's trailing
+// __syncthreads(); s.c is complete after the __syncthreads() here.
+template <typename T>
+__device__ __forceinline__ void store_acc(Smem<T>& s, int wr, int wc,
+                                          const Acc (&acc)[2][2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&s.c[wr * 32 + i * 16][wc * 32 + j * 16],
+                              acc[i][j], CLD, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// Decode bit-plane words [w0, w0 + BKW) of rows [row0, row0 + ROWS) into
+// +-1/0 int8 values: ternary (plus, minus) -> plus - minus, binary bit b
+// -> 1 - 2b.  Rows past nrows, words past kw and depth >= k_zero stage 0.
+// One thread decodes one (row, word) pair into 32 bytes, two 16-byte
+// stores (one per slab).
+template <bool TERNARY, int ROWS>
+__device__ __forceinline__ void stage_planes(Operand<int8_t, ROWS>& dst,
+                                             const uint32_t* __restrict__ p0,
+                                             const uint32_t* __restrict__ p1,
+                                             int row0, int nrows, int w0,
+                                             int kw, int k_zero) {
+  for (int i = threadIdx.x; i < ROWS * BKW; i += THREADS) {
+    const int r = i / BKW, w = i % BKW;
+    const int gr = row0 + r, gw = w0 + w;
+    uint32_t plus = 0, minus = 0, live = 0;
+    if (gr < nrows && gw < kw) {
+      const size_t off = static_cast<size_t>(gr) * kw + gw;
+      plus = __ldg(p0 + off);
+      if constexpr (TERNARY) minus = __ldg(p1 + off);
+      const long long left = static_cast<long long>(k_zero) - 32LL * gw;
+      live = left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
+    }
+    uint32_t bytes[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int bit = q * 4 + b;
+        int v;
+        if constexpr (TERNARY)
+          v = static_cast<int>((plus >> bit) & 1u) - static_cast<int>((minus >> bit) & 1u);
+        else
+          v = 1 - 2 * static_cast<int>((plus >> bit) & 1u);
+        if (!((live >> bit) & 1u)) v = 0;
+        word |= (static_cast<uint32_t>(v) & 0xffu) << (8 * b);
+      }
+      bytes[q] = word;
+    }
+    *reinterpret_cast<uint4*>(&dst.v[2 * w][r][0]) =
+        make_uint4(bytes[0], bytes[1], bytes[2], bytes[3]);
+    *reinterpret_cast<uint4*>(&dst.v[2 * w + 1][r][0]) =
+        make_uint4(bytes[4], bytes[5], bytes[6], bytes[7]);
+  }
+}
+
+// eq. (2) on the accumulator tile: out[gm, gn] = acc * row[gm * row_stride]
+// * col[gn] (+ bias[gn]), each step rounded on its own in the reference's
+// order (row_stride 0: one per-tensor scale).  Ragged edges are masked.
+template <typename T>
+__device__ __forceinline__ void store_scaled(const Smem<T>& s, int m0, int n0,
+                                             int m, int n,
+                                             const float* __restrict__ row,
+                                             int row_stride,
+                                             const float* __restrict__ col,
+                                             const float* __restrict__ bias,
+                                             float* __restrict__ out) {
+  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= m || gn >= n) continue;
+    float y = __fmul_rn(__fmul_rn(__int2float_rn(s.c[r][c]),
+                                  __ldg(row + static_cast<size_t>(gm) * row_stride)),
+                        __ldg(col + gn));
+    if (bias != nullptr) y = __fadd_rn(y, __ldg(bias + gn));
+    out[static_cast<size_t>(gm) * n + gn] = y;
+  }
+}
+
+}  // namespace tc

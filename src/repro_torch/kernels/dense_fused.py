@@ -1,0 +1,278 @@
+"""Dense backend: the bit planes decoded to +-1/0 values and multiplied on
+the tensor cores, for both registry layouts.
+
+Counterpart of ``repro/kernels/dense_fused.py``.  The packed bit-plane
+words are what travels from device memory; the decode to +-1/0 happens
+on chip, ahead of the product, and the eq. (2) epilogue runs in-kernel:
+
+* gemm (``dense_matmul_fused_cuda``, replaces
+  ``dense_matmul_fused_pallas``): ``csrc/dense_tc.cu`` decodes a tile of
+  each operand's planes to int8 in shared memory and runs wmma with int32
+  accumulators;
+* im2col_fused (``dense_conv_fused_cuda``, replaces
+  ``dense_conv_fused_pallas``): the same kernel file gathers the raw
+  patch values per CTA, quantizes them to +-1/0 with the per-tensor
+  statistics, decodes the positional weight words beside them, and
+  multiplies; the im2col matrix never exists.
+
+Both register under ``(mode, "dense", fused=True)`` for their layout; on
+CPU tensors they run their plain versions.  The plain versions
+(``dense_matmul_fused_torch``, ``dense_conv_fused_torch``) unpack with
+``encoding.unpack_*`` and ``conv_fused.gather_patch_tile`` /
+``quantize_patch_values`` and take float32 products in row chunks with
+TF32 off.  Every count is exact — the products are +-1/0 and every
+partial sum an integer below 2**24 — so all three (kernel, plain,
+popcount backends) give the same integers, and with the shared epilogue
+order the same floats.  The materializing unfused oracle
+``(mode, "dense", fused=False)`` is :func:`dense_matmul_torch` (registered
+in ``ops``).
+
+Binary padding: zero pad bits decode to +1 on both operands, so the BNN
+gemm zeroes A past ``k_valid`` (the plain version slices to ``k_valid``);
+the conv uses only the first Cin bits of each patch position's words.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.core import encoding
+from repro_torch.kernels import _build, registry
+from repro_torch.kernels._matmul_common import (
+    _MODE_ID, _PLANES, _check_planes, _ptr, check_f32_vec, on_cuda,
+    scale_epilogue)
+from repro_torch.kernels.conv_fused import (
+    conv_out_hw, conv_spatial_pad, gather_patch_tile, quantize_patch_values)
+from repro_torch.kernels.modes import QuantMode
+
+__all__ = ["unpack_values", "dense_matmul_torch", "dense_matmul_fused_torch",
+           "dense_matmul_fused_cuda", "dense_conv_fused_torch",
+           "dense_conv_fused_cuda"]
+
+# Which side carries two (plus, minus) planes vs one sign plane.
+_TERNARY_A = {mode: planes[0] == 2 for mode, planes in _PLANES.items()}
+_TERNARY_B = {mode: planes[1] == 2 for mode, planes in _PLANES.items()}
+
+# Elements of a float32 operand chunk the plain versions unpack at once.
+_CHUNK_ELEMS = 1 << 24
+
+
+def unpack_values(planes: Sequence[torch.Tensor], k: int, ternary: bool,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Bit-plane words (rows, kw) -> +-1/0 values (rows, k)."""
+    if ternary:
+        return encoding.unpack_ternary(planes[0], planes[1], k, dtype)
+    return encoding.unpack_binary(planes[0], k, dtype)
+
+
+def _exact_f32_product(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a (m, k) @ b_t.T (k, n) for +-1/0 float32 values -> int32, in row
+    chunks; exact with TF32 off, since |partial sums| <= k < 2**24."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = max(1, _CHUNK_ELEMS // max(1, a.shape[1]))
+    out = torch.empty((a.shape[0], b_t.shape[0]), dtype=torch.int32,
+                      device=a.device)
+    for r0 in range(0, a.shape[0], rows):
+        out[r0:r0 + rows] = torch.matmul(a[r0:r0 + rows], b_t.t()).to(torch.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gemm layout
+# ---------------------------------------------------------------------------
+
+def dense_matmul_torch(mode: QuantMode, a_planes, b_planes,
+                       k_valid: int) -> torch.Tensor:
+    """Materializing dense core: unpack both operands to +-1/0 (sliced to
+    ``k_valid``), one exact product -> int32 (m, n).  The unfused
+    ``(mode, "dense")`` cell and the oracle of the dense kernels."""
+    av = unpack_values(a_planes, k_valid, _TERNARY_A[mode])
+    bv = unpack_values(b_planes, k_valid, _TERNARY_B[mode])
+    return _exact_f32_product(av, bv)
+
+
+def dense_matmul_fused_torch(mode: QuantMode, a_planes, b_planes,
+                             k_valid: int, row_scale: torch.Tensor,
+                             col_scale: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain fused dense GeMM: float32 (m, n); row_scale (m, 1), col_scale
+    and bias (1, n)."""
+    acc = dense_matmul_torch(mode, a_planes, b_planes, k_valid)
+    return scale_epilogue(acc, row_scale, col_scale, bias)
+
+
+def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
+                            k_valid: int, row_scale: torch.Tensor,
+                            col_scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused dense GeMM, float32 (m, n): ``csrc/dense_tc.cu`` on CUDA
+    operands (raises on anything it does not take), the plain version on
+    CPU operands."""
+    if not on_cuda(*a_planes, *b_planes, row_scale, col_scale, bias):
+        return dense_matmul_fused_torch(mode, a_planes, b_planes, k_valid,
+                                        row_scale, col_scale, bias)
+    na, nb = _PLANES[mode]
+    _check_planes("a", a_planes, na)
+    m, kw = a_planes[0].shape
+    _check_planes("b", b_planes, nb, rows_kw=kw)
+    n = b_planes[0].shape[0]
+    dev = a_planes[0].device
+    if b_planes[0].device != dev:
+        raise ValueError(f"dense GeMM operands on {dev} and {b_planes[0].device}")
+    row = row_scale.reshape(-1).contiguous()
+    col = col_scale.reshape(-1).contiguous()
+    bias = None if bias is None else bias.reshape(-1).contiguous()
+    check_f32_vec("row_scale", row, m, dev)
+    check_f32_vec("col_scale", col, n, dev)
+    check_f32_vec("bias", bias, n, dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = _build.load("dense_tc")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dense_gemm_launch(
+            _MODE_ID[mode], _ptr(a_planes[0]), _ptr(a_planes[-1]),
+            _ptr(b_planes[0]), _ptr(b_planes[-1]), m, n, kw, int(k_valid),
+            _ptr(row), _ptr(col), _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
+    _build.check_launch(lib, rc, f"dense_gemm[{mode.value}]")
+    _build.count_launch(f"dense_gemm_{mode.value}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# im2col_fused layout
+# ---------------------------------------------------------------------------
+
+def _weight_values(mode: QuantMode, b_planes, geometry) -> torch.Tensor:
+    """Positional weight words (cout, kh*kw*cw) -> +-1/0 (cout, kh*kw*cin):
+    each position's first Cin bits, its in-word pads dropped."""
+    kh, kw, cin, cout = geometry
+    cw = -(-cin // 32)
+
+    def bits(p):
+        return encoding.unpack_bits(p.reshape(cout, kh * kw, cw), cw * 32)[..., :cin]
+
+    if _TERNARY_B[mode]:
+        vals = bits(b_planes[0]) - bits(b_planes[1])
+    else:
+        vals = 1 - 2 * bits(b_planes[0])
+    return vals.reshape(cout, kh * kw * cin).to(torch.float32)
+
+
+def dense_conv_fused_torch(mode: QuantMode, x: torch.Tensor, b_planes,
+                           geometry, stride: int, padding: str,
+                           stats: Dict[str, torch.Tensor],
+                           col_scale: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain fused dense conv -> float32 (B, OH, OW, Cout): patch tiles
+    gathered from the padded input and quantized to +-1/0, times the
+    unpacked positional weights, then eq. (2) with the scalar act scale;
+    col_scale and bias (1, Cout)."""
+    kh, kw, cin, cout = geometry
+    xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride,
+                                    padding)
+    bsz = xp.shape[0]
+    m = bsz * oh * ow
+    wv = _weight_values(mode, b_planes, geometry)
+    thr = None if mode == QuantMode.BNN else stats["thr"]
+    rows = max(1, min(m, _CHUNK_ELEMS // (kh * kw * cin)))
+    acc = torch.empty((m, cout), dtype=torch.int32, device=xp.device)
+    for pid in range(-(-m // rows)):
+        patch = gather_patch_tile(xp, pid, block_m=rows, m=m, oh=oh, ow=ow,
+                                  stride=stride, kh=kh, kw=kw)
+        av = quantize_patch_values(patch, mode, thr).reshape(rows, -1)
+        r0 = pid * rows
+        acc[r0:r0 + rows] = _exact_f32_product(av, wv)[:m - r0]
+    y = scale_epilogue(acc, stats["scale"].reshape(1, 1), col_scale, bias)
+    return y.reshape(bsz, oh, ow, cout)
+
+
+def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
+                          geometry, stride: int, padding: str,
+                          stats: Dict[str, torch.Tensor],
+                          col_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused dense conv -> float32 (B, OH, OW, Cout): ``csrc/dense_tc.cu``
+    on CUDA operands (raises on anything it does not take), the plain
+    version on CPU operands."""
+    if not on_cuda(x, *b_planes, *stats.values(), col_scale, bias):
+        return dense_conv_fused_torch(mode, x, b_planes, geometry, stride,
+                                      padding, stats, col_scale, bias)
+    kh, kw, cin, cout = geometry
+    if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"dense conv kernel needs contiguous float32 (B, H, "
+                         f"W, Cin), got {x.dtype} {tuple(x.shape)}")
+    bsz, h, w, c = x.shape
+    if c != cin:
+        raise ValueError(f"channel mismatch: x has {c}, geometry {geometry}")
+    dev = x.device
+    words = kh * kw * (-(-cin // 32))
+    _check_planes("b", b_planes, 2 if _TERNARY_B[mode] else 1, rows_kw=words)
+    if b_planes[0].device != dev or b_planes[0].shape[0] != cout:
+        raise ValueError(f"weight planes must be ({cout}, {words}) on {dev}, "
+                         f"got {tuple(b_planes[0].shape)} on {b_planes[0].device}")
+    scale = stats["scale"]
+    thr = None if mode == QuantMode.BNN else stats["thr"]
+    check_f32_vec("scale", scale, 1, dev)
+    check_f32_vec("thr", thr, 1, dev)
+    col = col_scale.reshape(-1).contiguous()
+    bias = None if bias is None else bias.reshape(-1).contiguous()
+    check_f32_vec("col_scale", col, cout, dev)
+    check_f32_vec("bias", bias, cout, dev)
+    oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
+    m = bsz * oh * ow
+    if m >= 2**31 or x.numel() >= 2**31:
+        raise ValueError("dense conv kernel indexes pixels with 32-bit ints")
+    out = torch.empty((m, cout), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out.reshape(bsz, oh, ow, cout)
+    lib = _build.load("dense_tc")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dense_conv_launch(
+            _MODE_ID[mode], _ptr(x), bsz, h, w, c, kh, kw, stride, ph // 2,
+            pw // 2, oh, ow, _ptr(b_planes[0]), _ptr(b_planes[-1]), cout,
+            words, _ptr(thr), _ptr(scale), _ptr(col), _ptr(bias), _ptr(out),
+            ctypes.c_void_p(stream))
+    _build.check_launch(lib, rc, f"dense_conv[{mode.value}]")
+    _build.count_launch(f"dense_conv_{mode.value}")
+    return out.reshape(bsz, oh, ow, cout)
+
+
+# ---------------------------------------------------------------------------
+# Registration — (mode, "dense", fused=True) for gemm AND im2col_fused
+# ---------------------------------------------------------------------------
+
+def _register_dense_kernels():
+    def make_gemm(mode):
+        def fn(a, b, k, r, c, bias, *, tiles=None):
+            return dense_matmul_fused_cuda(mode, a, b, k, r, c, bias)
+        return fn
+
+    def make_conv(mode):
+        def fn(x, b_planes, geometry, stride, padding, stats, col_scale,
+               bias, *, tiles=None):
+            return dense_conv_fused_cuda(mode, x, b_planes, geometry, stride,
+                                         padding, stats, col_scale, bias)
+        return fn
+
+    for mode in (QuantMode.BNN, QuantMode.TNN, QuantMode.TBN):
+        registry.register(
+            mode, "dense", fused=True, epilogue="in-kernel",
+            compute="cuda-imma",
+            description="csrc/dense_tc.cu: planes decoded to +-1/0 int8 in "
+                        "shared memory, wmma s8 -> s32, eq. (2) in-kernel",
+        )(make_gemm(mode))
+        registry.register(
+            mode, "dense", fused=True, layout=registry.LAYOUT_IM2COL,
+            epilogue="in-kernel", compute="cuda-imma",
+            description="csrc/dense_tc.cu: per-CTA patch gather + quantize "
+                        "to int8, weight decode, wmma, epilogue in-kernel",
+        )(make_conv(mode))
+
+
+_register_dense_kernels()

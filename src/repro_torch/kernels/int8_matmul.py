@@ -1,0 +1,84 @@
+"""u8 (gemmlowp-style) matmul, the paper's U8 baseline: the Hopper kernel
+``csrc/affine_gemm.cu`` and its plain PyTorch version.
+
+Counterpart of ``repro/kernels/int8_matmul.py`` (``int8_matmul_pallas``):
+the raw accumulator ``A_q @ B_q`` in int32, the first term of eq. (3).
+The zero-point terms are rank-1 and are applied outside the kernel
+(``ops._affine_core``), as the reference applies them outside Pallas.
+
+The operands are **unsigned**: a (m, k) and b (k, n) ``torch.uint8``
+holding 0..255.  An int8 cast would wrap 128..255, which is why
+``torch._int_mm`` (signed int8 only) cannot compute this product.
+
+``int8_matmul_cuda`` launches the kernel on CUDA tensors (or raises) and
+runs ``int8_matmul_torch`` on CPU tensors.  The plain version is one
+float64 product: exact while ``k * 255**2 < 2**53``, on the CPU and on
+the card alike, so ``chip_smoke.py`` can compare at full size.  Both
+wrap modulo 2**32 past the int32 range, as XLA's int32 dot does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._matmul_common import on_cuda
+
+__all__ = ["int8_matmul_cuda", "int8_matmul_torch", "exact_int_matmul",
+           "affine_gemm_call"]
+
+
+def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) x (k, n) non-negative integer tensors -> int32 (m, n), exact
+    through a float64 product while ``k * max(a) * max(b) < 2**53``;
+    wraps modulo 2**32 past the int32 range."""
+    acc = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+    return acc.to(torch.int64).to(torch.int32)
+
+
+def int8_matmul_torch(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
+    """Plain raw accumulator of u8 operands: int32 (m, n)."""
+    return exact_int_matmul(a_u8, b_u8)
+
+
+def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """Launch ``csrc/affine_gemm.cu`` on CUDA uint8 operands: u8 a (m, k),
+    b (k, n), or nibble-packed a (m, k/2), b (k/2, n) with ``k`` even.
+    Raises on anything the kernel does not take; never falls back."""
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.uint8 or t.ndim != 2 or not t.is_contiguous():
+            raise TypeError(f"{name}: expected a contiguous 2-D torch.uint8 "
+                            f"tensor, got {t.dtype} {tuple(t.shape)}")
+    dev = a.device
+    if dev.type != "cuda" or b.device != dev:
+        raise ValueError(f"affine GeMM kernel needs CUDA operands on one "
+                         f"device, got {a.device} and {b.device}")
+    m, ka = a.shape
+    kb, n = b.shape
+    if ka != kb or k != (2 * ka if u4 else ka):
+        raise ValueError(f"depth mismatch: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, k={k}")
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    lib = _build.load("affine_gemm")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_gemm_launch(
+            int(u4), ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            m, n, k, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    name = "affine_gemm_u4" if u4 else "affine_gemm_u8"
+    _build.check_launch(lib, rc, name)
+    _build.count_launch(name)
+    return out
+
+
+def int8_matmul_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
+    """Raw accumulator, int32 (m, n): the kernel on CUDA operands, the
+    plain version on CPU operands."""
+    if not on_cuda(a_u8, b_u8):
+        return int8_matmul_torch(a_u8, b_u8)
+    return affine_gemm_call(False, a_u8, b_u8, a_u8.shape[1])

@@ -1,4 +1,4 @@
-"""Public entry points of the low-bit kernels: ``pack_weights``, ``qmm``,
+"""Public entry points of the kernels: ``pack_weights``, ``qmm``,
 ``qconv``.
 
 Counterpart of the GeMM and conv half of ``repro/kernels/ops.py``:
@@ -7,21 +7,26 @@ Counterpart of the GeMM and conv half of ``repro/kernels/ops.py``:
   packing, the paper's Algorithm 2 PackedB;
 * ``qmm(x, qt)`` — float activations x packed weights -> float32:
   ternarize/binarize -> pack -> popcount GeMM -> eq. (2) epilogue, the
-  last two in one kernel launch on the card;
-* ``qconv(x, qt)`` — the same through the implicit-im2col conv kernel;
-* ``packed_matmul(xa, qt)`` — the int32 core alone.
+  last two in one kernel launch on the card; u8/u4 run the affine eq. (3)
+  pipeline (raw accumulator kernel, rank-1 zero-point terms, eq. (2));
+  f32/bf16 are a float32 product;
+* ``qconv(x, qt)`` — the low-bit modes through an implicit-im2col conv
+  kernel;
+* ``packed_matmul(xa, qt)`` — the low-bit int32 core alone;
+* ``lowbit_matmul``, ``int8_affine_matmul``, ``int4_affine_matmul`` —
+  the integer cores on unpacked operands (Table III's entries).
 
 Kernels are chosen through :mod:`repro_torch.kernels.registry`; the
 backend ``"cuda"`` (the default) launches the Hopper kernels on CUDA
 tensors and runs their plain versions on CPU tensors, ``"torch"`` runs
-the plain versions anywhere.  A failing launch raises: there is no
-fallback chain.
+the plain versions anywhere, ``"dense"`` the tensor-core kernels of
+:mod:`repro_torch.kernels.dense_fused`.  A failing launch raises: there
+is no fallback chain.
 
-Not ported in this slice (see ROADMAP.md): the plan cache and tuner
-(tiles are ``DEFAULT_TILES``), the obs counters and fault-injection
-points, the fallback chain, the mesh branch, the affine u8/u4 cells, the
-float passthrough of ``qmm`` and ``quantized_matmul`` with its STE
-backward.
+Not ported (see ROADMAP.md): the plan cache and tuner (tiles are
+``DEFAULT_TILES``), the obs counters and fault-injection points, the
+fallback chain, the mesh branch, the indexed backend and
+``quantized_matmul`` with its STE backward.
 """
 
 from __future__ import annotations
@@ -32,13 +37,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import encoding, quantize
-from repro_torch.kernels import conv_fused, registry
-from repro_torch.kernels import ref as kref
+from repro_torch.kernels import conv_fused, dense_fused, registry
 from repro_torch.kernels._matmul_common import (
     DEFAULT_TILES, TileConfig, scale_epilogue)
 from repro_torch.kernels.bnn_matmul import (
     bnn_matmul_cuda, bnn_matmul_fused_cuda, bnn_matmul_fused_torch,
     bnn_matmul_torch)
+from repro_torch.kernels.int4_matmul import (
+    int4_matmul_cuda, int4_matmul_torch, pack_nibbles_cols, pack_nibbles_rows)
+from repro_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_torch
 from repro_torch.kernels.modes import DEFAULT_BACKEND, QuantMode
 from repro_torch.kernels.qtensor import PAYLOAD_KEYS, QTensor
 from repro_torch.kernels.tbn_matmul import (
@@ -50,14 +57,19 @@ from repro_torch.kernels.tnn_matmul import (
 
 __all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
            "quantize_activations", "packed_matmul", "has_conv_kernel",
+           "lowbit_matmul", "int8_affine_matmul", "int4_affine_matmul",
            "DEFAULT_BACKEND"]
 
 # Planes each mode consumes on the ACTIVATION side (weights use
 # qtensor.PAYLOAD_KEYS); TBN is ternary activations x binary weights.
+# The affine modes carry the quantized grid plus its zero point — the
+# eq. (3) core needs both operands' zeros.
 _A_KEYS: Dict[QuantMode, Tuple[str, ...]] = {
     QuantMode.BNN: ("bits",),
     QuantMode.TNN: ("plus", "minus"),
     QuantMode.TBN: ("plus", "minus"),
+    QuantMode.INT8: ("q", "zero"),
+    QuantMode.INT4: ("q", "zero"),
 }
 
 
@@ -108,8 +120,113 @@ def _register_all_kernels():
                         + ("; eq. (2) epilogue" if fused else ""),
         )(make(mode, kernel, fused, plain))
 
+    def make_dense_unfused(mode):
+        def fn(a, b, k, *, tiles=None):
+            return dense_fused.dense_matmul_torch(mode, a, b, k)
+        return fn
+
+    # The materializing unpack is only the UNFUSED dense cell: the oracle
+    # of the tensor-core kernels (kernels/dense_fused.py registers the
+    # fused cells), plain PyTorch on any device.
+    for mode in (M.BNN, M.TNN, M.TBN):
+        registry.register(
+            mode, "dense", fused=False, epilogue="none", compute="torch-dense",
+            description="materializing oracle: unpack the whole payload to "
+                        "+-1/0 float32, one exact product",
+        )(make_dense_unfused(mode))
+
 
 _register_all_kernels()
+
+
+# ---------------------------------------------------------------------------
+# Affine (u8/u4) cells: eq. (3) zero-point core + eq. (2) epilogue
+# ---------------------------------------------------------------------------
+
+def _int_scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A zero point (tensor or Python int) as an int32 scalar on
+    ``like``'s device; a Python int is filled there (no host sync)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.int32).reshape(())
+    return torch.full((), int(v), dtype=torch.int32, device=like.device)
+
+
+def _affine_core(mode: QuantMode, a_pl, b_pl, k_valid: int, *,
+                 kernel: bool) -> torch.Tensor:
+    """int32 c~ per eq. (3).  ``a_pl``/``b_pl`` are the (grid, zero)
+    pairs of ``_A_KEYS``/``_b_planes``: a_q (m, k) and b_q (k, n)
+    u8/u4-valued, za/zb their zero points.  The raw accumulator comes
+    from the u8/u4 kernel (``kernel``) or its plain version; the rank-1
+    terms stay in plain PyTorch, as the reference applies them outside
+    Pallas."""
+    a_q, za = a_pl
+    b_q, zb = b_pl
+    # Unsigned 8-bit operands: widen from uint8 so 128..255 survive.
+    a8, b8 = a_q.to(torch.uint8), b_q.to(torch.uint8)
+    if mode == QuantMode.INT8:
+        acc = (int8_matmul_cuda if kernel else int8_matmul_torch)(a8, b8)
+    else:
+        acc = (int4_matmul_cuda if kernel else int4_matmul_torch)(
+            pack_nibbles_rows(a8), pack_nibbles_cols(b8))
+    rows = a_q.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    cols = b_q.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    za, zb = _int_scalar(za, acc), _int_scalar(zb, acc)
+    return acc - zb * rows[:, None] - za * cols[None, :] + k_valid * za * zb
+
+
+def _register_affine_kernels():
+    def make(mode, kernel, fused):
+        def unfused_fn(a, b, k, *, tiles=None):
+            return _affine_core(mode, a, b, k, kernel=kernel)
+
+        def fused_fn(a, b, k, r, c, bias, *, tiles=None):
+            return scale_epilogue(_affine_core(mode, a, b, k, kernel=kernel),
+                                  r, c, bias)
+
+        return fused_fn if fused else unfused_fn
+
+    for mode in (QuantMode.INT8, QuantMode.INT4):
+        for backend in ("cuda", "torch"):
+            kernel = backend == "cuda"
+            core = ("csrc/affine_gemm.cu raw accumulator" if kernel else
+                    "exact float64 product")
+            for fused in (False, True):
+                registry.register(
+                    mode, backend, fused=fused,
+                    epilogue="post-core" if fused else "none",
+                    compute="cuda-imma" if kernel else "torch-int",
+                    description=f"{core}; eq. (3) zero-point terms in torch"
+                                + ("; eq. (2) epilogue" if fused else ""),
+                )(make(mode, kernel, fused))
+
+
+_register_affine_kernels()
+
+
+def _affine_backend(mode: QuantMode, backend: str, *, fused: bool) -> str:
+    """Effective affine backend: the requested one when registered,
+    otherwise :data:`DEFAULT_BACKEND` — the Hopper kernel on the card, so
+    a low-bit backend name such as "dense" never quietly turns into the
+    plain version."""
+    return backend if registry.has(mode, backend, fused=fused) else DEFAULT_BACKEND
+
+
+def int8_affine_matmul(a_q: torch.Tensor, b_q: torch.Tensor, za, zb,
+                       k_valid: int, *,
+                       backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+    """c~ per eq. (3) -> int32 (m, n).  a_q (m, k), b_q (k, n) u8-valued."""
+    backend = _affine_backend(QuantMode.INT8, backend, fused=False)
+    spec = registry.lookup(QuantMode.INT8, backend, fused=False)
+    return spec.fn((a_q, za), (b_q, zb), k_valid)
+
+
+def int4_affine_matmul(a_q: torch.Tensor, b_q: torch.Tensor, za, zb,
+                       k_valid: int, *,
+                       backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+    """c~ per eq. (3) -> int32 (m, n).  a_q (m, k), b_q (k, n) u4-valued."""
+    backend = _affine_backend(QuantMode.INT4, backend, fused=False)
+    spec = registry.lookup(QuantMode.INT4, backend, fused=False)
+    return spec.fn((a_q, za), (b_q, zb), k_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -135,15 +252,19 @@ def quantize_activations(x: torch.Tensor, mode: QuantMode, *,
                          stats: Optional[Dict[str, Any]] = None
                          ) -> Dict[str, Any]:
     """Runtime activation quantization of (m, k) float ``x``: a dict of
-    packed planes plus the per-tensor ``scale``.
+    packed planes plus the per-tensor ``scale``; for u8/u4 the affine grid
+    ``q`` with its ``scale`` and ``zero``; for f32/bf16 ``{"x": x}``.
 
     ``stats`` optionally supplies the per-tensor statistics ({"thr",
     "scale"} for ternary modes, {"scale"} for BNN) instead of deriving
     them from ``x`` — the conv oracle passes ``conv_act_stats`` here.
     """
-    if not mode.is_lowbit:
-        raise ValueError(f"quantize_activations: {mode.value} is not ported "
-                         f"(low-bit modes only)")
+    if mode.is_float:
+        return {"x": x}
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        q = quantize.affine_calibrate(x, 8 if mode == QuantMode.INT8 else 4)
+        return {"q": quantize.affine_quantize(x, q), "scale": q.scale,
+                "zero": q.zero_point}
     if mode in (QuantMode.TNN, QuantMode.TBN):
         if stats is not None:
             t, _ = quantize.ternarize(x, threshold=_stat(stats["thr"], x))
@@ -159,7 +280,13 @@ def quantize_activations(x: torch.Tensor, mode: QuantMode, *,
 
 
 def _b_planes(wb: QTensor, mode: QuantMode) -> Tuple[torch.Tensor, ...]:
-    return tuple(wb.payload[k] for k in PAYLOAD_KEYS[mode])
+    """Weight-side operand tuple: the mode's payload planes, plus the zero
+    point for the affine modes (the eq. (3) core consumes (grid, zero)
+    pairs on both sides)."""
+    planes = tuple(wb.payload[k] for k in PAYLOAD_KEYS[mode])
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        return planes + (wb.zero,)
+    return planes
 
 
 def packed_matmul(xa: Dict[str, Any], wb: QTensor,
@@ -200,27 +327,41 @@ def _as_col_vec(v, n: int, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(1, n)
 
 
-def _check_lowbit(qt: QTensor, what: str) -> None:
+def _check_qtensor(qt: QTensor, what: str, *, lowbit: bool) -> None:
     if not isinstance(qt, QTensor):
         raise TypeError(f"{what} expects a QTensor, got {type(qt).__name__}")
-    if not qt.is_lowbit:
-        raise ValueError(f"{what}: mode {qt.mode.value} is not ported (the "
-                         f"float passthrough and affine u8/u4 cells come "
-                         f"with a later slice); low-bit modes only")
+    if lowbit and not qt.is_lowbit:
+        raise ValueError(f"{what}: mode {qt.mode.value} has no kernel here; "
+                         f"low-bit modes only")
+
+
+def _float_passthrough(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """f32/bf16: ``x`` cast to the payload's type, a float32 product (TF32
+    off; bf16 operands multiply exactly in float32), then the bias — as
+    the reference's ``jnp.dot(..., preferred_element_type=f32)``."""
+    from repro_torch.core.conv import matmul_f32   # core.conv imports ops
+
+    w = qt.payload["w"]
+    y = matmul_f32(x.to(w.dtype), w)
+    return y if qt.bias is None else y + qt.bias
 
 
 def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
         act_stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Quantized matmul: float ``x`` (m, k) against a low-bit
-    :class:`QTensor` -> float32 (m, n).
+    """Quantized matmul: float ``x`` (m, k) against a :class:`QTensor` ->
+    float32 (m, n).
 
-    Quantize and pack ``x`` (per-tensor TWN / mean-abs statistics, or
-    ``act_stats``), then one fused kernel: popcount core + eq. (2)
-    ``acc * row_scale * col_scale (+ bias)``.  ``backend`` None ->
-    :data:`DEFAULT_BACKEND` ("cuda"); the device is ``x``'s, and
-    ``qt`` must lie on it.
+    Low-bit modes: quantize and pack ``x`` (per-tensor TWN / mean-abs
+    statistics, or ``act_stats``), then one fused kernel: popcount (or,
+    on ``backend="dense"``, tensor-core) core + eq. (2)
+    ``acc * row_scale * col_scale (+ bias)``.  u8/u4: affine-quantize
+    ``x``, the eq. (3) core and the same epilogue; a backend with no
+    affine cell (e.g. "dense") runs the affine cell of
+    :data:`DEFAULT_BACKEND`.  f32/bf16: a float32 product (+ bias).
+    ``backend`` None -> :data:`DEFAULT_BACKEND` ("cuda"); the device is
+    ``x``'s, and ``qt`` must lie on it.
     """
-    _check_lowbit(qt, "qmm")
+    _check_qtensor(qt, "qmm", lowbit=False)
     if x.ndim != 2:
         raise ValueError(f"qmm expects x of rank 2, got shape {tuple(x.shape)}")
     if x.shape[-1] != qt.k_valid:
@@ -231,6 +372,10 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     m, k = x.shape
     n = qt.out_features
     mode = qt.mode
+    if mode.is_float:
+        return _float_passthrough(x, qt)
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        backend = _affine_backend(mode, backend, fused=True)
     xa = quantize_activations(x.to(torch.float32), mode, stats=act_stats)
     row = _as_row_scale(xa["scale"], m, x)
     col = _as_col_vec(qt.scale, n, x)
@@ -240,25 +385,18 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2)
 
 
-def _dense_values(planes, k: int, ternary: bool) -> torch.Tensor:
-    if ternary:
-        return encoding.unpack_ternary(planes[0], planes[1], k)
-    return encoding.unpack_binary(planes[0], k)
-
-
 def _qmm_oracle(x: torch.Tensor, qt: QTensor,
                 act_stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Materializing oracle (counterpart of ``_qmm_oracle_jit``): unpack
-    both operands to ±1/0 values, exact integer product, then the eq. (2)
-    epilogue in plain torch — for the tests, small shapes only."""
-    _check_lowbit(qt, "qmm oracle")
+    """Materializing oracle (counterpart of ``_qmm_oracle_jit``): the
+    unfused ``(mode, "dense")`` cell — unpack both operands to ±1/0
+    values, one exact product — then the eq. (2) epilogue in plain
+    torch."""
+    _check_qtensor(qt, "qmm oracle", lowbit=True)
     m, k = x.shape
     mode = qt.mode
     xa = quantize_activations(x.to(torch.float32), mode, stats=act_stats)
-    av = _dense_values([xa[kk] for kk in _A_KEYS[mode]], k,
-                       ternary=mode != QuantMode.BNN)
-    bv = _dense_values(_b_planes(qt, mode), k, ternary=mode == QuantMode.TNN)
-    acc = kref.bnn_matmul_dense_ref(av, bv.t())
+    spec = registry.lookup(mode, "dense", fused=False)
+    acc = spec.fn(tuple(xa[kk] for kk in _A_KEYS[mode]), _b_planes(qt, mode), k)
     row = _as_row_scale(xa["scale"], m, x)
     col = _as_col_vec(qt.scale, qt.out_features, x)
     b2 = None if qt.bias is None else _as_col_vec(qt.bias, qt.out_features, x)
@@ -284,7 +422,7 @@ def qconv(x: torch.Tensor, qt: QTensor, *, stride: int = 1,
     materializing the im2col matrix.  ``act_stats`` defaults to
     :func:`conv_fused.conv_act_stats` of ``x``; bit-identical to the
     materializing oracle (im2col + :func:`qmm` with the same stats)."""
-    _check_lowbit(qt, "qconv")
+    _check_qtensor(qt, "qconv", lowbit=True)
     if qt.geometry is None:
         raise ValueError("qconv needs a QTensor packed with "
                          "pack_conv_filters (geometry missing)")
@@ -320,3 +458,33 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
                                   padding)
     return _qmm_oracle(patches, qt, act_stats=act_stats).reshape(b, oh, ow,
                                                                  cout)
+
+
+# ---------------------------------------------------------------------------
+# lowbit_matmul — the low-bit integer core on unpacked ±1/0 matrices
+# ---------------------------------------------------------------------------
+
+def lowbit_matmul(a: torch.Tensor, b: torch.Tensor, mode: QuantMode, *,
+                  backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+    """Exact integer matmul of {-1,0,1}-valued dense matrices a (m, k),
+    b (k, n) through the packed pipeline -> int32 (m, n) (test/bench
+    entry; no scales)."""
+    k = a.shape[-1]
+    bt = b.t()
+    if mode == QuantMode.BNN:
+        xa = {"bits": encoding.pack_binary(a)}
+        wb = {"bits": encoding.pack_binary(bt)}
+    elif mode == QuantMode.TNN:
+        p, m_ = encoding.pack_ternary(a)
+        wp, wm = encoding.pack_ternary(bt)
+        xa = {"plus": p, "minus": m_}
+        wb = {"plus": wp, "minus": wm}
+    elif mode == QuantMode.TBN:
+        p, m_ = encoding.pack_ternary(a)
+        xa = {"plus": p, "minus": m_}
+        wb = {"bits": encoding.pack_binary(bt)}
+    else:
+        raise ValueError(mode)
+    qt = QTensor(payload=wb, scale=None, mode=mode,
+                 shape=(int(k), int(b.shape[-1])))
+    return packed_matmul(xa, qt, backend=backend)

@@ -2,21 +2,27 @@
 kernel that implements it, with capability metadata.
 
 Counterpart of ``repro/kernels/registry.py``, same key.  Backends of the
-port and their reference counterparts:
+port and their reference counterparts (the low-bit and the affine u8/u4
+cells alike):
 
     port "cuda"   <->  reference "pallas"   hand-written Hopper kernels
     port "torch"  <->  reference "xla"      their plain PyTorch versions
+    port "dense"  <->  reference "dense"    planes decoded to +-1/0 on
+                                            chip, tensor-core product
 
-A "cuda" entry handed CPU tensors runs the plain version (that is how
-the CPU tests reach it); handed CUDA tensors it launches its kernel or
-raises.
+A "cuda" or fused "dense" entry handed CPU tensors runs the plain
+version (that is how the CPU tests reach it); handed CUDA tensors it
+launches its kernel or raises.  The unfused "dense" cell is the
+materializing oracle, plain PyTorch on any device, as the reference's
+is a plain XLA dot.
 
 ``layout``: ``"gemm"`` — A is an (m, k) activation matrix;
 ``"im2col_fused"`` — A is the raw (B, H, W, Cin) input and the kernel
 gathers patches itself (kernels/conv_fused.py).
 
 Normalized signatures (planes are tuples of int32 bit-plane tensors — 1
-for binary operands, 2 (plus, minus) for ternary):
+for binary operands, 2 (plus, minus) for ternary; for the affine u8/u4
+modes the (integer grid, zero point) pair of each operand):
 
 * gemm, unfused: ``fn(a_planes, b_planes, k_valid, *, tiles=None)``
   -> int32 (m, n)
@@ -38,7 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["KernelSpec", "register", "lookup", "has", "available",
-           "capability_table", "LAYOUT_GEMM", "LAYOUT_IM2COL"]
+           "backends", "modes", "capability_table", "LAYOUT_GEMM",
+           "LAYOUT_IM2COL"]
 
 LAYOUT_GEMM = "gemm"
 LAYOUT_IM2COL = "im2col_fused"
@@ -48,11 +55,11 @@ LAYOUT_IM2COL = "im2col_fused"
 class KernelSpec:
     """One registered kernel + the metadata consumers need to pick it."""
     mode: QuantMode
-    backend: str              # "cuda" | "torch"
+    backend: str              # "cuda" | "torch" | "dense"
     fused: bool               # epilogue included
     fn: Callable
     epilogue: str             # "in-kernel" | "post-core" | "none"
-    compute: str              # "cuda-popcount" | "torch-popcount"
+    compute: str              # "cuda-popcount" | "cuda-imma" | "torch-..."
     description: str = ""
     tunable: Optional[Any] = None
     layout: str = LAYOUT_GEMM
@@ -113,6 +120,15 @@ def available(mode: Optional[QuantMode] = None,
            and (layout is None or s.layout == layout)]
     return sorted(out, key=lambda s: (s.mode.value, s.backend, s.fused,
                                       s.layout))
+
+
+def backends(mode: Optional[QuantMode] = None) -> List[str]:
+    return sorted({s.backend for s in available(mode=mode)})
+
+
+def modes(backend: Optional[str] = None) -> List[QuantMode]:
+    seen = {s.mode for s in available(backend=backend)}
+    return sorted(seen, key=lambda m: m.value)
 
 
 def capability_table() -> str:

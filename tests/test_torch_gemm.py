@@ -186,9 +186,16 @@ def test_registry_cells():
     assert "cuda-popcount" in registry.capability_table()
     with pytest.raises(KeyError, match="registered"):
         registry.lookup(QuantMode.TNN, "pallas", fused=True)
+    for mode in (QuantMode.INT8, QuantMode.INT4):
+        for backend in ("cuda", "torch"):
+            for fused in (False, True):
+                assert registry.has(mode, backend, fused=fused)
+        assert not ops.has_conv_kernel(mode, "cuda")
+    # the float modes pass through qmm; the low-bit-only entries refuse them
     f32 = ops.QTensor.from_dense(torch.ones(4, 2), QuantMode.F32)
-    with pytest.raises(ValueError, match="not ported"):
-        ops.qmm(torch.ones(3, 4), f32)
+    assert torch.equal(ops.qmm(torch.ones(3, 4), f32), torch.full((3, 2), 4.0))
+    with pytest.raises(ValueError, match="low-bit"):
+        ops.packed_matmul({}, f32)
 
 
 def test_cpu_operands_never_launch():

@@ -111,3 +111,106 @@ def test_entry_points_on_card_match_plain(cuda_device, mode):
     plain = PaperCNN(PAPER_CNN_SMOKE, seed=1, backend="torch")
     imgs = torch.randn((3, 8, 8, 3), generator=g, device=cuda_device)
     assert torch.equal(model(imgs), plain(imgs))
+
+
+# ---------------------------------------------------------------------------
+# Dense backend (csrc/dense_tc.cu) and the u8/u4 baselines (csrc/affine_gemm.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(72, 24, 128), (360, 96, 512), (37, 21, 130),
+                                   (1000, 130, 1152), (5, 3, 33)])
+def test_dense_gemm_kernel_matches_plain(cuda_device, mode, shape):
+    from repro_torch.kernels import dense_fused
+
+    m, n, k = shape
+    g = torch.Generator(device=cuda_device).manual_seed(m + 1)
+    a = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device).float()
+    b = torch.randint(-1, 2, (n, k), generator=g, device=cuda_device).float()
+    a_pl, b_pl = _planes(a, mode != "bnn"), _planes(b, mode == "tnn")
+    row = torch.rand((m, 1), generator=g, device=cuda_device) + 0.5
+    col = torch.rand((1, n), generator=g, device=cuda_device) + 0.5
+    bias = torch.randn((1, n), generator=g, device=cuda_device)
+    qm = QuantMode(mode)
+    _build.reset_launches()
+    for bb in (None, bias):
+        got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, row, col, bb)
+        assert torch.equal(got, dense_fused.dense_matmul_fused_torch(
+            qm, a_pl, b_pl, k, row, col, bb))
+        popcount = getattr(KERNELS[mode], f"{mode}_matmul_fused_cuda")
+        assert torch.equal(got, popcount(*a_pl, *b_pl, k, row, col, bb))
+    assert _build.launches() == {f"dense_gemm_{mode}": 2, f"lowbit_gemm_{mode}_fused": 2}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", range(len(CONV_CASES)))
+def test_dense_conv_kernel_matches_plain(cuda_device, mode, case):
+    from repro_torch.kernels import conv_fused, dense_fused
+
+    xs, fs, stride, padding = CONV_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(case + 10)
+    x = torch.randn(xs, generator=g, device=cuda_device)
+    f = torch.randn(fs, generator=g, device=cuda_device)
+    for bias in (None, torch.linspace(-1, 1, fs[-1], device=cuda_device)):
+        qt = pack_conv_filters(f, QuantMode(mode), bias=bias)
+        kh, kw, _, cout = qt.geometry
+        stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw, stride, padding)
+        args = (qt.mode, x, conv_fused.conv_weight_planes(qt), qt.geometry, stride,
+                padding, stats, qt.scale.reshape(1, cout),
+                None if bias is None else bias.reshape(1, cout))
+        _build.reset_launches()
+        got = dense_fused.dense_conv_fused_cuda(*args)
+        assert _build.launches() == {f"dense_conv_{mode}": 1}
+        assert torch.equal(got, dense_fused.dense_conv_fused_torch(*args))
+        assert torch.equal(got, ops.qconv(x, qt, stride=stride, padding=padding,
+                                          backend="cuda"))
+
+
+@pytest.mark.parametrize("shape", [(72, 24, 128), (360, 96, 512), (37, 21, 131),
+                                   (300, 200, 1000)])
+def test_affine_kernels_match_plain(cuda_device, shape):
+    from repro_torch.kernels import int4_matmul, int8_matmul
+
+    m, n, k = shape
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    a8 = torch.randint(0, 256, (m, k), generator=g, device=cuda_device, dtype=torch.uint8)
+    b8 = torch.randint(0, 256, (k, n), generator=g, device=cuda_device, dtype=torch.uint8)
+    a4, b4 = a8 & 0xF, b8 & 0xF
+    pa, pb = int4_matmul.pack_nibbles_rows(a4), int4_matmul.pack_nibbles_cols(b4)
+    _build.reset_launches()
+    assert torch.equal(int8_matmul.int8_matmul_cuda(a8, b8),
+                       int8_matmul.int8_matmul_torch(a8, b8))
+    assert torch.equal(int4_matmul.int4_matmul_cuda(pa, pb),
+                       int4_matmul.int4_matmul_torch(pa, pb))
+    assert _build.launches() == {"affine_gemm_u8": 1, "affine_gemm_u4": 1}
+    with pytest.raises(TypeError, match="uint8"):
+        int8_matmul.int8_matmul_cuda(a8.to(torch.int32), b8)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "f32", "bf16"])
+def test_affine_and_float_qmm_on_card(cuda_device, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((50, 300), generator=g, device=cuda_device)
+    qt = ops.pack_weights(torch.randn((300, 40), generator=g, device=cuda_device),
+                          QuantMode(mode))
+    _build.reset_launches()
+    got = ops.qmm(x, qt)
+    if mode in ("int8", "int4"):
+        assert _build.launches() == {f"affine_gemm_u{mode[-1]}": 1}
+        assert torch.equal(got, ops.qmm(x, qt, backend="torch"))
+        assert torch.equal(got, ops.qmm(x, qt, backend="dense"))    # -> "cuda"
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    cpu = ops.qmm(x.cpu(), qt.to("cpu"))
+    assert torch.allclose(got.cpu(), cpu, rtol=1e-5, atol=1e-4)
+
+
+def test_dense_cnn_on_card_matches_popcount(cuda_device):
+    from repro_torch.cnn import PaperCNN
+    from repro_torch.configs.paper_cnn import PAPER_CNN_SMOKE
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    imgs = torch.randn((3, 8, 8, 3), generator=g, device=cuda_device)
+    dense = PaperCNN(PAPER_CNN_SMOKE, seed=2, backend="dense")
+    popcount = PaperCNN(PAPER_CNN_SMOKE, seed=2)
+    assert torch.equal(dense.features(imgs), popcount.features(imgs))
+    assert torch.equal(dense(imgs), popcount(imgs))
