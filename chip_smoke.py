@@ -15,9 +15,11 @@ without printing a result:
 3. GeMM kernel vs plain on the card — TNN/TBN/BNN, int32 core and fused
    (with and without bias), at every ``GEMM_GRID`` shape, a ragged depth
    and the CNN's im2col shapes: ``torch.equal``;
-4. conv kernel vs plain — every ``PAPER_CNN`` low-bit layer geometry at
-   full width, batch 8, in all three modes, plus a Cin % 32 != 0 and a
-   stride-2 VALID geometry: ``torch.equal``;
+4. conv kernels vs plain — every ``PAPER_CNN`` low-bit layer geometry
+   at full width, batch 8, in all three modes, plus a Cin % 32 != 0, a
+   stride-2 VALID and two deep geometries (the A tile streamed instead of
+   resident): the packing pass (``conv_pack_kernel``) and the popcount
+   conv (pack + conv) ``torch.equal`` to their plain versions;
 4b. the dense backend's tensor-core kernels vs plain — the dense GeMM at
    the shapes of phase 3 and the dense conv at the geometries of phase 4,
    each mode, with and without bias: ``torch.equal`` to the plain version
@@ -28,7 +30,8 @@ without printing a result:
    after: ``qmm`` and ``packed_matmul`` requests at the paper's GEMM_GRID
    diagonal in all three modes, then ``PaperCNN(PAPER_CNN)`` at full
    width (img 32, channels 32-64-128-128-256) on 4 batches of 256 images
-   (the first a warm-up).  Every kernel must have launched; the logits
+   (the first a warm-up).  Every kernel must have launched, the packing
+   pass once per conv launch (pack + conv per low-bit layer); the logits
    must be finite; a batch must be ``torch.equal`` to the same module
    run through the plain versions, layer by layer; each low-bit layer
    must equal the materializing oracle (im2col + ``qmm``); a small CNN
@@ -37,7 +40,8 @@ without printing a result:
    after: ``qmm`` at the GEMM_GRID diagonal for f32, u8, u4 and, on
    ``backend="dense"``, TNN/TBN/BNN, then ``PaperCNN(PAPER_CNN,
    backend="dense")`` on 4 batches of 256 (the first a warm-up).  Every
-   dense and affine kernel must have launched; the dense qmm outputs, the
+   dense and affine kernel must have launched, the packing pass once per
+   dense conv launch; the dense qmm outputs, the
    dense CNN's logits and every layer's map must be ``torch.equal`` to
    the popcount run's; u8/u4 ``qmm`` equal to the plain backend;
 5c. Table III on the card: the integer cores of the six algorithms (f32
@@ -52,7 +56,10 @@ without printing a result:
    take (popcounts at 16 per clock per SM on 132 SMs at the maximum SM
    clock, or bytes at 3.35 TB/s, whichever is larger) and one PyTorch
    call computing the same product on +-1/0 values (``library_ms``, a
-   yardstick the port never calls), plus each kernel's own device time
+   yardstick the port never calls; for the convs float32 ``F.conv2d``,
+   and ``library_bf16_ms`` bf16 ``F.conv2d`` in channels_last), plus each
+   kernel's own device time (a conv row: its wrapper, pack + conv, and
+   both kernels' device time)
    and one CNN batch's device time by kernel from ``torch.profiler``
    (popcount and dense); the tensor-core kernels' bound is 2*m*n*k at the
    int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger;
@@ -85,6 +92,8 @@ GEMM_REPLACES = {
     ("bnn", False): "src/repro/kernels/bnn_matmul.py:51",
 }
 CONV_REPLACES = "src/repro/kernels/conv_fused.py:369"
+# the Pallas conv's in-kernel quantize + pack, now a pass of its own
+PACK_REPLACES = "src/repro/kernels/conv_fused.py:369 (in-kernel quantize + pack)"
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/lowbit_gemm.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/lowbit_conv.cu"
 DENSE_SOURCE = "src/repro_torch/kernels/csrc/dense_tc.cu"
@@ -148,14 +157,16 @@ def profiled(fn):
     return sorted(rows, key=lambda r: -r[1]), host_ms
 
 
-def kernel_device_ms(fn, pattern: str, reps: int = 1):
-    """Device ms per ``fn()`` of the kernels named like ``pattern`` (""
-    for every kernel), over ``reps`` calls, or None when the profiler
-    recorded none."""
+def kernel_device_ms(fn, pattern, reps: int = 1):
+    """Device ms per ``fn()`` of the kernels whose names contain
+    ``pattern`` (a string, "" for every kernel, or a tuple of strings),
+    over ``reps`` calls, or None when the profiler recorded none."""
+    pats = (pattern,) if isinstance(pattern, str) else tuple(pattern)
+
     def run():
         for _ in range(reps):
             fn()
-    total = sum(ms for name, ms, _ in profiled(run)[0] if pattern in name)
+    total = sum(ms for name, ms, _ in profiled(run)[0] if any(p in name for p in pats))
     return total / reps or None
 
 
@@ -320,12 +331,24 @@ def main() -> int:
         hw = hw // 2 if spec.pool else hw
         c_in = spec.c_out
     geoms += [((8, 16, 16, 8), (3, 3, 8, 64), 1, "SAME"),        # positional planes
-              ((8, 17, 17, 64), (3, 3, 64, 128), 2, "VALID")]
+              ((8, 17, 17, 64), (3, 3, 64, 128), 2, "VALID"),
+              ((2, 6, 6, 480), (3, 3, 480, 24), 1, "SAME"),      # A streamed (ternary)
+              ((1, 4, 5, 1000), (3, 3, 1000, 9), 1, "SAME")]     # A streamed (BNN)
     for mode in MODES:
+        qm = QuantMode(mode)
         for xs, fs, stride, padding in geoms:
             x = torch.randn(xs, generator=gen, device=dev)
             f = torch.randn(fs, generator=gen, device=dev)
             bias = torch.randn((fs[-1],), generator=gen, device=dev)
+            kh, kw_ = fs[:2]
+            stats = conv_fused.conv_act_stats(x, qm, kh, kw_, stride, padding)
+            got = conv_fused.conv_pack_cuda(qm, x, kh, kw_, stride, padding, stats)
+            want = conv_fused.conv_pack_torch(qm, x, kh, kw_, stride, padding, stats)
+            if len(got) != len(want):
+                raise AssertionError(f"conv pack {mode} x{xs}: {len(got)} planes")
+            for g_, w_ in zip(got, want):
+                check.equal(f"conv_pack_{mode}", g_, w_,
+                            f"conv pack {mode} x{xs} k{kh} s{stride} {padding}")
             for b in (None, bias):
                 qt = tconv.pack_conv_filters(f, QuantMode(mode), bias=b)
                 check.equal(f"lowbit_conv_{mode}",
@@ -334,8 +357,8 @@ def main() -> int:
                             f"conv {mode} x{xs} f{fs} s{stride} {padding} "
                             f"bias={b is not None}")
     torch.cuda.synchronize()
-    log(f"[conv] {len(geoms)} geometries x 3 modes x (no bias, bias): kernel == plain "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[conv] {len(geoms)} geometries x 3 modes: pack kernel == plain; conv (pack + "
+        f"conv) x (no bias, bias) == plain ({time.perf_counter() - t0:.1f} s)")
 
     # -- 4b. dense and affine kernels vs plain ------------------------------
     t0 = time.perf_counter()
@@ -415,10 +438,14 @@ def main() -> int:
         h.remove()
     log(f"[main] launches: {json.dumps(launches, sort_keys=True)}")
     expected = [f"lowbit_gemm_{m}_{v}" for m in MODES for v in ("fused", "i32")] + \
-               [f"lowbit_conv_{m}" for m in MODES]
+               [f"lowbit_conv_{m}" for m in MODES] + [f"conv_pack_{m}" for m in MODES]
     missing = [k for k in expected if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    for m in MODES:
+        if launches[f"conv_pack_{m}"] != launches[f"lowbit_conv_{m}"]:
+            raise AssertionError(f"main path: {launches[f'conv_pack_{m}']} packs for "
+                                 f"{launches[f'lowbit_conv_{m}']} {m} convs")
     for y, acc in gemm_out:
         if not torch.isfinite(y).all():
             raise AssertionError("qmm request gave non-finite output")
@@ -487,10 +514,14 @@ def main() -> int:
 
     log(f"[main2] launches: {json.dumps(launches2, sort_keys=True)}")
     expected2 = [f"dense_gemm_{m}" for m in MODES] + [f"dense_conv_{m}" for m in MODES] + \
-                ["affine_gemm_u8", "affine_gemm_u4"]
+                [f"conv_pack_{m}" for m in MODES] + ["affine_gemm_u8", "affine_gemm_u4"]
     missing = [k for k in expected2 if launches2.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"second main path never launched {missing}")
+    for m in MODES:
+        if launches2[f"conv_pack_{m}"] != launches2[f"dense_conv_{m}"]:
+            raise AssertionError(f"second main path: {launches2[f'conv_pack_{m}']} packs for "
+                                 f"{launches2[f'dense_conv_{m}']} {m} dense convs")
     for (mode, be, x, qt), y in zip(requests2, out2):
         what = f"main-path qmm {mode} backend={be} {tuple(x.shape)}"
         if y.shape != (x.shape[0], qt.out_features) or not torch.isfinite(y).all():
@@ -576,21 +607,25 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
-    # where one CNN batch's device time goes, by kernel
-    rows, prof_ms = profiled(lambda: model(images[-1]))
-    dev_ms = sum(r[1] for r in rows)
-    batch_ms = cnn_s * 1e3 / (BATCHES - 1)
-    log("[profile] " + json.dumps({
-        "cnn_batch_ms_host": batch_ms, "cnn_batch_ms_host_profiled": prof_ms,
-        "device_kernel_ms": dev_ms, "device_busy_share": dev_ms / batch_ms,
-        "top": [[name[:80], ms, calls] for name, ms, calls in rows[:12]]}))
-    rows_d, prof_ms_d = profiled(lambda: dense_model(images[-1]))
-    dev_ms_d = sum(r[1] for r in rows_d)
-    batch_ms_d = dense_s * 1e3 / (BATCHES - 1)
-    log("[profile dense] " + json.dumps({
-        "cnn_batch_ms_host": batch_ms_d, "cnn_batch_ms_host_profiled": prof_ms_d,
-        "device_kernel_ms": dev_ms_d, "device_busy_share": dev_ms_d / batch_ms_d,
-        "top": [[name[:80], ms, calls] for name, ms, calls in rows_d[:12]]}))
+    # where one CNN batch's device time goes, by kernel: the repository's
+    # kernels by name (the packing pass, the conv kernels), the rest is
+    # PyTorch's own (statistics, ReLU, max-pool, the float first layer)
+    def by_kernel(rows):
+        ours = {k: sum(ms for name, ms, _ in rows if k in name)
+                for k in ("conv_pack_kernel", "lowbit_conv_kernel", "dense_conv_kernel")}
+        ours["pytorch_kernels"] = sum(ms for name, ms, _ in rows
+                                      if "lowbit::" not in name and "tc::" not in name)
+        return ours
+
+    for tag, net, secs in (("[profile]", model, cnn_s), ("[profile dense]", dense_model, dense_s)):
+        rows, prof_ms = profiled(lambda: net(images[-1]))
+        dev_ms = sum(r[1] for r in rows)
+        batch_ms = secs * 1e3 / (BATCHES - 1)
+        log(f"{tag} " + json.dumps({
+            "cnn_batch_ms_host": batch_ms, "cnn_batch_ms_host_profiled": prof_ms,
+            "device_kernel_ms": dev_ms, "device_busy_share": dev_ms / batch_ms,
+            "device_ms_by_kernel": by_kernel(rows),
+            "top": [[name[:80], ms, calls] for name, ms, calls in rows[:14]]}))
 
     kernels = []
     for mode in MODES:
@@ -634,44 +669,89 @@ def main() -> int:
                 "bound_by": "operations" if "operations" in by else "bytes",
                 "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
 
-    for mode in MODES:
-        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
-        by, shp = set(), []
+    def conv_layers(mode):
+        """(x, qt, stride, stats, planes) of each PAPER_CNN layer of ``mode``
+        at the main path's batch."""
+        out = []
         for i, (spec, layer) in enumerate(zip(PAPER_CNN.convs, model.layers)):
             if spec.mode != mode:
                 continue
             x = layer_inputs[i].contiguous()
             qt = layer.packed
+            kh, kw_ = qt.geometry[:2]
+            out.append((x, qt, spec.stride,
+                        conv_fused.conv_act_stats(x, qt.mode, kh, kw_, spec.stride, "SAME"),
+                        conv_fused.conv_weight_planes(qt)))
+        return out
+
+    def conv_row(name, source, replaces, wrapper, plain, patterns, tc, n_launches):
+        """One conv row: the wrapper (pack + conv) over the mode's layers."""
+        mode = name.rsplit("_", 1)[1]
+        ms = plain_ms = lib_ms = lib16_ms = bound_ms = device_ms = 0.0
+        by, shp = set(), []
+        for x, qt, stride, stats, planes in conv_layers(mode):
             kh, kw_, cin, cout = qt.geometry
-            stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, spec.stride, "SAME")
-            planes = conv_fused.conv_weight_planes(qt)
-            col = qt.scale.reshape(1, cout)
-            args = (qt.mode, x, planes, qt.geometry, spec.stride, "SAME", stats, col, None)
-            ms += cuda_ms(lambda: conv_fused.conv_fused_cuda(*args), reps=20)
-            device_ms += kernel_device_ms(lambda: conv_fused.conv_fused_cuda(*args),
-                                          "lowbit_conv_kernel") or 0.0
-            plain_ms += cuda_ms(lambda: conv_fused.conv_fused_torch(*args), reps=3, warmup=1)
-            xq = conv_fused.quantize_patch_values(x, qt.mode, stats.get("thr")) \
-                .permute(0, 3, 1, 2).contiguous()
-            wq = qt.to_dense().reshape(kh, kw_, cin, cout).permute(3, 2, 0, 1)
-            wq = torch.sign(wq).contiguous()
-            lib_ms += cuda_ms(lambda: F.conv2d(xq, wq, stride=spec.stride,
-                                               padding=kh // 2), reps=20)
+            args = (qt.mode, x, planes, qt.geometry, stride, "SAME", stats,
+                    qt.scale.reshape(1, cout), None)
+            ms += cuda_ms(lambda: wrapper(*args), reps=20)
+            device_ms += kernel_device_ms(lambda: wrapper(*args), patterns) or 0.0
+            plain_ms += cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            xq = conv_fused.quantize_patch_values(x, qt.mode, stats.get("thr"))
+            wq = torch.sign(qt.to_dense().reshape(kh, kw_, cin, cout).permute(3, 2, 0, 1))
+            x32, w32 = xq.permute(0, 3, 1, 2).contiguous(), wq.contiguous()
+            lib_ms += cuda_ms(lambda: F.conv2d(x32, w32, stride=stride, padding=kh // 2),
+                              reps=20)
+            # bf16 in channels_last: the NHWC tensor's NCHW view already is
+            x16 = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+            w16 = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            lib16_ms += cuda_ms(lambda: F.conv2d(x16, w16, stride=stride, padding=kh // 2),
+                                reps=20)
             b, h, w, _ = x.shape
-            oh, ow, _, _ = conv_fused.conv_out_hw(h, w, kh, kw_, spec.stride, "SAME")
+            oh, ow, _, _ = conv_fused.conv_out_hw(h, w, kh, kw_, stride, "SAME")
             m, words = b * oh * ow, planes[0].shape[1]
             nbytes = x.numel() * 4 + 4 * cout * words * len(planes) + 4 * m * cout
-            b_ms, b_by = bound(m * cout * words * NPOPC[mode], nbytes)
+            if tc:
+                b_ms, b_by = tc_bound(2 * m * cout * kh * kw_ * cin, nbytes + 4 * cout)
+            else:
+                b_ms, b_by = bound(m * cout * words * NPOPC[mode], nbytes)
             bound_ms += b_ms
             by.add(b_by)
             shp.append([b, h, w, cin, cout, kh])
-        name = f"lowbit_conv_{mode}"
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": check.max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if "operations" in by else "bytes",
+            "library_ms": lib_ms, "library_bf16_ms": lib16_ms,
+            "device_ms": device_ms or None, "shapes_bhwcok": shp}
+
+    for mode in MODES:
+        ms = plain_ms = bound_ms = device_ms = 0.0
+        shp = []
+        for x, qt, stride, stats, _ in conv_layers(mode):
+            kh, kw_ = qt.geometry[:2]
+            args = (qt.mode, x, kh, kw_, stride, "SAME", stats)
+            ms += cuda_ms(lambda: conv_fused.conv_pack_cuda(*args), reps=20)
+            device_ms += kernel_device_ms(lambda: conv_fused.conv_pack_cuda(*args),
+                                          "conv_pack_kernel") or 0.0
+            plain_ms += cuda_ms(lambda: conv_fused.conv_pack_torch(*args), reps=5, warmup=1)
+            out_words = sum(p.numel() for p in conv_fused.conv_pack_cuda(*args))
+            b_ms, _ = bound(0, x.numel() * 4 + 4 * out_words)
+            bound_ms += b_ms
+            shp.append(list(x.shape))
+        name = f"conv_pack_{mode}"
         kernels.append({
-            "name": name, "route": "cuda", "source": CONV_SOURCE,
-            "replaces": CONV_REPLACES, "launches": launches.get(name, 0),
+            "name": name, "route": "cuda", "source": CONV_SOURCE, "replaces": PACK_REPLACES,
+            "launches": launches.get(name, 0), "launches_dense_path": launches2.get(name, 0),
             "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
-            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_bhwcok": shp})
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device_ms or None, "shapes_bhwc": shp})
+
+    for mode in MODES:
+        kernels.append(conv_row(f"lowbit_conv_{mode}", CONV_SOURCE, CONV_REPLACES,
+                                conv_fused.conv_fused_cuda, conv_fused.conv_fused_torch,
+                                ("conv_pack_kernel", "lowbit_conv_kernel"), False,
+                                launches.get(f"lowbit_conv_{mode}", 0)))
 
     for mode in MODES:
         qm = QuantMode(mode)
@@ -709,44 +789,11 @@ def main() -> int:
             "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
 
     for mode in MODES:
-        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
-        by, shp = set(), []
-        for i, (spec, layer) in enumerate(zip(PAPER_CNN.convs, dense_model.layers)):
-            if spec.mode != mode:
-                continue
-            x = layer_inputs[i].contiguous()
-            qt = layer.packed
-            kh, kw_, cin, cout = qt.geometry
-            stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, spec.stride, "SAME")
-            planes = conv_fused.conv_weight_planes(qt)
-            args = (qt.mode, x, planes, qt.geometry, spec.stride, "SAME", stats,
-                    qt.scale.reshape(1, cout), None)
-            ms += cuda_ms(lambda: dense_fused.dense_conv_fused_cuda(*args), reps=20)
-            device_ms += kernel_device_ms(lambda: dense_fused.dense_conv_fused_cuda(*args),
-                                          "dense_conv_kernel") or 0.0
-            plain_ms += cuda_ms(lambda: dense_fused.dense_conv_fused_torch(*args), reps=3,
-                                warmup=1)
-            xq = conv_fused.quantize_patch_values(x, qt.mode, stats.get("thr")) \
-                .permute(0, 3, 1, 2).contiguous()
-            wq = torch.sign(qt.to_dense().reshape(kh, kw_, cin, cout).permute(3, 2, 0, 1))
-            wq = wq.contiguous()
-            lib_ms += cuda_ms(lambda: F.conv2d(xq, wq, stride=spec.stride,
-                                               padding=kh // 2), reps=20)
-            b, h, w, _ = x.shape
-            oh, ow, _, _ = conv_fused.conv_out_hw(h, w, kh, kw_, spec.stride, "SAME")
-            m, words = b * oh * ow, planes[0].shape[1]
-            nbytes = x.numel() * 4 + 4 * cout * words * len(planes) + 4 * m * cout + 4 * cout
-            b_ms, b_by = tc_bound(2 * m * cout * kh * kw_ * cin, nbytes)
-            bound_ms += b_ms
-            by.add(b_by)
-            shp.append([b, h, w, cin, cout, kh])
-        name = f"dense_conv_{mode}"
-        kernels.append({
-            "name": name, "route": "cuda", "source": DENSE_SOURCE,
-            "replaces": DENSE_CONV_REPLACES, "launches": launches2.get(name, 0),
-            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
-            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_bhwcok": shp})
+        kernels.append(conv_row(f"dense_conv_{mode}", DENSE_SOURCE, DENSE_CONV_REPLACES,
+                                dense_fused.dense_conv_fused_cuda,
+                                dense_fused.dense_conv_fused_torch,
+                                ("conv_pack_kernel", "dense_conv_kernel"), True,
+                                launches2.get(f"dense_conv_{mode}", 0)))
 
     for tag, qmode in (("u8", QuantMode.INT8), ("u4", QuantMode.INT4)):
         ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
@@ -783,9 +830,10 @@ def main() -> int:
             "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
 
     log(f"[times] per kernel: ms = sum over the main path's calls of that kernel "
-        f"(GeMM, dense GeMM, u8/u4: one request per GEMM_GRID diagonal shape; conv, "
-        f"dense conv: one batch of {BATCH}), CUDA events around back-to-back wrapper "
-        f"calls; device_ms = the kernels' own device time from torch.profiler; popcount "
+        f"(GeMM, dense GeMM, u8/u4: one request per GEMM_GRID diagonal shape; pack, conv, "
+        f"dense conv: one batch of {BATCH}; a conv row's wrapper runs pack + conv), CUDA "
+        f"events around back-to-back wrapper calls; device_ms = the kernels' own device "
+        f"time from torch.profiler (conv rows: pack + conv kernels); popcount "
         f"bound at max SM clock {max_sm_mhz:.0f} MHz, tensor-core bound at 1,979 TOP/s "
         f"int8; total run {time.perf_counter() - t_start:.1f} s")
     log(card)

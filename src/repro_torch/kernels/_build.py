@@ -54,21 +54,23 @@ _SIGNATURES = {
     "lowbit_gemm": {"lowbit_gemm_launch":
                     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                      _P]},
-    # mode, x, B, H, W, C, kh, kw, stride, pad_top, pad_left, OH, OW,
-    # b0, b1, cout, words, k_valid, thr, scale, col, bias, out, stream
-    "lowbit_conv": {"lowbit_conv_launch":
-                    [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]},
+    "lowbit_conv": {
+        # mode, x, B, H, W, C, Hp, Wp, pad_top, pad_left, thr, p0, p1, stream
+        "conv_pack_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P],
+        # mode, a0, a1, B, Hp, Wp, C, kh, kw, stride, OH, OW, b0, b1, cout,
+        # words, k_valid, scale, col, bias, out, stream
+        "lowbit_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]},
     "dense_tc": {
         # mode, a0, a1, b0, b1, m, n, kw, k_valid, row, col, bias, out,
         # stream
         "dense_gemm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                               _P, _P, _P],
-        # mode, x, B, H, W, C, kh, kw, stride, pad_top, pad_left, OH, OW,
-        # b0, b1, cout, words, thr, scale, col, bias, out, stream
-        "dense_conv_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                              _P]},
+        # mode, a0, a1, B, Hp, Wp, C, kh, kw, stride, OH, OW, b0, b1, cout,
+        # words, scale, col, bias, out, stream
+        "dense_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]},
     # u4, a, b, m, n, k, out, stream
     "affine_gemm": {"affine_gemm_launch": [_I, _P, _P, _I, _I, _I, _P, _P]},
 }

@@ -16,11 +16,14 @@ planes otherwise, an exact repack for legacy containers).
 Two backends:
 
 * ``"cuda"`` — ``csrc/lowbit_conv.cu`` (replaces the reference's
-  ``_conv_pallas_fused``): each CTA derives its output pixels from
-  ``blockIdx``, gathers the patch values from global memory, quantizes
-  them with the device scalars ``thr``/``scale`` and packs them with
-  ``__ballot_sync``, then runs the popcount core and the eq. (6) / eq. (2)
-  epilogue in-kernel.  On CPU tensors the entry runs the plain version.
+  ``_conv_pallas_fused``), two kernels on the current stream: the packing
+  pass (:func:`conv_pack_cuda`) quantizes each padded input pixel once
+  with the device scalar ``thr`` and packs it with ``__ballot_sync``;
+  the conv kernel then gathers packed words per CTA (one 4-byte load per
+  word, staged with ``cp.async`` and reused across all of Cout), runs the
+  popcount core and the eq. (6) / eq. (2) epilogue in-kernel.  The dense
+  conv (``dense_fused``) consumes the same planes.  On CPU tensors the
+  entry runs the plain version.
 * ``"torch"`` — the plain version (counterpart of ``_conv_xla_fused``):
   quantize and pack the padded input once, gather packed words with one
   strided slice per patch position, then the chunked popcount with the
@@ -40,14 +43,15 @@ import torch.nn.functional as F
 from repro_torch.core.quantize import f32_scalar
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
-    DEFAULT_TILES, PRODUCT_FNS, _MODE_ID, check_f32_vec, chunked_bitwise_matmul,
-    on_cuda, scale_epilogue)
+    DEFAULT_TILES, PRODUCT_FNS, _MODE_ID, _ptr, check_f32_vec,
+    chunked_bitwise_matmul, on_cuda, scale_epilogue)
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["conv_out_hw", "conv_spatial_pad", "conv_act_stats",
            "conv_problem_dims", "geom_tag", "im2col_hbm_bytes",
            "conv_weight_planes", "gather_patch_tile",
-           "quantize_patch_values", "conv_fused_cuda", "conv_fused_torch"]
+           "quantize_patch_values", "conv_pack_cuda", "conv_pack_torch",
+           "packed_conv_args", "conv_fused_cuda", "conv_fused_torch"]
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +104,7 @@ def im2col_hbm_bytes(x_shape, geometry, stride: int, padding: str,
                      mode: QuantMode = QuantMode.TNN) -> Dict[str, int]:
     """Bytes of the im2col A operand, materializing vs fused: the float32
     patch matrix the oracle writes, vs the packed activation planes the
-    plain fused version stages (the CUDA kernel stages none)."""
+    fused versions write (the plain one and the CUDA packing pass)."""
     b, h, w, _ = x_shape
     kh, kw, cin, _ = geometry
     oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
@@ -238,8 +242,18 @@ def quantize_patch_values(patch: torch.Tensor, mode: QuantMode,
 
 
 # ---------------------------------------------------------------------------
-# Plain version: pack once, gather packed words, chunked popcount
+# Plain versions: pack once, gather packed words, chunked popcount
 # ---------------------------------------------------------------------------
+
+def conv_pack_torch(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
+                    stride: int, padding: str,
+                    stats: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Plain packing pass: the conv's padded input quantized and packed
+    along the channel axis, one (B, Hp, Wp, ceil(C/32)) int32 plane for
+    BNN, (plus, minus) for TNN/TBN."""
+    xp, _ = conv_spatial_pad(x.to(torch.float32), kh, kw, stride, padding)
+    return tuple(p.contiguous() for p in _pack_activation_planes(xp, mode, stats))
+
 
 def conv_fused_torch(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
                      stride: int, padding: str, stats: Dict[str, torch.Tensor],
@@ -251,10 +265,9 @@ def conv_fused_torch(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     (1, Cout)."""
     kh, kw, _, cout = geometry
     k_valid = kh * kw * geometry[2]
-    xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride,
-                                    padding)
-    bsz = xp.shape[0]
-    a_full = _pack_activation_planes(xp, mode, stats)  # (B, Hp, Wp, cw) each
+    bsz, h, w, _ = x.shape
+    oh, ow, _, _ = conv_out_hw(h, w, kh, kw, stride, padding)
+    a_full = conv_pack_torch(mode, x, kh, kw, stride, padding, stats)
     cw = a_full[0].shape[-1]
     alpha = stats["scale"].reshape(1, 1)
 
@@ -277,21 +290,72 @@ def conv_fused_torch(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
 
 
 # ---------------------------------------------------------------------------
-# The Hopper kernel (csrc/lowbit_conv.cu)
+# The Hopper kernels (csrc/lowbit_conv.cu): pack once, then the conv
 # ---------------------------------------------------------------------------
 
-def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
-                 stride: int, padding: str, stats: Dict[str, torch.Tensor],
-                 col_scale: torch.Tensor,
-                 bias: Optional[torch.Tensor]) -> torch.Tensor:
-    kh, kw, cin, cout = geometry
+def _check_conv_input(x: torch.Tensor, cin: int) -> None:
     if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError(f"conv kernel needs contiguous float32 (B, H, W, "
+        raise ValueError(f"conv kernels need contiguous float32 (B, H, W, "
                          f"Cin), got {x.dtype} {tuple(x.shape)}")
+    if x.shape[-1] != cin:
+        raise ValueError(f"channel mismatch: x has {x.shape[-1]}, Cin {cin}")
+
+
+def _launch_pack(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
+                 stride: int, padding: str,
+                 stats: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     bsz, h, w, c = x.shape
-    if c != cin:
-        raise ValueError(f"channel mismatch: x has {c}, geometry {geometry}")
+    _check_conv_input(x, c)
     dev = x.device
+    thr = None
+    if mode != QuantMode.BNN:
+        thr = stats["thr"]
+        check_f32_vec("thr", thr, 1, dev)
+    _, _, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
+    hp, wp, cw = h + ph, w + pw, -(-c // 32)
+    if x.numel() >= 2**31 or bsz * hp * wp * cw >= 2**31 - 256:
+        raise ValueError("conv pack kernel indexes elements with 32-bit ints")
+    nplanes = 1 if mode == QuantMode.BNN else 2
+    planes = tuple(torch.empty((bsz, hp, wp, cw), dtype=torch.int32, device=dev)
+                   for _ in range(nplanes))
+    if x.numel() == 0:
+        return planes
+    lib = _build.load("lowbit_conv")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.conv_pack_launch(
+            _MODE_ID[mode], _ptr(x), bsz, h, w, c, hp, wp, ph // 2, pw // 2,
+            _ptr(thr), _ptr(planes[0]), _ptr(planes[-1]),
+            ctypes.c_void_p(stream))
+    _build.check_launch(lib, rc, f"conv_pack[{mode.value}]")
+    _build.count_launch(f"conv_pack_{mode.value}")
+    return planes
+
+
+def conv_pack_cuda(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
+                   stride: int, padding: str,
+                   stats: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Packing pass of both conv kernels: ``conv_pack_kernel`` on CUDA
+    operands (raises on anything it does not take), the plain version on
+    CPU operands."""
+    if not on_cuda(x, *stats.values()):
+        return conv_pack_torch(mode, x, kh, kw, stride, padding, stats)
+    return _launch_pack(mode, x, kh, kw, stride, padding, stats)
+
+
+def packed_conv_args(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
+                     stride: int, padding: str,
+                     stats: Dict[str, torch.Tensor], col_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor]):
+    """Check the operands of a conv kernel over packed planes; returns
+    (out (m, Cout) float32, the launch's (B, Hp, Wp, Cin, kh, kw, stride,
+    OH, OW), words per weight row, scale, col, bias).  Shared by the
+    popcount and the dense conv wrappers."""
+    kh, kw, cin, cout = geometry
+    _check_conv_input(x, cin)
+    bsz, h, w, _ = x.shape
+    dev = x.device
+    oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
     words = kh * kw * (-(-cin // 32))
     nplanes = 2 if mode == QuantMode.TNN else 1
     if len(b_planes) != nplanes:
@@ -303,31 +367,37 @@ def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
                              f"({cout}, {words}) on {dev}, got {p.dtype} "
                              f"{tuple(p.shape)} on {p.device}")
     scale = stats["scale"]
-    thr = stats.get("thr") if mode != QuantMode.BNN else None
     check_f32_vec("scale", scale, 1, dev)
-    if mode != QuantMode.BNN:
-        check_f32_vec("thr", thr, 1, dev)
-    check_f32_vec("col_scale", col_scale, cout, dev)
+    col = col_scale.reshape(-1).contiguous()
+    bias = None if bias is None else bias.reshape(-1).contiguous()
+    check_f32_vec("col_scale", col, cout, dev)
     check_f32_vec("bias", bias, cout, dev)
-    oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
     m = bsz * oh * ow
-    if m >= 2**31 or x.numel() >= 2**31:
-        raise ValueError("conv kernel indexes pixels with 32-bit ints")
+    if m >= 2**31:
+        raise ValueError("conv kernels index output pixels with 32-bit ints")
     out = torch.empty((m, cout), dtype=torch.float32, device=dev)
-    if m == 0:
+    dims = (bsz, h + ph, w + pw, cin, kh, kw, stride, oh, ow)
+    return out, dims, words, scale, col, bias
+
+
+def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
+                 stride: int, padding: str, stats: Dict[str, torch.Tensor],
+                 col_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    kh, kw, cin, cout = geometry
+    out, dims, words, scale, col, bias = packed_conv_args(
+        mode, x, b_planes, geometry, stride, padding, stats, col_scale, bias)
+    bsz, _, _, _, _, _, _, oh, ow = dims
+    if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
-
-    def ptr(t):
-        return None if t is None else ctypes.c_void_p(t.data_ptr())
-
+    a = _launch_pack(mode, x, kh, kw, stride, padding, stats)
     lib = _build.load("lowbit_conv")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.lowbit_conv_launch(
-            _MODE_ID[mode], ptr(x), bsz, h, w, c, kh, kw, stride, ph // 2,
-            pw // 2, oh, ow, ptr(b_planes[0]), ptr(b_planes[-1]), cout,
-            words, kh * kw * cin, ptr(thr), ptr(scale), ptr(col_scale),
-            ptr(bias), ptr(out), ctypes.c_void_p(stream))
+            _MODE_ID[mode], _ptr(a[0]), _ptr(a[-1]), *dims, _ptr(b_planes[0]),
+            _ptr(b_planes[-1]), cout, words, kh * kw * cin, _ptr(scale),
+            _ptr(col), _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
     _build.check_launch(lib, rc, f"lowbit_conv[{mode.value}]")
     _build.count_launch(f"lowbit_conv_{mode.value}")
     return out.reshape(bsz, oh, ow, cout)
@@ -337,15 +407,15 @@ def conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
                     stride: int, padding: str,
                     stats: Dict[str, torch.Tensor], col_scale: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused conv -> float32 (B, OH, OW, Cout): the kernel on CUDA
-    operands (raises on anything it does not take), the plain version on
-    CPU operands."""
+    """Fused conv -> float32 (B, OH, OW, Cout): on CUDA operands the pack
+    kernel then the conv kernel, on the current stream with no host sync
+    (raises on anything they do not take); the plain version on CPU
+    operands."""
     if not on_cuda(x, *b_planes, *stats.values(), col_scale, bias):
         return conv_fused_torch(mode, x, b_planes, geometry, stride,
                                 padding, stats, col_scale, bias)
     return _launch_conv(mode, x, b_planes, geometry, stride, padding, stats,
-                        col_scale.reshape(-1).contiguous(),
-                        None if bias is None else bias.reshape(-1).contiguous())
+                        col_scale, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +439,9 @@ def _register_conv_kernels():
         registry.register(
             mode, "cuda", fused=True, layout=registry.LAYOUT_IM2COL,
             epilogue="in-kernel", compute="cuda-popcount",
-            description="csrc/lowbit_conv.cu: per-CTA patch gather, "
-                        "ballot pack, popcount core, epilogue in-kernel",
+            description="csrc/lowbit_conv.cu: pack each input pixel once "
+                        "(ballot), gather packed words per CTA, cp.async "
+                        "double buffer, popcount core, epilogue in-kernel",
         )(make(mode, plain=False))
         registry.register(
             mode, "torch", fused=True, layout=registry.LAYOUT_IM2COL,

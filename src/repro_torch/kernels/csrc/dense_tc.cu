@@ -9,10 +9,13 @@
 //
 // GeMM: C[m, n] = sum_k A[m, k] B[n, k] over the decoded planes A (m, kw)
 // and B^T (n, kw), then acc * row[m] * col[n] (+ bias[n]) in float32.
-// Conv: the implicit-im2col product of x (B, H, W, C) float32 NHWC with
-// the positional weight planes (cout, kh*kw*ceil(C/32)), the A values
-// gathered and quantized in-kernel with the per-tensor statistics, then
-// acc * scale * col[n] (+ bias[n]).
+// Conv: the implicit-im2col product of the packed activation planes
+// (B, Hp, Wp, ceil(C/32)) that lowbit_conv.cu's conv_pack_kernel writes
+// (each input pixel quantized and packed once, with the per-tensor
+// statistics) with the positional weight planes (cout, kh*kw*ceil(C/32)),
+// then acc * scale * col[n] (+ bias[n]).  The conv is the dense GeMM with
+// an implicit-im2col row address: the A word of (row r, depth word gk) is
+// planes[base[r] + off[gk]] (lowbit_core.cuh conv_tables).
 //
 // The count is exact: the products are +-1/0 and the int32 accumulators
 // hold every partial sum, so it is the integer the reference's f32 dot
@@ -24,29 +27,37 @@
 //   * BNN pad bits past k_valid decode to +1 on both operands; the GeMM
 //     zeroes the A values at depth >= k_valid (the reference masks A the
 //     same way).  Ternary pads are (0, 0) = 0 and need no mask.
-//   * Conv: a pixel outside the image is the value 0.0 and is quantized
-//     with the same predicate (BNN: +1), as the materializing im2col
-//     oracle pads with zeros; a channel past C within a position's word
-//     run is 0 on the A side, which cancels the weights' in-word pads.
+//   * Conv: a pixel outside the image was packed as the value 0.0 (BNN:
+//     +1), as the materializing im2col oracle pads with zeros; a channel
+//     past C within a position's last word is zeroed on the A side at
+//     decode, which cancels the weights' in-word pads.
+//
+// The conv kernel (CTA = 64 output pixels, 4 warps):
+//   * the packed A words of the CTA's rows are staged once for the whole
+//     depth (up to 64 KB; deeper convs stream them through a two-slot ring
+//     per step) and reused by every column block the CTA loops over (all of
+//     cout unless the row blocks alone do not fill the card);
+//   * the weight words of step t+1 (16-byte cp.async per row when
+//     words % 4 == 0) and, streaming, A's are in flight while step t
+//     decodes and multiplies;
+//   * each step decodes 4 packed words per row to +-1/0 int8 slabs in
+//     shared memory (tc_core.cuh decode_word: four values per lane op,
+//     the slab layout of stage_planes) and runs wmma s8 -> s32.
 //
 // What bounds it on this card: at the paper's CNN widths the work is far
 // below the int8 tensor rate (1,979 TOP/s dense), so the bound is the
-// bytes a call must move (x read once, the float32 output written once)
-// at 3.35 TB/s; on the GEMM_GRID shapes it is launch latency.  What the
-// kernel spends its time on instead is the operand staging: the GeMM
-// decodes every plane word once per CTA, and the conv gathers each input
-// value once per patch position that holds it and per 64-column block,
-// as lowbit_conv.cu does.  The design keeps the decoded tiles and the
-// accumulators on chip (shared memory, tensor-core fragments), so neither
-// the +-1/0 matrices nor the im2col matrix ever reach device memory.  Not
-// done yet (later work): wgmma with TMA-fed, double-buffered staging, and
-// quantizing each input pixel once per CTA.
+// bytes a call must move (x read once by the pack, the float32 output
+// written once) at 3.35 TB/s; on the GEMM_GRID shapes it is launch
+// latency.  Neither the +-1/0 matrices nor the im2col matrix ever reach
+// device memory.  Not done yet (later work): wgmma with TMA-fed staging.
 //
 // Built with --fmad=false (see _build.py).
 
 #include "tc_core.cuh"
 
 namespace tc {
+
+constexpr int RESIDENT_A_BYTES = 64 * 1024;   // packed A for the whole depth
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
@@ -77,79 +88,148 @@ dense_gemm_kernel(const uint32_t* __restrict__ a0,
   store_scaled(s, m0, n0, m, n, row, 1, col, bias, out);
 }
 
+// Shared-memory words per row of the packed A tile: at least the words it
+// holds, and 4 mod 8, so the decode's reads (8 rows x 4 words per warp) hit
+// 32 distinct banks.
+__host__ __device__ constexpr int a_stride(int held) {
+  return (held + 3) / 8 * 8 + 4;
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-dense_conv_kernel(const float* __restrict__ x, int H, int W, int C, int KW,
-                  int stride, int pad_top, int pad_left, int OH, int OW,
-                  int m, const uint32_t* __restrict__ b0,
+dense_conv_kernel(const uint32_t* __restrict__ a0,
+                  const uint32_t* __restrict__ a1, int Hp, int Wp, int cw,
+                  int C, int KW, int stride, int OH, int OW, int m,
+                  const uint32_t* __restrict__ b0,
                   const uint32_t* __restrict__ b1, int cout, int words,
-                  int cw, const float* __restrict__ thr_p,
+                  int blocks_per_cta, int resident, int b_vec4,
                   const float* __restrict__ scale_p,
                   const float* __restrict__ col,
                   const float* __restrict__ bias, float* __restrict__ out) {
   using lowbit::BNN;
   using lowbit::TNN;
-  __shared__ Smem<int8_t> s;
-  __shared__ int s_b[BM], s_h[BM], s_w[BM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp / 2, wc = warp % 2;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  constexpr bool TA = MODE != BNN, TB = MODE == TNN;
+  constexpr int NA = TA ? 2 : 1, NB = TB ? 2 : 1;
+  static_assert(BKW == 4, "one 16-byte weight copy per row and step");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  auto& s = *reinterpret_cast<Smem<int8_t>*>(smem_raw);
+  const int sa = a_stride(resident ? words : 2 * BKW);
+  // packed words: B [2][NB][BN][BKW] (double buffer), A [NA][BM][sa]
+  uint32_t* s_bw = reinterpret_cast<uint32_t*>(smem_raw + sizeof(Smem<int8_t>));
+  uint32_t* s_aw = s_bw + 2 * NB * BN * BKW;
+  int* s_off = reinterpret_cast<int*>(s_aw + NA * BM * sa);
+  uint32_t* s_live = reinterpret_cast<uint32_t*>(s_off + words);
+  int* s_base = reinterpret_cast<int*>(s_live + words);
 
-  // Output pixel of each tile row: image, and the top-left input pixel of
-  // its patch (before padding is removed); b = -1 past m.
-  if (tid < BM) {
-    const int gm = m0 + tid;
-    if (gm < m) {
-      const int b = gm / (OH * OW), rem = gm - b * (OH * OW);
-      const int oh = rem / OW, ow = rem - oh * OW;
-      s_b[tid] = b;
-      s_h[tid] = oh * stride - pad_top;
-      s_w[tid] = ow * stride - pad_left;
-    } else {
-      s_b[tid] = -1;
-      s_h[tid] = 0;
-      s_w[tid] = 0;
-    }
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wr = warp / 2, wc = warp % 2;
+  const int m0 = blockIdx.x * BM;
+  lowbit::conv_tables<BM>(s_off, s_base, words, cw, KW, Wp, Hp, stride, OH,
+                          OW, m0, m);
+  // Channels past C within a position's last word: the weights' in-word
+  // pads decode to +1 (BNN), so the A side zeroes them.
+  for (int c = tid; c < words; c += THREADS) {
+    const int left = C - 32 * (c % cw);
+    s_live[c] = left >= 32 ? 0xffffffffu : (1u << left) - 1u;
   }
-  float thr = 0.f;
-  if constexpr (MODE != BNN) thr = __ldg(thr_p);
   __syncthreads();
+
+  const int nblk = (cout + BN - 1) / BN;
+  const int nb0 = blockIdx.y * blocks_per_cta;
+  const int nb_end = min(nblk, nb0 + blocks_per_cta);
+  const int ks = (words + BKW - 1) / BKW;
+  const int steps = (nb_end - nb0) * ks;
+
+  // The packed words of step t as one cp.async group: A (every step when
+  // streaming, the first column block's steps when resident) and the
+  // weight rows into buffer t & 1 — one 16-byte copy per row when
+  // words % 4 == 0, else one 4-byte copy per word.
+  auto stage = [&](int t) {
+    const int nb = nb0 + t / ks, w0 = (t % ks) * BKW;
+    const int wn = min(BKW, words - w0);
+    if (!resident || nb == nb0) {
+      const int slot = resident ? w0 : (t & 1) * BKW;
+      for (int i = tid; i < BM * BKW; i += THREADS) {
+        const int r = i / BKW, w = i % BKW;
+        if (w >= wn) continue;
+        const int src = s_base[r] + s_off[w0 + w];
+        lowbit::cp_async4(s_aw + r * sa + slot + w, a0 + src, true);
+        if constexpr (NA == 2)
+          lowbit::cp_async4(s_aw + (BM + r) * sa + slot + w, a1 + src, true);
+      }
+    }
+    uint32_t* sb = s_bw + (t & 1) * NB * BN * BKW;
+    const int n0 = nb * BN;
+    if (b_vec4) {
+      for (int r = tid; r < BN; r += THREADS) {
+        const bool ok = n0 + r < cout;
+        const size_t off = ok ? static_cast<size_t>(n0 + r) * words + w0 : 0;
+        lowbit::cp_async16(sb + r * BKW, b0 + off, ok);
+        if constexpr (NB == 2)
+          lowbit::cp_async16(sb + (BN + r) * BKW, b1 + off, ok);
+      }
+    } else {
+      for (int i = tid; i < BN * BKW; i += THREADS) {
+        const int r = i / BKW, w = i % BKW;
+        const bool ok = n0 + r < cout && w < wn;
+        const size_t off = ok ? static_cast<size_t>(n0 + r) * words + w0 + w : 0;
+        lowbit::cp_async4(sb + r * BKW + w, b0 + off, ok);
+        if constexpr (NB == 2)
+          lowbit::cp_async4(sb + (BN + r) * BKW + w, b1 + off, ok);
+      }
+    }
+    lowbit::cp_async_commit();
+  };
 
   Acc acc[2][2];
   zero_acc(acc);
-  for (int w0 = 0; w0 < words; w0 += BKW) {
-    // A: one warp per (row, word); lane i gathers channel 32*wi + i of
-    // the word's patch position (one coalesced 128-byte load) and stores
-    // its +-1/0 value at depth 32*w + i of the step.
-    for (int idx = warp; idx < BM * BKW; idx += THREADS / 32) {
-      const int w = idx / BM, r = idx % BM;
-      const int gk = w0 + w, b = s_b[r];
-      int q = 0;
-      if (gk < words && b >= 0) {
-        const int p = gk / cw, wi = gk - p * cw;
-        const int ch = wi * 32 + lane;
-        if (ch < C) {
-          const int dy = p / KW, dx = p - dy * KW;
-          const int h = s_h[r] + dy, ww = s_w[r] + dx;
-          float v = 0.f;
-          if (h >= 0 && h < H && ww >= 0 && ww < W)
-            v = __ldg(x + ((static_cast<size_t>(b) * H + h) * W + ww) * C + ch);
-          if constexpr (MODE == BNN)
-            q = v < 0.f ? -1 : 1;
-          else
-            q = fabsf(v) > thr ? (v > 0.f ? 1 : (v < 0.f ? -1 : 0)) : 0;
-        }
-      }
-      s.in.a.v[2 * w + (lane >> 4)][r][lane & 15] = static_cast<int8_t>(q);
+  if (steps > 0) stage(0);
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      stage(t + 1);
+      lowbit::cp_async_wait<1>();
+    } else {
+      lowbit::cp_async_wait<0>();
     }
-    stage_planes<MODE == TNN, BN>(s.in.b, b0, b1, n0, cout, w0, words,
-                                  0x7fffffff);
+    __syncthreads();
+    const int kstep = t % ks, w0 = kstep * BKW;
+    const int slot = resident ? w0 : (t & 1) * BKW;
+    const uint32_t* sb = s_bw + (t & 1) * NB * BN * BKW;
+    // Decode the step's packed words into the int8 slabs (as stage_planes
+    // lays them out): depth words past `words` decode to 0 on both sides.
+    for (int i = tid; i < BM * BKW; i += THREADS) {
+      const int r = i / BKW, w = i % BKW, gk = w0 + w;
+      uint32_t plus = 0, minus = 0, live = 0;
+      if (gk < words) {
+        plus = s_aw[r * sa + slot + w];
+        if constexpr (TA) minus = s_aw[(BM + r) * sa + slot + w];
+        live = s_live[gk];
+      }
+      decode_word<TA>(plus, minus, live, &s.in.a.v[2 * w][r][0],
+                      &s.in.a.v[2 * w + 1][r][0]);
+    }
+    for (int i = tid; i < BN * BKW; i += THREADS) {
+      const int r = i / BKW, w = i % BKW;
+      uint32_t plus = 0, minus = 0, live = 0;
+      if (w0 + w < words) {
+        plus = sb[r * BKW + w];
+        if constexpr (TB) minus = sb[(BN + r) * BKW + w];
+        live = 0xffffffffu;
+      }
+      decode_word<TB>(plus, minus, live, &s.in.b.v[2 * w][r][0],
+                      &s.in.b.v[2 * w + 1][r][0]);
+    }
     __syncthreads();
     mma_step(s, wr, wc, acc);
+    if (kstep == ks - 1) {
+      __syncthreads();                 // s.c overlays the slabs
+      store_acc(s, wr, wc, acc);
+      store_scaled(s, m0, (nb0 + t / ks) * BN, m, cout, scale_p, 0, col, bias,
+                   out);
+      zero_acc(acc);
+    }
     __syncthreads();
   }
-  store_acc(s, wr, wc, acc);
-  store_scaled(s, m0, n0, m, cout, scale_p, 0, col, bias, out);
 }
 
 }  // namespace tc
@@ -187,36 +267,53 @@ extern "C" int dense_gemm_launch(int mode, const void* a0, const void* a1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 BNN, 1 TNN, 2 TBN.  x (B, H, W, C) float32; b0/b1 (cout, words)
-// positional planes with words == KH*KW*ceil(C/32) (b1 ignored for one
-// plane); thr (ignored for BNN) and scale float32 device scalars; col
-// (cout,), bias (cout,) or null; out (B*OH*OW, cout) float32.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int dense_conv_launch(int mode, const void* x, int B, int H, int W,
-                                 int C, int KH, int KW, int stride,
-                                 int pad_top, int pad_left, int OH, int OW,
-                                 const void* b0, const void* b1, int cout,
-                                 int words, const void* thr,
+// mode: 0 BNN, 1 TNN, 2 TBN.  a0/a1 (B, Hp, Wp, ceil(C/32)) packed planes
+// from lowbit_conv's conv_pack_launch (a1 ignored for BNN); b0/b1 (cout,
+// words) positional planes with words == KH*KW*ceil(C/32) (b1 ignored for
+// one plane); scale a float32 device scalar; col (cout,), bias (cout,) or
+// null; out (B*OH*OW, cout) float32.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int dense_conv_launch(int mode, const void* a0, const void* a1,
+                                 int B, int Hp, int Wp, int C, int KH, int KW,
+                                 int stride, int OH, int OW, const void* b0,
+                                 const void* b1, int cout, int words,
                                  const void* scale, const void* col,
                                  const void* bias, void* out, void* stream) {
   using namespace tc;
   const int cw = (C + 31) / 32;
   if (B <= 0 || OH <= 0 || OW <= 0 || cout <= 0 || C <= 0 || stride <= 0 ||
-      words != KH * KW * cw)
+      KH > Hp || KW > Wp || words != KH * KW * cw ||
+      (OH - 1) * stride + KH > Hp || (OW - 1) * stride + KW > Wp)
     return static_cast<int>(cudaErrorInvalidValue);
   const int m = B * OH * OW;
-  const dim3 grid((m + BM - 1) / BM, (cout + BN - 1) / BN);
+  const int m_blocks = (m + BM - 1) / BM, nblk = (cout + BN - 1) / BN;
+  const int per_cta = lowbit_host::conv_blocks_per_cta(m_blocks, nblk);
+  const dim3 grid(m_blocks, (nblk + per_cta - 1) / per_cta);
+  const int b_vec4 = words % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(b0) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b1) % 16 == 0;
   auto st = static_cast<cudaStream_t>(stream);
 #define DENSE_CONV_CASE(MODE)                                                 \
-  case MODE:                                                                  \
-    dense_conv_kernel<MODE><<<grid, THREADS, 0, st>>>(                        \
-        static_cast<const float*>(x), H, W, C, KW, stride, pad_top, pad_left, \
-        OH, OW, m, static_cast<const uint32_t*>(b0),                          \
-        static_cast<const uint32_t*>(b1), cout, words, cw,                    \
-        static_cast<const float*>(thr), static_cast<const float*>(scale),     \
-        static_cast<const float*>(col), static_cast<const float*>(bias),      \
-        static_cast<float*>(out));                                            \
-    break;
+  case MODE: {                                                                \
+    constexpr int NA = MODE == lowbit::BNN ? 1 : 2;                           \
+    constexpr int NB = MODE == lowbit::TNN ? 2 : 1;                           \
+    const int resident =                                                      \
+        static_cast<size_t>(NA) * BM * a_stride(words) * 4 <= RESIDENT_A_BYTES; \
+    const int sa = a_stride(resident ? words : 2 * BKW);                      \
+    const size_t smem = sizeof(Smem<int8_t>) +                                \
+                        4 * (static_cast<size_t>(2) * NB * BN * BKW +         \
+                             static_cast<size_t>(NA) * BM * sa + 2 * words + BM); \
+    if (!lowbit_host::allow_smem(dense_conv_kernel<MODE>, smem))              \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    dense_conv_kernel<MODE><<<grid, THREADS, smem, st>>>(                     \
+        static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),   \
+        Hp, Wp, cw, C, KW, stride, OH, OW, m,                                 \
+        static_cast<const uint32_t*>(b0), static_cast<const uint32_t*>(b1),   \
+        cout, words, per_cta, resident, b_vec4,                               \
+        static_cast<const float*>(scale), static_cast<const float*>(col),     \
+        static_cast<const float*>(bias), static_cast<float*>(out));           \
+    break;                                                                    \
+  }
   switch (mode) {
     DENSE_CONV_CASE(lowbit::BNN)
     DENSE_CONV_CASE(lowbit::TNN)

@@ -1,40 +1,50 @@
 // Implicit-im2col low-bit convolution for Hopper (sm_90a): TNN, TBN, BNN.
 //
 // Replaces the Pallas kernel conv_fused._conv_pallas_fused
-// (kernels/conv_fused.py) of the JAX package.
+// (kernels/conv_fused.py) of the JAX package, as two kernels on one stream:
 //
-// out[b, oh, ow, co] for x (B, H, W, C) float32 NHWC and positional weight
-// planes (cout, kh*kw*ceil(C/32)) — patch position p = dy*kw + dx owns
-// ceil(C/32) words, channel c of that position is bit c%32 of word c/32.
-// Per CTA (BM output pixels x BN output channels):
-//   1. the pixels' (b, oh, ow) come from blockIdx; each warp gathers one
-//      32-channel run of one patch position straight from global memory
-//      (lane i reads channel 32*w + i: one coalesced 128-byte load);
-//   2. each lane quantizes its value with the per-tensor statistics
-//      (thr, scale are device scalars from conv_act_stats, read through
-//      pointers so no host sync happens per layer) and __ballot_sync
-//      packs the predicate into the word: lane i -> bit i, LSB first;
-//   3. the packed A tile stays in shared memory and the popcount core of
-//      lowbit_core.cuh runs it against the staged weight words;
-//   4. eq. (6) for BNN and eq. (2) (acc * scale * col (+ bias)) in-kernel.
+//   conv_pack_kernel   the in-kernel quantize + pack of the Pallas kernel,
+//                      done once per input pixel: x (B, H, W, C) float32
+//                      NHWC -> bit planes (B, Hp, Wp, ceil(C/32)) of the
+//                      spatially padded input (BNN one plane, bit = v < 0;
+//                      TNN/TBN two, v > thr and v < -thr where |v| > thr).
+//                      A pad pixel, like a channel past C, is 0.0 and packs
+//                      as word 0 in every mode (BNN +1 = bit 0, ternary
+//                      (0,0)), which is what the plain version packs.  One
+//                      warp per 32 consecutive (pixel, word) items: lane i
+//                      reads channel 32*w + i (one coalesced 128-byte load;
+//                      the 32 items' loads in flight together),
+//                      __ballot_sync packs the predicate, and lane j keeps
+//                      item j's word, so the words are stored coalesced.
+//   lowbit_conv_kernel out[b, oh, ow, co] from those planes and the
+//                      positional weight planes (cout, kh*kw*ceil(C/32))
+//                      (patch position p = dy*kw + dx owns ceil(C/32)
+//                      words; channel c is bit c%32 of word c/32).
 //
-// Padding: a SAME-padding pixel, like a channel past C, is the value 0.0
-// and is quantized as one: BNN packs it as bit 0 (+1), exactly as the
-// reference packs the zero-padded input (pack_bits(xp < 0)); TNN/TBN pack
-// (0,0).  The weights' in-word pads are bit 0 / (0,0), so both contribute
-// what the materializing im2col oracle sums.
+// The conv kernel (CTA = BM output pixels; 256 threads):
+//   1. per-CTA tables (lowbit_core.cuh conv_tables): the A word of (row r,
+//      depth word gk) is planes[base[r] + off[gk]], one 4-byte load with no
+//      bounds check, no quantization and no ballot;
+//   2. the CTA loops over its column blocks (all of cout unless the row
+//      blocks alone do not fill the card) with the A tile staged ONCE for
+//      the whole depth in shared memory (resident) and reused by every
+//      column block; depths too deep for that (A over 64 KB) stream A
+//      through a two-slot ring per step instead, re-staged per column block;
+//   3. staging is cp.async (4-byte copies into the depth-major tiles that
+//      the popcount core reads conflict-free), double-buffered: the copies
+//      of step t+1 are in flight while step t runs the popcount loop;
+//   4. lowbit_core.cuh's mac_tile, then eq. (6) for BNN and eq. (2)
+//      (acc * scale * col (+ bias)) in store_tile.
 //
-// What bounds it on this card: the integer pipe, as for lowbit_gemm.cu
-// (POPC at 16 results per clock per SM on compute capability 9.0), plus
-// the gather: each input element is read once per patch position that
-// holds it (kh*kw times) per BN-column block, from L2 after the first
-// time; the bytes a conv must move (x once, the output once) are far
-// below 3.35 TB/s.  The design keeps the packed tile in shared memory so
-// the 32x smaller words, not floats, feed the popcount loop.  Not done
-// yet (later work): quantize and pack each input pixel once per CTA
-// instead of once per patch position and double-buffer the staging.  The
-// tensor-core route (+-1/0 int8 operands, as the reference's dense conv
-// kernel does on the MXU) is dense_tc.cu's dense_conv_kernel.
+// The weight rows are staged with 4-byte copies too: mac_tile's depth-major
+// tile holds no 4 consecutive words of one row, so a 16-byte copy has no
+// destination there (dense_tc.cu's row-major staging takes 16-byte ones).
+//
+// What bounds it on this card: the integer pipe (POPC at 16 results per
+// clock per SM on compute capability 9.0).  The pack reads x once and
+// writes 1/32 (BNN) or 1/16 (ternary) of it; the conv gathers packed words
+// from L2, 32x fewer bytes than the floats the previous design gathered,
+// once per CTA instead of once per 64-column block.
 //
 // Built with --fmad=false; the epilogue uses __fmul_rn/__fadd_rn, so the
 // output is bit for bit the plain PyTorch version's.
@@ -43,122 +53,241 @@
 
 namespace lowbit {
 
+constexpr int RESIDENT_A_BYTES = 64 * 1024;   // A for the whole depth
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-lowbit_conv_kernel(const float* __restrict__ x, int H, int W, int C, int KW,
-                   int stride, int pad_top, int pad_left, int OH, int OW,
-                   int m, const uint32_t* __restrict__ b0,
-                   const uint32_t* __restrict__ b1, int cout, int words,
-                   int cw, int k_valid, const float* __restrict__ thr_p,
-                   const float* __restrict__ scale_p,
-                   const float* __restrict__ col,
-                   const float* __restrict__ bias, float* __restrict__ out) {
-  __shared__ Tile<MODE> s;
-  __shared__ int s_b[BM], s_h[BM], s_w[BM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // Output pixel of each tile row: image, and the top-left input pixel
-  // of its patch (before padding is removed); b = -1 past m.
-  if (tid < BM) {
-    const int gm = m0 + tid;
-    if (gm < m) {
-      const int b = gm / (OH * OW), rem = gm - b * (OH * OW);
-      const int oh = rem / OW, ow = rem - oh * OW;
-      s_b[tid] = b;
-      s_h[tid] = oh * stride - pad_top;
-      s_w[tid] = ow * stride - pad_left;
-    } else {
-      s_b[tid] = -1;
-      s_h[tid] = 0;
-      s_w[tid] = 0;
+conv_pack_kernel(const float* __restrict__ x, int H, int W, int C, int Hp,
+                 int Wp, int pad_top, int pad_left, int cw, int items,
+                 const float* __restrict__ thr_p, uint32_t* __restrict__ p0,
+                 uint32_t* __restrict__ p1) {
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * THREADS + (threadIdx.x & ~31);
+  const int n = min(32, items - first);           // the warp's items
+  // (b, hp, wp, wi) of the warp's first item, then stepped item by item:
+  // the 32 loads are issued before the first ballot waits on one.
+  int pix = first / cw, wi = first - pix * cw;
+  int b = pix / (Hp * Wp), rem = pix - b * (Hp * Wp);
+  int hp = rem / Wp, wp = rem - hp * Wp;
+  float v[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int h = hp - pad_top, w = wp - pad_left, ch = wi * 32 + lane;
+    v[j] = 0.f;
+    if (j < n && h >= 0 && h < H && w >= 0 && w < W && ch < C)
+      v[j] = __ldg(x + ((static_cast<size_t>(b) * H + h) * W + w) * C + ch);
+    if (++wi == cw) {
+      wi = 0;
+      if (++wp == Wp) {
+        wp = 0;
+        if (++hp == Hp) {
+          hp = 0;
+          ++b;
+        }
+      }
     }
   }
   float thr = 0.f;
   if constexpr (MODE != BNN) thr = __ldg(thr_p);
-  __syncthreads();
-
-  int acc[TM][TN] = {};
-  for (int k0 = 0; k0 < words; k0 += BK) {
-    const int wn = min(BK, words - k0);
-    // A tile: one warp per (row, word), gathered, quantized and packed.
-    for (int idx = warp; idx < BM * wn; idx += THREADS / 32) {
-      const int c = idx / BM, r = idx % BM;
-      const int gk = k0 + c;
-      const int b = s_b[r];
-      float v = 0.f;
-      if (b >= 0) {
-        const int p = gk / cw, wi = gk - p * cw;
-        const int dy = p / KW, dx = p - dy * KW;
-        const int h = s_h[r] + dy, w = s_w[r] + dx, ch = wi * 32 + lane;
-        if (h >= 0 && h < H && w >= 0 && w < W && ch < C)
-          v = __ldg(x + ((static_cast<size_t>(b) * H + h) * W + w) * C + ch);
-      }
-      if constexpr (MODE == BNN) {
-        const unsigned bits = __ballot_sync(0xffffffffu, v < 0.f);
-        if (lane == 0) s.a[0][c][r] = bits;
-      } else {
-        const bool nz = fabsf(v) > thr;
-        const unsigned plus = __ballot_sync(0xffffffffu, nz && v > 0.f);
-        const unsigned minus = __ballot_sync(0xffffffffu, nz && v < 0.f);
-        if (lane == 0) {
-          s.a[0][c][r] = plus;
-          s.a[1][c][r] = minus;
-        }
+  uint32_t mine0 = 0, mine1 = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if constexpr (MODE == BNN) {
+      const unsigned bits = __ballot_sync(0xffffffffu, v[j] < 0.f);
+      if (lane == j) mine0 = bits;
+    } else {
+      const bool nz = fabsf(v[j]) > thr;
+      const unsigned plus = __ballot_sync(0xffffffffu, nz && v[j] > 0.f);
+      const unsigned minus = __ballot_sync(0xffffffffu, nz && v[j] < 0.f);
+      if (lane == j) {
+        mine0 = plus;
+        mine1 = minus;
       }
     }
-    stage_rows<Planes<MODE>::B, BN>(s.b, b0, b1, n0, cout, k0, wn, words);
-    __syncthreads();
-    mac_tile<MODE>(s, wn, ty, tx, acc);
-    __syncthreads();
   }
-  store_tile<MODE, true>(acc, m0, n0, ty, tx, m, cout, k_valid, scale_p, 0,
-                         col, bias, out);
+  if (lane < n) {
+    p0[first + lane] = mine0;
+    if constexpr (MODE != BNN) p1[first + lane] = mine1;
+  }
 }
 
 template <int MODE>
-void launch(const void* x, int B, int H, int W, int C, int KW, int stride,
-            int pad_top, int pad_left, int OH, int OW, const void* b0,
-            const void* b1, int cout, int words, int cw, int k_valid,
-            const void* thr, const void* scale, const void* col,
-            const void* bias, void* out, cudaStream_t stream) {
-  const int m = B * OH * OW;
-  const dim3 grid((m + BM - 1) / BM, (cout + BN - 1) / BN);
-  lowbit_conv_kernel<MODE><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(x), H, W, C, KW, stride, pad_top, pad_left,
-      OH, OW, m, static_cast<const uint32_t*>(b0),
-      static_cast<const uint32_t*>(b1), cout, words, cw, k_valid,
-      static_cast<const float*>(thr), static_cast<const float*>(scale),
-      static_cast<const float*>(col), static_cast<const float*>(bias),
-      static_cast<float*>(out));
+__global__ void __launch_bounds__(THREADS)
+lowbit_conv_kernel(const uint32_t* __restrict__ a0,
+                   const uint32_t* __restrict__ a1, int Hp, int Wp, int cw,
+                   int KW, int stride, int OH, int OW, int m,
+                   const uint32_t* __restrict__ b0,
+                   const uint32_t* __restrict__ b1, int cout, int words,
+                   int k_valid, int blocks_per_cta, int resident,
+                   const float* __restrict__ scale_p,
+                   const float* __restrict__ col,
+                   const float* __restrict__ bias, float* __restrict__ out) {
+  constexpr int NA = Planes<MODE>::A, NB = Planes<MODE>::B;
+  extern __shared__ uint32_t smem[];
+  const int ka = resident ? words : 2 * BK;          // A words held per plane
+  uint32_t* s_a = smem;                               // [NA][ka][BM + 1]
+  uint32_t* s_b = s_a + NA * ka * (BM + 1);           // [2][NB][BK][BN + 1]
+  int* s_off = reinterpret_cast<int*>(s_b + 2 * NB * BK * (BN + 1));
+  int* s_base = s_off + words;                        // [BM]
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM;
+  conv_tables<BM>(s_off, s_base, words, cw, KW, Wp, Hp, stride, OH, OW, m0,
+                  m);
+  __syncthreads();
+
+  const int nblk = (cout + BN - 1) / BN;
+  const int nb0 = blockIdx.y * blocks_per_cta;
+  const int nb_end = min(nblk, nb0 + blocks_per_cta);
+  const int ks = (words + BK - 1) / BK;
+  const int steps = (nb_end - nb0) * ks;
+
+  // Issue the copies of step t (column block nb0 + t / ks, depth step t % ks)
+  // as one cp.async group: A (every step when streaming, the first column
+  // block's steps when resident) and the B rows into buffer t & 1.
+  auto stage = [&](int t) {
+    const int nb = nb0 + t / ks, k0 = (t % ks) * BK;
+    const int wn = min(BK, words - k0);
+    if (!resident || nb == nb0) {
+      const int slot = resident ? k0 : (t & 1) * BK;
+      for (int i = tid; i < BM * wn; i += THREADS) {
+        const int c = i / BM, r = i % BM;
+        const int src = s_base[r] + s_off[k0 + c];
+        cp_async4(s_a + (slot + c) * (BM + 1) + r, a0 + src, true);
+        if constexpr (NA == 2)
+          cp_async4(s_a + (ka + slot + c) * (BM + 1) + r, a1 + src, true);
+      }
+    }
+    uint32_t* sb = s_b + (t & 1) * NB * BK * (BN + 1);
+    const int n0 = nb * BN;
+    for (int i = tid; i < BN * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      if (c >= wn) continue;
+      const bool ok = n0 + r < cout;
+      const size_t off = ok ? static_cast<size_t>(n0 + r) * words + k0 + c : 0;
+      cp_async4(sb + c * (BN + 1) + r, b0 + off, ok);
+      if constexpr (NB == 2)
+        cp_async4(sb + (BK + c) * (BN + 1) + r, b1 + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  using ARow = const uint32_t (*)[BM + 1];
+  using BRow = const uint32_t (*)[BN + 1];
+  int acc[TM][TN] = {};
+  if (steps > 0) stage(0);
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      stage(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kstep = t % ks, k0 = kstep * BK;
+    const int slot = resident ? k0 : (t & 1) * BK;
+    const uint32_t* sb = s_b + (t & 1) * NB * BK * (BN + 1);
+    mac_tile<MODE>(reinterpret_cast<ARow>(s_a + slot * (BM + 1)),
+                   reinterpret_cast<ARow>(s_a + ((NA - 1) * ka + slot) * (BM + 1)),
+                   reinterpret_cast<BRow>(sb),
+                   reinterpret_cast<BRow>(sb + (NB - 1) * BK * (BN + 1)),
+                   min(BK, words - k0), ty, tx, acc);
+    if (kstep == ks - 1) {
+      const int nb = nb0 + t / ks;
+      store_tile<MODE, true>(acc, m0, nb * BN, ty, tx, m, cout, k_valid,
+                             scale_p, 0, col, bias, out);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace lowbit
 
-// mode: 0 BNN, 1 TNN, 2 TBN.  x (B, H, W, C) float32; b0/b1 (cout, words)
-// positional planes with words == kh*kw*ceil(C/32) (b1 ignored for one
-// plane); thr (ignored for BNN) and scale are float32 device scalars;
-// col (cout,), bias (cout,) or null; out (B*OH*OW, cout) float32.
+// mode: 0 BNN, 1 TNN, 2 TBN.  x (B, H, W, C) float32; p0/p1 (B, Hp, Wp,
+// ceil(C/32)) int32 planes of the input padded by pad_top/pad_left (p1
+// ignored for BNN); thr a float32 device scalar (ignored for BNN).
 // Returns cudaGetLastError() after the launch.
-extern "C" int lowbit_conv_launch(int mode, const void* x, int B, int H,
-                                  int W, int C, int KH, int KW, int stride,
-                                  int pad_top, int pad_left, int OH, int OW,
-                                  const void* b0, const void* b1, int cout,
-                                  int words, int k_valid, const void* thr,
-                                  const void* scale, const void* col,
-                                  const void* bias, void* out, void* stream) {
+extern "C" int conv_pack_launch(int mode, const void* x, int B, int H, int W,
+                                int C, int Hp, int Wp, int pad_top,
+                                int pad_left, const void* thr, void* p0,
+                                void* p1, void* stream) {
+  using namespace lowbit;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Hp < H || Wp < W ||
+      pad_top < 0 || pad_left < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cw = (C + 31) / 32;
+  const long long items = static_cast<long long>(B) * Hp * Wp * cw;
+  if (items + THREADS >= 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((items + THREADS - 1) / THREADS);
+  auto st = static_cast<cudaStream_t>(stream);
+#define CONV_PACK_CASE(MODE)                                                  \
+  case MODE:                                                                  \
+    conv_pack_kernel<MODE><<<blocks, THREADS, 0, st>>>(                       \
+        static_cast<const float*>(x), H, W, C, Hp, Wp, pad_top, pad_left, cw, \
+        static_cast<int>(items), static_cast<const float*>(thr),              \
+        static_cast<uint32_t*>(p0),                                           \
+        static_cast<uint32_t*>(p1));                                          \
+    break;
+  switch (mode) {
+    CONV_PACK_CASE(BNN)
+    CONV_PACK_CASE(TNN)
+    CONV_PACK_CASE(TBN)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CONV_PACK_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 BNN, 1 TNN, 2 TBN.  a0/a1 (B, Hp, Wp, ceil(C/32)) packed planes
+// from conv_pack_launch (a1 ignored for BNN); b0/b1 (cout, words)
+// positional weight planes with words == KH*KW*ceil(C/32) (b1 ignored for
+// one plane); scale a float32 device scalar; col (cout,), bias (cout,) or
+// null; out (B*OH*OW, cout) float32.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int lowbit_conv_launch(int mode, const void* a0, const void* a1,
+                                  int B, int Hp, int Wp, int C, int KH, int KW,
+                                  int stride, int OH, int OW, const void* b0,
+                                  const void* b1, int cout, int words,
+                                  int k_valid, const void* scale,
+                                  const void* col, const void* bias, void* out,
+                                  void* stream) {
   using namespace lowbit;
   const int cw = (C + 31) / 32;
   if (B <= 0 || OH <= 0 || OW <= 0 || cout <= 0 || C <= 0 || stride <= 0 ||
-      words != KH * KW * cw)
+      KH > Hp || KW > Wp || words != KH * KW * cw ||
+      (OH - 1) * stride + KH > Hp || (OW - 1) * stride + KW > Wp)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int m = B * OH * OW;
+  const int m_blocks = (m + BM - 1) / BM, nblk = (cout + BN - 1) / BN;
+  const int per_cta = lowbit_host::conv_blocks_per_cta(m_blocks, nblk);
+  const dim3 grid(m_blocks, (nblk + per_cta - 1) / per_cta);
   auto st = static_cast<cudaStream_t>(stream);
 #define LOWBIT_CONV_CASE(MODE)                                                \
-  case MODE:                                                                  \
-    launch<MODE>(x, B, H, W, C, KW, stride, pad_top, pad_left, OH, OW, b0,    \
-                 b1, cout, words, cw, k_valid, thr, scale, col, bias, out, st); \
-    break;
+  case MODE: {                                                                \
+    constexpr int NA = Planes<MODE>::A, NB = Planes<MODE>::B;                 \
+    const int resident =                                                      \
+        static_cast<size_t>(NA) * words * (BM + 1) * 4 <= RESIDENT_A_BYTES;   \
+    const int ka = resident ? words : 2 * BK;                                 \
+    const size_t smem =                                                       \
+        4 * (static_cast<size_t>(NA) * ka * (BM + 1) +                        \
+             2 * NB * BK * (BN + 1) + words + BM);                            \
+    if (!lowbit_host::allow_smem(lowbit_conv_kernel<MODE>, smem))             \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    lowbit_conv_kernel<MODE><<<grid, THREADS, smem, st>>>(                    \
+        static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),   \
+        Hp, Wp, cw, KW, stride, OH, OW, m, static_cast<const uint32_t*>(b0),  \
+        static_cast<const uint32_t*>(b1), cout, words, k_valid, per_cta,      \
+        resident, static_cast<const float*>(scale),                           \
+        static_cast<const float*>(col), static_cast<const float*>(bias),      \
+        static_cast<float*>(out));                                            \
+    break;                                                                    \
+  }
   switch (mode) {
     LOWBIT_CONV_CASE(BNN)
     LOWBIT_CONV_CASE(TNN)

@@ -1,5 +1,6 @@
 // Tensor-core tile shared by the Hopper dense and affine kernels
-// (dense_tc.cu, affine_gemm.cu): 8-bit operands staged in shared memory,
+// (dense_tc.cu, affine_gemm.cu): 8-bit operands staged in shared memory
+// (bit planes decoded four values per lane op, decode_word),
 // nvcuda::wmma 16x16x16 products with int32 accumulators, and the
 // accumulator tile written back through shared memory.
 //
@@ -94,6 +95,35 @@ __device__ __forceinline__ void store_acc(Smem<T>& s, int wr, int wc,
   __syncthreads();
 }
 
+// Bits 0..3 of n as four bytes of 0 or 1 (bit i -> byte i): the four
+// shifted copies n, n<<7, n<<14, n<<21 do not overlap, so nothing carries.
+__device__ __forceinline__ uint32_t expand4(uint32_t n) {
+  return ((n & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+// Decode one bit-plane word into its 32 +-1/0 int8 values — ternary
+// (plus, minus) -> plus - minus, binary bit b -> 1 - 2b — zeroed where
+// live has no bit: values 0..15 as one 16-byte store to lo, 16..31 to hi.
+// Four values per 32-bit lane op (__vsub4 is a per-byte subtraction).
+template <bool TERNARY>
+__device__ __forceinline__ void decode_word(uint32_t plus, uint32_t minus,
+                                            uint32_t live, int8_t* lo,
+                                            int8_t* hi) {
+  uint32_t q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t p = expand4(plus >> (4 * i));
+    uint32_t v;
+    if constexpr (TERNARY)
+      v = __vsub4(p, expand4(minus >> (4 * i)));
+    else
+      v = __vsub4(0x01010101u, p << 1);
+    q[i] = v & (expand4(live >> (4 * i)) * 0xffu);
+  }
+  *reinterpret_cast<uint4*>(lo) = make_uint4(q[0], q[1], q[2], q[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(q[4], q[5], q[6], q[7]);
+}
+
 // Decode bit-plane words [w0, w0 + BKW) of rows [row0, row0 + ROWS) into
 // +-1/0 int8 values: ternary (plus, minus) -> plus - minus, binary bit b
 // -> 1 - 2b.  Rows past nrows, words past kw and depth >= k_zero stage 0.
@@ -116,27 +146,8 @@ __device__ __forceinline__ void stage_planes(Operand<int8_t, ROWS>& dst,
       const long long left = static_cast<long long>(k_zero) - 32LL * gw;
       live = left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
     }
-    uint32_t bytes[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int bit = q * 4 + b;
-        int v;
-        if constexpr (TERNARY)
-          v = static_cast<int>((plus >> bit) & 1u) - static_cast<int>((minus >> bit) & 1u);
-        else
-          v = 1 - 2 * static_cast<int>((plus >> bit) & 1u);
-        if (!((live >> bit) & 1u)) v = 0;
-        word |= (static_cast<uint32_t>(v) & 0xffu) << (8 * b);
-      }
-      bytes[q] = word;
-    }
-    *reinterpret_cast<uint4*>(&dst.v[2 * w][r][0]) =
-        make_uint4(bytes[0], bytes[1], bytes[2], bytes[3]);
-    *reinterpret_cast<uint4*>(&dst.v[2 * w + 1][r][0]) =
-        make_uint4(bytes[4], bytes[5], bytes[6], bytes[7]);
+    decode_word<TERNARY>(plus, minus, live, &dst.v[2 * w][r][0],
+                         &dst.v[2 * w + 1][r][0]);
   }
 }
 

@@ -10,9 +10,10 @@ on chip, ahead of the product, and the eq. (2) epilogue runs in-kernel:
   each operand's planes to int8 in shared memory and runs wmma with int32
   accumulators;
 * im2col_fused (``dense_conv_fused_cuda``, replaces
-  ``dense_conv_fused_pallas``): the same kernel file gathers the raw
-  patch values per CTA, quantizes them to +-1/0 with the per-tensor
-  statistics, decodes the positional weight words beside them, and
+  ``dense_conv_fused_pallas``): the popcount conv's packing pass
+  quantizes each padded input pixel once; the same kernel file's conv
+  kernel gathers the packed words per CTA, decodes them and the
+  positional weight words to +-1/0 int8 in shared memory, and
   multiplies; the im2col matrix never exists.
 
 Both register under ``(mode, "dense", fused=True)`` for their layout; on
@@ -45,7 +46,8 @@ from repro_torch.kernels._matmul_common import (
     _MODE_ID, _PLANES, _check_planes, _ptr, check_f32_vec, on_cuda,
     scale_epilogue)
 from repro_torch.kernels.conv_fused import (
-    conv_out_hw, conv_spatial_pad, gather_patch_tile, quantize_patch_values)
+    conv_pack_cuda, conv_spatial_pad, gather_patch_tile, packed_conv_args,
+    quantize_patch_values)
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["unpack_values", "dense_matmul_torch", "dense_matmul_fused_torch",
@@ -196,48 +198,27 @@ def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
                           stats: Dict[str, torch.Tensor],
                           col_scale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused dense conv -> float32 (B, OH, OW, Cout): ``csrc/dense_tc.cu``
-    on CUDA operands (raises on anything it does not take), the plain
-    version on CPU operands."""
+    """Fused dense conv -> float32 (B, OH, OW, Cout): on CUDA operands the
+    pack kernel (``conv_fused.conv_pack_cuda``) then ``csrc/dense_tc.cu``'s
+    conv kernel, on the current stream with no host sync (raises on
+    anything they do not take); the plain version on CPU operands."""
     if not on_cuda(x, *b_planes, *stats.values(), col_scale, bias):
         return dense_conv_fused_torch(mode, x, b_planes, geometry, stride,
                                       padding, stats, col_scale, bias)
     kh, kw, cin, cout = geometry
-    if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError(f"dense conv kernel needs contiguous float32 (B, H, "
-                         f"W, Cin), got {x.dtype} {tuple(x.shape)}")
-    bsz, h, w, c = x.shape
-    if c != cin:
-        raise ValueError(f"channel mismatch: x has {c}, geometry {geometry}")
-    dev = x.device
-    words = kh * kw * (-(-cin // 32))
-    _check_planes("b", b_planes, 2 if _TERNARY_B[mode] else 1, rows_kw=words)
-    if b_planes[0].device != dev or b_planes[0].shape[0] != cout:
-        raise ValueError(f"weight planes must be ({cout}, {words}) on {dev}, "
-                         f"got {tuple(b_planes[0].shape)} on {b_planes[0].device}")
-    scale = stats["scale"]
-    thr = None if mode == QuantMode.BNN else stats["thr"]
-    check_f32_vec("scale", scale, 1, dev)
-    check_f32_vec("thr", thr, 1, dev)
-    col = col_scale.reshape(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).contiguous()
-    check_f32_vec("col_scale", col, cout, dev)
-    check_f32_vec("bias", bias, cout, dev)
-    oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
-    m = bsz * oh * ow
-    if m >= 2**31 or x.numel() >= 2**31:
-        raise ValueError("dense conv kernel indexes pixels with 32-bit ints")
-    out = torch.empty((m, cout), dtype=torch.float32, device=dev)
-    if m == 0:
+    out, dims, words, scale, col, bias = packed_conv_args(
+        mode, x, b_planes, geometry, stride, padding, stats, col_scale, bias)
+    bsz, _, _, _, _, _, _, oh, ow = dims
+    if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
+    a = conv_pack_cuda(mode, x, kh, kw, stride, padding, stats)
     lib = _build.load("dense_tc")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dense_conv_launch(
-            _MODE_ID[mode], _ptr(x), bsz, h, w, c, kh, kw, stride, ph // 2,
-            pw // 2, oh, ow, _ptr(b_planes[0]), _ptr(b_planes[-1]), cout,
-            words, _ptr(thr), _ptr(scale), _ptr(col), _ptr(bias), _ptr(out),
-            ctypes.c_void_p(stream))
+            _MODE_ID[mode], _ptr(a[0]), _ptr(a[-1]), *dims, _ptr(b_planes[0]),
+            _ptr(b_planes[-1]), cout, words, _ptr(scale), _ptr(col),
+            _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
     _build.check_launch(lib, rc, f"dense_conv[{mode.value}]")
     _build.count_launch(f"dense_conv_{mode.value}")
     return out.reshape(bsz, oh, ow, cout)
@@ -270,8 +251,9 @@ def _register_dense_kernels():
         registry.register(
             mode, "dense", fused=True, layout=registry.LAYOUT_IM2COL,
             epilogue="in-kernel", compute="cuda-imma",
-            description="csrc/dense_tc.cu: per-CTA patch gather + quantize "
-                        "to int8, weight decode, wmma, epilogue in-kernel",
+            description="pack once (csrc/lowbit_conv.cu), then "
+                        "csrc/dense_tc.cu: packed-word gather per CTA, "
+                        "decode to int8, wmma, epilogue in-kernel",
         )(make_conv(mode))
 
 

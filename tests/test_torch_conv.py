@@ -10,7 +10,11 @@
   against the reference's ``xla`` backend, which the reference's own
   tests pin bit-identical to ``pallas``; a handful run ``pallas`` in
   interpret mode;
-* the port's fused conv against its materializing oracle: ``torch.equal``.
+* the port's fused conv against its materializing oracle: ``torch.equal``;
+* the packing pass both conv kernels run first (``conv_pack_cuda`` on CPU
+  tensors, i.e. its plain version ``conv_pack_torch``) against the JAX
+  ``_pack_activation_planes`` after ``conv_spatial_pad``, with the JAX
+  statistics injected: ``array_equal``, since these are bits.
 """
 
 import jax.numpy as jnp
@@ -36,10 +40,16 @@ CASES = {
     "3x3s2valid": ((1, 9, 11, 32), (3, 3, 32, 7), 2, "VALID"),
 }
 PALLAS_CASES = {"3x3s1same_c32"}
+# the packing pass also at a ragged channel count with stride 2 (SAME and
+# VALID), where the padded grid is not the output grid times the stride
+PACK_CASES = dict(CASES, **{
+    "5x5s2same_c40": ((2, 10, 9, 40), (5, 5, 40, 3), 2, "SAME"),
+    "3x3s2valid_c45": ((1, 9, 11, 45), (3, 3, 45, 4), 2, "VALID"),
+})
 
 
 def _data(case, seed=0):
-    xs, fs, stride, padding = CASES[case]
+    xs, fs, stride, padding = PACK_CASES[case]
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(xs).astype(np.float32),
             rng.standard_normal(fs).astype(np.float32), stride, padding)
@@ -84,6 +94,27 @@ def test_qconv_matches_jax_with_injected_stats(mode, case):
                                {k: torch.tensor(float(v)) for k, v in np_stats.items()},
                                stride, padding)
     assert torch.equal(oracle, got)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_conv_pack_matches_jax(mode, case):
+    x, f, stride, padding = _data(case, seed=5)
+    kh, kw = f.shape[:2]
+    stats = jcf.conv_act_stats(jnp.asarray(x), JMode(mode), kh, kw, stride, padding)
+    xp, _ = jcf.conv_spatial_pad(jnp.asarray(x), kh, kw, stride, padding)
+    ref = [np.asarray(p) for p in jcf._pack_activation_planes(xp, JMode(mode), stats)]
+    t_stats = {k: torch.tensor(np.asarray(v)) for k, v in stats.items()}
+    xt = torch.from_numpy(x)
+    got = conv_fused.conv_pack_cuda(QuantMode(mode), xt, kh, kw, stride, padding, t_stats)
+    plain = conv_fused.conv_pack_torch(QuantMode(mode), xt, kh, kw, stride, padding,
+                                       t_stats)
+    assert len(got) == len(plain) == len(ref) == (1 if mode == "bnn" else 2)
+    for g, p, r in zip(got, plain, ref):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        assert tuple(g.shape) == r.shape                     # (B, Hp, Wp, ceil(C/32))
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), r.astype(np.uint32))
+        assert torch.equal(g, p)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -65,7 +65,16 @@ def test_gemm_kernel_matches_plain(cuda_device, mode, shape):
 CONV_CASES = [((2, 8, 8, 32), (3, 3, 32, 16), 1, "SAME"),
               ((2, 7, 6, 8), (3, 3, 8, 70), 1, "SAME"),
               ((3, 9, 11, 40), (3, 3, 40, 7), 2, "VALID"),
-              ((2, 10, 10, 64), (5, 5, 64, 33), 2, "SAME")]
+              ((2, 10, 10, 64), (5, 5, 64, 33), 2, "SAME"),
+              # several column blocks reuse one staged A tile
+              ((2, 8, 8, 64), (3, 3, 64, 256), 1, "SAME"),
+              # batch 1, odd H x W: tiles cross image rows; ragged last block
+              ((1, 7, 9, 32), (3, 3, 32, 70), 1, "SAME"),
+              ((1, 11, 13, 16), (5, 5, 16, 40), 2, "SAME"),
+              # deep enough that A streams through the ring (ternary: 135
+              # words; BNN: 288 words)
+              ((1, 6, 6, 480), (3, 3, 480, 20), 1, "SAME"),
+              ((1, 4, 5, 1000), (3, 3, 1000, 9), 1, "SAME")]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -79,9 +88,28 @@ def test_conv_kernel_matches_plain(cuda_device, mode, case):
         qt = pack_conv_filters(f, QuantMode(mode), bias=bias)
         _build.reset_launches()
         got = ops.qconv(x, qt, stride=stride, padding=padding, backend="cuda")
-        assert _build.launches() == {f"lowbit_conv_{mode}": 1}
+        assert _build.launches() == {f"conv_pack_{mode}": 1, f"lowbit_conv_{mode}": 1}
         plain = ops.qconv(x, qt, stride=stride, padding=padding, backend="torch")
         assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", range(len(CONV_CASES)))
+def test_conv_pack_kernel_matches_plain(cuda_device, mode, case):
+    from repro_torch.kernels import conv_fused
+
+    xs, fs, stride, padding = CONV_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(case + 20)
+    x = torch.randn(xs, generator=g, device=cuda_device)
+    kh, kw = fs[:2]
+    stats = conv_fused.conv_act_stats(x, QuantMode(mode), kh, kw, stride, padding)
+    _build.reset_launches()
+    got = conv_fused.conv_pack_cuda(QuantMode(mode), x, kh, kw, stride, padding, stats)
+    assert _build.launches() == {f"conv_pack_{mode}": 1}
+    want = conv_fused.conv_pack_torch(QuantMode(mode), x, kh, kw, stride, padding, stats)
+    assert len(got) == len(want) == (1 if mode == "bnn" else 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_cuda_operands_never_run_plain(cuda_device):
@@ -160,7 +188,7 @@ def test_dense_conv_kernel_matches_plain(cuda_device, mode, case):
                 None if bias is None else bias.reshape(1, cout))
         _build.reset_launches()
         got = dense_fused.dense_conv_fused_cuda(*args)
-        assert _build.launches() == {f"dense_conv_{mode}": 1}
+        assert _build.launches() == {f"conv_pack_{mode}": 1, f"dense_conv_{mode}": 1}
         assert torch.equal(got, dense_fused.dense_conv_fused_torch(*args))
         assert torch.equal(got, ops.qconv(x, qt, stride=stride, padding=padding,
                                           backend="cuda"))
