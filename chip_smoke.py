@@ -4,6 +4,12 @@ Hopper card: builds the kernels from this checkout, holds every kernel
 against its plain PyTorch version, drives the main path, times it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gemm-times [--src DIR]
+
+The second form runs phases 1, 2 and the GeMM rows of phase 6 only, for
+the ``repro_torch`` package under ``DIR`` (default this checkout's
+``src``): the way to time another checkout's GeMM kernels, e.g. the
+parent commit's, on the same card.
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -13,19 +19,22 @@ without printing a result:
 2. build — ``nvcc`` for ``sm_90a``, one process per ``csrc/*.cu``, and
    ``-Xptxas -v``'s register / shared-memory / spill lines;
 3. GeMM kernel vs plain on the card — TNN/TBN/BNN, int32 core and fused
-   (with and without bias), at every ``GEMM_GRID`` shape, a ragged depth
-   and the CNN's im2col shapes: ``torch.equal``;
+   (the row scale as (m, 1) values, one per-tensor value, and that value
+   expanded to (m, 1); with and without bias), at every ``GEMM_GRID``
+   shape, the CNN's im2col shapes at batch 8 and ``GEMM_EXTRA`` (ragged
+   m, n and k, every CTA tile of the plan, A streamed), plus planes at a
+   4-byte, not 16-byte, aligned offset: ``torch.equal``;
 4. conv kernels vs plain — every ``PAPER_CNN`` low-bit layer geometry
    at full width, batch 8, in all three modes, plus a Cin % 32 != 0, a
    stride-2 VALID and two deep geometries (the A tile streamed instead of
    resident): the packing pass (``conv_pack_kernel``) and the popcount
    conv (pack + conv) ``torch.equal`` to their plain versions;
 4b. the dense backend's tensor-core kernels vs plain — the dense GeMM at
-   the shapes of phase 3 and the dense conv at the geometries of phase 4,
-   each mode, with and without bias: ``torch.equal`` to the plain version
-   and to the popcount kernel; the u8 and u4 kernels at every
-   ``GEMM_GRID`` shape and an odd depth, operands over the full 0..255 /
-   0..15 range: ``torch.equal``;
+   the shapes of phase 3 (and the offset planes) and the dense conv at
+   the geometries of phase 4, each mode, with and without bias:
+   ``torch.equal`` to the plain version and to the popcount kernel; the
+   u8 and u4 kernels at every ``GEMM_GRID`` shape and an odd depth,
+   operands over the full 0..255 / 0..15 range: ``torch.equal``;
 5. the main path, launch counters zeroed just before and read just
    after: ``qmm`` and ``packed_matmul`` requests at the paper's GEMM_GRID
    diagonal in all three modes, then ``PaperCNN(PAPER_CNN)`` at full
@@ -35,7 +44,9 @@ without printing a result:
    must be finite; a batch must be ``torch.equal`` to the same module
    run through the plain versions, layer by layer; each low-bit layer
    must equal the materializing oracle (im2col + ``qmm``); a small CNN
-   on the card must match the CPU run to 1e-5;
+   on the card must match the CPU run to 1e-5; a ``qmm`` request must
+   launch its quantization's kernels and one GeMM, nothing else (no copy
+   of the per-tensor activation scale; torch.profiler);
 5b. the second main path, counters zeroed just before and read just
    after: ``qmm`` at the GEMM_GRID diagonal for f32, u8, u4 and, on
    ``backend="dense"``, TNN/TBN/BNN, then ``PaperCNN(PAPER_CNN,
@@ -62,12 +73,17 @@ without printing a result:
    both kernels' device time)
    and one CNN batch's device time by kernel from ``torch.profiler``
    (popcount and dense); the tensor-core kernels' bound is 2*m*n*k at the
-   int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger;
+   int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger.
+   The GeMM rows (:func:`gemm_rows`) add the host us per call, the
+   library call's device time, one ``qmm`` request's time, and the same
+   times at the CNN's im2col GeMM shapes at batch 256, whose outputs are
+   held against the plain versions and dense against popcount;
 7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import pathlib
@@ -109,6 +125,13 @@ TABLE3 = ("f32", "u8", "u4", "tnn", "tbn", "bnn")
 PAPER_A73 = {"tnn/f32": 3.63, "tbn/f32": 3.75, "bnn/f32": 10.9, "tnn/u8": 2.51,
              "tnn/u4": 1.44, "bnn/tnn": 2.99}
 BATCH, BATCHES = 256, 4
+# Phase 3/4b GeMM geometries beside GEMM_GRID and the CNN's im2col shapes:
+# ragged m, n and k (kw % 4 != 0: the dense kernel's 4-byte weight
+# copies), the plan's 32 tile (1000 x 130 on 132 SMs), A streamed instead
+# of resident (kw = 129 in 64-row tiles, 500 in 16-row tiles).
+GEMM_EXTRA = [(37, 21, 130), (1, 1, 1), (5, 3, 33), (1000, 130, 1152), (9000, 64, 4128),
+              (40, 20, 16000)]
+MISALIGNED = (100, 70, 512)   # (m, n, k): kw % 4 == 0, planes 4 bytes off 16
 
 
 def log(msg: str) -> None:
@@ -160,14 +183,28 @@ def profiled(fn):
 def kernel_device_ms(fn, pattern, reps: int = 1):
     """Device ms per ``fn()`` of the kernels whose names contain
     ``pattern`` (a string, "" for every kernel, or a tuple of strings),
-    over ``reps`` calls, or None when the profiler recorded none."""
+    over ``reps`` calls, or None when three profiler sessions recorded
+    none (a session now and then records no device events)."""
     pats = (pattern,) if isinstance(pattern, str) else tuple(pattern)
 
     def run():
         for _ in range(reps):
             fn()
-    total = sum(ms for name, ms, _ in profiled(run)[0] if any(p in name for p in pats))
-    return total / reps or None
+    for _ in range(3):
+        total = sum(ms for name, ms, _ in profiled(run)[0] if any(p in name for p in pats))
+        if total:
+            return total / reps
+    return None
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels one ``fn()`` launched, by torch.profiler (a session
+    that records no device events is tried again)."""
+    for _ in range(3):
+        n = sum(calls for _, _, calls in profiled(fn)[0])
+        if n:
+            return n
+    raise AssertionError("the profiler recorded no kernel in three sessions")
 
 
 def tc_bound(ops: float, nbytes: float):
@@ -227,12 +264,183 @@ def gemm_operands(mode, m, n, k, device, gen):
     return a_pl, b_pl, row, col, bias
 
 
+def row_scales(row):
+    """The per-row scale as (m, 1) values (row stride 1), one per-tensor
+    value (1, 1), as qmm passes it, and that value expanded to (m, 1)
+    (row stride 0)."""
+    one = row[:1]
+    return [row, one, one.expand(row.shape[0], 1)]
+
+
+def misaligned(t):
+    """``t`` copied into a contiguous view 4 bytes past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def gemm_fns(mode):
     from repro_torch.kernels import bnn_matmul, tbn_matmul, tnn_matmul
 
     mod = {"tnn": tnn_matmul, "tbn": tbn_matmul, "bnn": bnn_matmul}[mode]
     return {v: getattr(mod, f"{mode}_matmul{v}") for v in
             ("_cuda", "_fused_cuda", "_torch", "_fused_torch")}
+
+
+def popc_bound(popc: float, nbytes: float, max_sm_mhz: float):
+    """(ms, "operations" | "bytes"): the least time for ``popc`` popcounts
+    (16 per clock per SM on 132 SMs at the maximum SM clock) and
+    ``nbytes`` of device memory traffic."""
+    t_ops = popc / (SMS * POPC_PER_CLK_PER_SM * max_sm_mhz * 1e6)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def diag_requests(dev):
+    """One qmm request per mode and GEMM_GRID diagonal shape: (mode, x,
+    packed weights), from numpy seed 0."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_cnn import GEMM_GRID
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.modes import QuantMode
+
+    rng = np.random.default_rng(0)
+    requests = []
+    for mode in MODES:
+        for m, n, k in zip(GEMM_GRID["height"], GEMM_GRID["width"], GEMM_GRID["depth"]):
+            x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev)
+            w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dev)
+            requests.append((mode, x, ops.pack_weights(w, QuantMode(mode))))
+    return requests, rng
+
+
+def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
+    """Times of the GeMM rows, popcount fused and int32 per mode and dense
+    per mode, through the public wrappers of the ``repro_torch`` on
+    ``sys.path`` (this checkout's or, with ``--src``, another's):
+
+    * at the GEMM_GRID diagonal (``requests``, summed over the four
+      shapes): events ms, device ms (torch.profiler), host us per call
+      ((events - device) / calls), plain ms, bound, the bf16
+      ``torch.matmul`` on the same +-1/0 values (events and device ms)
+      and, fused, one ``qmm`` request (events);
+    * at the CNN's im2col GeMM shapes (``cnn_shapes``: (mode, m, n, k)):
+      events ms, device ms, bound and the bf16 ``torch.matmul``; with
+      ``check`` (a Checker) the outputs there are held against the plain
+      versions and dense against popcount.
+
+    Every events time is taken before the first profiler session of the
+    call, since a session leaves launches slower for the rest of the
+    process.  The activation scale is passed as (m, 1) values, which
+    every version of the wrappers takes; ``qmm`` passes what the entry
+    point builds."""
+    import torch
+    from repro_torch.kernels import dense_fused, ops
+    from repro_torch.kernels.modes import QuantMode
+
+    a_keys = {"tnn": ("plus", "minus"), "tbn": ("plus", "minus"), "bnn": ("bits",)}
+    b_keys = {"tnn": ("plus", "minus"), "tbn": ("bits",), "bnn": ("bits",)}
+    cases = []          # the operands of each (mode, shape), diagonal then CNN
+    for mode, x, qt in requests:
+        m, k = x.shape
+        n = qt.out_features
+        xa = ops.quantize_activations(x, QuantMode(mode))
+        cases.append({"mode": mode, "cnn": False, "x": x, "qt": qt, "k": k,
+                      "a": [xa[kk] for kk in a_keys[mode]],
+                      "b": [qt.payload[kk] for kk in b_keys[mode]],
+                      "row": xa["scale"].reshape(1, 1).expand(m, 1).contiguous(),
+                      "col": qt.scale.reshape(1, n)})
+    for mode, m, n, k in cnn_shapes:
+        a_pl, b_pl, row, col, _ = gemm_operands(mode, m, n, k, dev, gen)
+        cases.append({"mode": mode, "cnn": True, "k": k, "a": a_pl, "b": b_pl, "row": row,
+                      "col": col})
+    for c in cases:
+        c["av"] = dense_fused.unpack_values(c["a"], c["k"], c["mode"] != "bnn", torch.bfloat16)
+        c["bv"] = dense_fused.unpack_values(c["b"], c["k"], c["mode"] == "tnn",
+                                            torch.bfloat16).t()
+
+    rows, jobs = [], []
+    for mode in MODES:
+        qm, fn = QuantMode(mode), gemm_fns(mode)
+        for dense, fused in ((False, True), (False, False), (True, True)):
+            name = f"dense_gemm_{mode}" if dense else \
+                f"lowbit_gemm_{mode}_{'fused' if fused else 'i32'}"
+            if dense:
+                def kfn(c, qm=qm):
+                    return dense_fused.dense_matmul_fused_cuda(qm, c["a"], c["b"], c["k"],
+                                                               c["row"], c["col"])
+
+                def pfn(c, qm=qm):
+                    return dense_fused.dense_matmul_fused_torch(qm, c["a"], c["b"], c["k"],
+                                                                c["row"], c["col"])
+            else:
+                def kfn(c, f=fn["_fused_cuda" if fused else "_cuda"], fused=fused):
+                    return f(*c["a"], *c["b"], c["k"], *((c["row"], c["col"]) if fused else ()))
+
+                def pfn(c, f=fn["_fused_torch" if fused else "_torch"], fused=fused):
+                    return f(*c["a"], *c["b"], c["k"], *((c["row"], c["col"]) if fused else ()))
+            r = {"name": name, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
+                 "qmm_ms": 0.0 if fused else None, "cnn_ms": 0.0, "cnn_device_ms": 0.0,
+                 "cnn_bound_ms": 0.0, "cnn_library_ms": 0.0, "cnn_library_device_ms": 0.0,
+                 "shapes_mnk": [], "cnn_shapes_mnk": []}
+            by = {"": set(), "cnn_": set()}
+            for c in cases:
+                if c["mode"] != mode:
+                    continue
+                pre = "cnn_" if c["cnn"] else ""
+                (m, kw), n = c["a"][0].shape, c["b"][0].shape[0]
+                nbytes = 4 * kw * (m * len(c["a"]) + n * len(c["b"])) + 4 * m * n + \
+                    (4 * (m + n) if fused else 0)
+                b_ms, b_by = tc_bound(2 * m * n * c["k"], nbytes) if dense else \
+                    popc_bound(m * n * kw * NPOPC[mode], nbytes, max_sm_mhz)
+                r[pre + "bound_ms"] += b_ms
+                by[pre].add(b_by)
+                r[pre + "shapes_mnk"].append([m, n, c["k"]])
+                jobs.append((r, pre, c, kfn, pfn, dense, fused,
+                             "dense_gemm_kernel" if dense else "lowbit_gemm_kernel"))
+            r["bound_by"] = "operations" if "operations" in by[""] else "bytes"
+            r["cnn_bound_by"] = "operations" if "operations" in by["cnn_"] else "bytes"
+            rows.append(r)
+
+    def add(r, key, v):      # a sum stays None once a term is None
+        r[key] = None if v is None or r[key] is None else r[key] + v
+
+    for r, pre, c, kfn, pfn, dense, fused, _ in jobs:          # events
+        reps = 20 if c["cnn"] else 200
+        add(r, pre + "ms", cuda_ms(lambda: kfn(c), reps=reps))
+        add(r, pre + "library_ms", cuda_ms(lambda: torch.matmul(c["av"], c["bv"]), reps=reps))
+        if not c["cnn"]:
+            add(r, "plain_ms", cuda_ms(lambda: pfn(c), reps=10))
+            if fused:
+                backend = "dense" if dense else "cuda"
+                add(r, "qmm_ms", cuda_ms(lambda: ops.qmm(c["x"], c["qt"], backend=backend),
+                                         reps=200))
+        elif check is not None:
+            got = kfn(c)
+            what = f"{r['name']} {tuple(c['a'][0].shape)} (CNN im2col, batch 256)"
+            check.equal(r["name"], got, pfn(c), what)
+            if dense and not torch.equal(got, gemm_fns(c["mode"])["_fused_cuda"](
+                    *c["a"], *c["b"], c["k"], c["row"], c["col"])):
+                raise AssertionError(f"{what}: dense != popcount kernel")
+    for r, pre, c, kfn, _, _, _, pattern in jobs:               # torch.profiler
+        add(r, pre + "device_ms", kernel_device_ms(lambda: kfn(c), pattern, reps=10))
+        add(r, pre + "library_device_ms",
+            kernel_device_ms(lambda: torch.matmul(c["av"], c["bv"]), "", reps=10))
+
+    def ratio(a, b):
+        return None if a is None or b is None else a / b
+
+    for r in rows:
+        r["host_us_per_call"] = None if r["device_ms"] is None else \
+            (r["ms"] - r["device_ms"]) / len(r["shapes_mnk"]) * 1e3
+        r["ratio_lib_events"] = ratio(r["ms"], r["library_ms"])
+        r["ratio_lib_device"] = ratio(r["device_ms"], r["library_device_ms"])
+    return rows
 
 
 def cnn_gemm_shapes(cfg, batch):
@@ -248,34 +456,10 @@ def cnn_gemm_shapes(cfg, batch):
     return shapes
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        from repro_torch.cnn import PaperCNN
-        from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
-        from repro_torch.core import conv as tconv
-        from repro_torch.kernels import (_build, conv_fused, dense_fused, int4_matmul,
-                                         int8_matmul, ops)
-        from repro_torch.kernels.modes import QuantMode
-    except ImportError as e:
-        print(f"chip_smoke: the repro_torch package is not beside this script ({e})",
-              file=sys.stderr)
-        return 2
-    import numpy as np
-    import torch.nn.functional as F
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
+def device_and_build(torch, _build):
+    """Phases 1 and 2: the card (name, count, power limit, maximum SM
+    clock) and the build of every csrc library.  Returns (kind, the
+    nvidia-smi name and power limit line, max SM MHz)."""
     # -- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi("name,power.limit")
@@ -294,6 +478,75 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if re.search(r"Compiling entry|registers|spill|smem", line):
                 log(f"[ptxas {name}] {line.strip()}")
+    return kind, card, max_sm_mhz
+
+
+def gemm_times(torch, src: str) -> int:
+    """``--gemm-times``: phases 1 and 2, then the GeMM rows of phase 6
+    (:func:`gemm_rows`) for the package under ``src``, as one JSON line
+    ``[gemm-times] {...}``."""
+    try:
+        from repro_torch.configs.paper_cnn import PAPER_CNN
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: no repro_torch package under {src} ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind, card, max_sm_mhz = device_and_build(torch, _build)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    requests, _ = diag_requests(dev)
+    rows = gemm_rows(dev, gen, requests, cnn_gemm_shapes(PAPER_CNN, BATCH), max_sm_mhz)
+    log("[gemm-times] " + json.dumps({"src": src, "max_sm_mhz": max_sm_mhz, "rows": rows,
+                                      "seconds": time.perf_counter() - t_start}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--gemm-times", action="store_true",
+                        help="run only the device and build phases and the GeMM rows of "
+                             "phase 6")
+    parser.add_argument("--src", default=str(ROOT / "src"),
+                        help="with --gemm-times: the directory that holds the repro_torch "
+                             "package to time (default: this checkout's src)")
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    if args.gemm_times:
+        sys.path.insert(0, args.src)
+        return gemm_times(torch, args.src)
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.cnn import PaperCNN
+        from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
+        from repro_torch.core import conv as tconv
+        from repro_torch.kernels import (_build, conv_fused, dense_fused, int4_matmul,
+                                         int8_matmul, ops)
+        from repro_torch.kernels._matmul_common import DENSE_TILES, gemm_tile
+        from repro_torch.kernels.modes import QuantMode
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind, card, max_sm_mhz = device_and_build(torch, _build)
 
     check = Checker()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -303,7 +556,10 @@ def main() -> int:
     grid = list(itertools.product(GEMM_GRID["height"], GEMM_GRID["width"],
                                   GEMM_GRID["depth"]))
     im2col = [(m, n, k) for _, m, n, k in cnn_gemm_shapes(PAPER_CNN, 8)]
-    shapes = grid + [(37, 21, 130), (1, 1, 1)] + im2col
+    shapes = grid + GEMM_EXTRA + im2col
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {"popcount": sorted({gemm_tile(m, n, sms) for m, n, _ in shapes}),
+             "dense": sorted({gemm_tile(m, n, sms, DENSE_TILES) for m, n, _ in shapes})}
     for mode in MODES:
         fn = gemm_fns(mode)
         for m, n, k in shapes:
@@ -312,14 +568,23 @@ def main() -> int:
             what = f"gemm {mode} {m}x{n}x{k}"
             check.equal(f"lowbit_gemm_{mode}_i32", fn["_cuda"](*ops_, k),
                         fn["_torch"](*ops_, k), what + " int32")
-            check.equal(f"lowbit_gemm_{mode}_fused", fn["_fused_cuda"](*ops_, k, row, col),
-                        fn["_fused_torch"](*ops_, k, row, col), what + " fused")
-            check.equal(f"lowbit_gemm_{mode}_fused",
-                        fn["_fused_cuda"](*ops_, k, row, col, bias),
-                        fn["_fused_torch"](*ops_, k, row, col, bias), what + " fused+bias")
+            for r in row_scales(row):
+                for b in (None, bias):
+                    check.equal(f"lowbit_gemm_{mode}_fused",
+                                fn["_fused_cuda"](*ops_, k, r, col, b),
+                                fn["_fused_torch"](*ops_, k, r, col, b),
+                                f"{what} fused row {tuple(r.shape)} stride {r.stride()} "
+                                f"bias={b is not None}")
+        a_pl, b_pl, row, col, bias = gemm_operands(mode, *MISALIGNED, dev, gen)
+        check.equal(f"lowbit_gemm_{mode}_fused",
+                    fn["_fused_cuda"](*map(misaligned, a_pl + b_pl), MISALIGNED[2], row, col,
+                                      bias),
+                    fn["_fused_torch"](*a_pl, *b_pl, MISALIGNED[2], row, col, bias),
+                    f"gemm {mode} {MISALIGNED} planes at a 4-byte offset")
     torch.cuda.synchronize()
-    log(f"[gemm] {len(shapes)} shapes x 3 modes x (int32, fused, fused+bias): kernel "
-        f"== plain ({time.perf_counter() - t0:.1f} s)")
+    log(f"[gemm] {len(shapes)} shapes (tiles {tiles}) x 3 modes x (int32, fused x row "
+        f"scale (m, 1) / one value / one value expanded x no bias / bias), planes at a "
+        f"4-byte offset: kernel == plain ({time.perf_counter() - t0:.1f} s)")
 
     # -- 4. conv kernel vs plain -------------------------------------------
     t0 = time.perf_counter()
@@ -366,13 +631,21 @@ def main() -> int:
         qm, popcount = QuantMode(mode), gemm_fns(mode)["_fused_cuda"]
         for m, n, k in shapes:
             a_pl, b_pl, row, col, bias = gemm_operands(mode, m, n, k, dev, gen)
-            for b in (None, bias):
-                got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, row, col, b)
-                what = f"dense gemm {mode} {m}x{n}x{k} bias={b is not None}"
-                check.equal(f"dense_gemm_{mode}", got, dense_fused.dense_matmul_fused_torch(
-                    qm, a_pl, b_pl, k, row, col, b), what)
-                if not torch.equal(got, popcount(*a_pl, *b_pl, k, row, col, b)):
-                    raise AssertionError(f"{what}: dense != popcount kernel")
+            for r in row_scales(row)[:2]:
+                for b in (None, bias):
+                    got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, r, col, b)
+                    what = (f"dense gemm {mode} {m}x{n}x{k} row {tuple(r.shape)} "
+                            f"bias={b is not None}")
+                    check.equal(f"dense_gemm_{mode}", got, dense_fused.dense_matmul_fused_torch(
+                        qm, a_pl, b_pl, k, r, col, b), what)
+                    if not torch.equal(got, popcount(*a_pl, *b_pl, k, r, col, b)):
+                        raise AssertionError(f"{what}: dense != popcount kernel")
+        a_pl, b_pl, row, col, bias = gemm_operands(mode, *MISALIGNED, dev, gen)
+        check.equal(f"dense_gemm_{mode}", dense_fused.dense_matmul_fused_cuda(
+            qm, [misaligned(p) for p in a_pl], [misaligned(p) for p in b_pl], MISALIGNED[2],
+            row, col, bias), dense_fused.dense_matmul_fused_torch(
+            qm, a_pl, b_pl, MISALIGNED[2], row, col, bias),
+            f"dense gemm {mode} {MISALIGNED} planes at a 4-byte offset")
         for xs, fs, stride, padding in geoms:
             x = torch.randn(xs, generator=gen, device=dev)
             f = torch.randn(fs, generator=gen, device=dev)
@@ -400,19 +673,14 @@ def main() -> int:
         check.equal("affine_gemm_u4", int4_matmul.int4_matmul_cuda(pa, pb),
                     int4_matmul.int4_matmul_torch(pa, pb), f"u4 {m}x{n}x{k}")
     torch.cuda.synchronize()
-    log(f"[dense] gemm {len(shapes)} shapes, conv {len(geoms)} geometries, x 3 modes x "
-        f"(no bias, bias): kernel == plain == popcount kernel; [affine] u8 and u4 at "
+    log(f"[dense] gemm {len(shapes)} shapes (x row scale (m, 1) / one value) and planes at a "
+        f"4-byte offset, conv {len(geoms)} geometries, x 3 modes x (no bias, bias): kernel "
+        f"== plain == popcount kernel; [affine] u8 and u4 at "
         f"{len(affine_shapes)} shapes, full-range operands: kernel == plain "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 5. the main path --------------------------------------------------
-    rng = np.random.default_rng(0)
-    requests = []
-    for mode in MODES:
-        for m, n, k in zip(GEMM_GRID["height"], GEMM_GRID["width"], GEMM_GRID["depth"]):
-            x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev)
-            w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dev)
-            requests.append((mode, x, ops.pack_weights(w, QuantMode(mode))))
+    requests, rng = diag_requests(dev)
     model = PaperCNN(PAPER_CNN, seed=0, device=dev)
     images = [torch.from_numpy(rng.standard_normal(
         (BATCH, PAPER_CNN.img_size, PAPER_CNN.img_size, PAPER_CNN.c_in),
@@ -547,6 +815,21 @@ def main() -> int:
         f"{(BATCHES - 1) * BATCH / cnn_s:.1f} images/s ({cnn_s * 1e3 / (BATCHES - 1):.3f} "
         f"ms/batch); logits and every layer's map equal to the popcount CNN's; qmm "
         f"dense == popcount, u8/u4 == plain")
+    # a qmm request launches its quantization's kernels and the GeMM, no copy
+    # of the per-tensor activation scale (both backends).  torch.profiler
+    # counts the kernels; it runs only after the timed batches, since a
+    # profiler session leaves launches slower for the rest of the process.
+    counts = {}
+    for mode, x, qt in requests[::len(GEMM_GRID["height"])]:
+        n_quant = kernel_launches(lambda: ops.quantize_activations(x, qt.mode))
+        for be in ("cuda", "dense"):
+            n_qmm = kernel_launches(lambda: ops.qmm(x, qt, backend=be))
+            counts[f"{mode}/{be}"] = [n_quant, n_qmm]
+            if n_qmm != n_quant + 1:
+                raise AssertionError(f"qmm {mode} backend={be}: {n_qmm} kernels, its "
+                                     f"quantization {n_quant} + the GeMM expected")
+    log(f"[main2] kernels per qmm request [quantize_activations, qmm]: "
+        f"{json.dumps(counts)}: the GeMM and nothing else beside the quantization")
 
     # -- 5c. Table III on the card -----------------------------------------
     t0 = time.perf_counter()
@@ -567,14 +850,9 @@ def main() -> int:
             calls[mode] = (lambda f=gemm_fns(mode)["_cuda"], args=a_pl + b_pl + [d]: f(*args))
         for algo in TABLE3:
             t3_events[algo].append(cuda_ms(calls[algo], reps=20))
-            # a profiler session now and then records no device events:
-            # try again, and leave the shape out (nan) if it never does
-            dms = None
-            for _ in range(3):
-                dms = kernel_device_ms(calls[algo], "", reps=5)
-                if dms:
-                    break
-            t3_device[algo].append(dms or float("nan"))
+            # a shape whose device time the profiler never recorded is left
+            # out (nan)
+            t3_device[algo].append(kernel_device_ms(calls[algo], "", reps=5) or float("nan"))
 
     def ratios(times):
         return {f"{r}/{c}": float(np.nanmean([tr / tc for tr, tc in zip(times[r], times[c])]))
@@ -600,12 +878,8 @@ def main() -> int:
         log(f"[table3] {r:>26s} " + " ".join(f"{r_device[f'{r}/{c}']:7.3f}" for c in TABLE3))
 
     # -- 6. times ----------------------------------------------------------
-    clk = max_sm_mhz * 1e6
-
     def bound(popc, nbytes):
-        t_ops = popc / (SMS * POPC_PER_CLK_PER_SM * clk)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        return popc_bound(popc, nbytes, max_sm_mhz)
 
     # where one CNN batch's device time goes, by kernel: the repository's
     # kernels by name (the packing pass, the conv kernels), the rest is
@@ -627,47 +901,25 @@ def main() -> int:
             "device_ms_by_kernel": by_kernel(rows),
             "top": [[name[:80], ms, calls] for name, ms, calls in rows[:14]]}))
 
+    t0 = time.perf_counter()
+    cnn256 = cnn_gemm_shapes(PAPER_CNN, BATCH)
+    gemm = {r["name"]: r for r in gemm_rows(dev, gen, requests, cnn256, max_sm_mhz, check)}
+    log(f"[times] GeMM rows at the GEMM_GRID diagonal and the CNN im2col shapes at batch "
+        f"{BATCH} ({time.perf_counter() - t0:.1f} s); im2col outputs == plain, dense == "
+        f"popcount")
+
+    def gemm_kernel(name, source, replaces, n_launches):
+        row = dict(gemm[name])
+        row.update({"route": "cuda", "source": source, "replaces": replaces,
+                    "launches": n_launches, "max_abs_err": check.max_err[name]})
+        return row
+
     kernels = []
     for mode in MODES:
-        fn = gemm_fns(mode)
         for fused in (True, False):
-            ms = plain_ms = lib_ms = bound_ms = 0.0
-            device_ms = 0.0
-            by, shp = set(), []
-            for rmode, x, qt in requests:
-                if rmode != mode:
-                    continue
-                m, k = x.shape
-                n = qt.out_features
-                xa = ops.quantize_activations(x, qt.mode)
-                a_pl = [xa[kk] for kk in ("plus", "minus", "bits") if kk in xa]
-                b_pl = [qt.payload[kk] for kk in ("plus", "minus", "bits") if kk in qt.payload]
-                row = xa["scale"].reshape(1, 1).expand(m, 1).contiguous()
-                col = qt.scale.reshape(1, n)
-                args = a_pl + b_pl + [k] + ([row, col] if fused else [])
-                kfn = fn["_fused_cuda" if fused else "_cuda"]
-                pfn = fn["_fused_torch" if fused else "_torch"]
-                ms += cuda_ms(lambda: kfn(*args), reps=200)
-                device_ms += kernel_device_ms(lambda: kfn(*args), "lowbit_gemm_kernel") or 0.0
-                plain_ms += cuda_ms(lambda: pfn(*args), reps=10)
-                av = dense_fused.unpack_values(a_pl, k, mode != "bnn", torch.bfloat16)
-                bv = dense_fused.unpack_values(b_pl, k, mode == "tnn", torch.bfloat16).t()
-                lib_ms += cuda_ms(lambda: torch.matmul(av, bv), reps=200)
-                kw = a_pl[0].shape[1]
-                nbytes = 4 * kw * (m * len(a_pl) + n * len(b_pl)) + 4 * m * n + \
-                    (4 * (m + n) if fused else 0)
-                b_ms, b_by = bound(m * n * kw * NPOPC[mode], nbytes)
-                bound_ms += b_ms
-                by.add(b_by)
-                shp.append([m, n, k])
             name = f"lowbit_gemm_{mode}_{'fused' if fused else 'i32'}"
-            kernels.append({
-                "name": name, "route": "cuda", "source": GEMM_SOURCE,
-                "replaces": GEMM_REPLACES[(mode, fused)],
-                "launches": launches.get(name, 0), "max_abs_err": check.max_err[name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "operations" if "operations" in by else "bytes",
-                "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
+            kernels.append(gemm_kernel(name, GEMM_SOURCE, GEMM_REPLACES[(mode, fused)],
+                                       launches.get(name, 0)))
 
     def conv_layers(mode):
         """(x, qt, stride, stats, planes) of each PAPER_CNN layer of ``mode``
@@ -754,39 +1006,8 @@ def main() -> int:
                                 launches.get(f"lowbit_conv_{mode}", 0)))
 
     for mode in MODES:
-        qm = QuantMode(mode)
-        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
-        by, shp = set(), []
-        for rmode, be, x, qt in requests2:
-            if rmode != mode or be != "dense":
-                continue
-            m, k = x.shape
-            n = qt.out_features
-            xa = ops.quantize_activations(x, qm)
-            a_pl = [xa[kk] for kk in ops._A_KEYS[qm]]
-            b_pl = list(ops._b_planes(qt, qm))
-            row = xa["scale"].reshape(1, 1).expand(m, 1).contiguous()
-            args = (qm, a_pl, b_pl, k, row, qt.scale.reshape(1, n))
-            ms += cuda_ms(lambda: dense_fused.dense_matmul_fused_cuda(*args), reps=200)
-            device_ms += kernel_device_ms(lambda: dense_fused.dense_matmul_fused_cuda(*args),
-                                          "dense_gemm_kernel") or 0.0
-            plain_ms += cuda_ms(lambda: dense_fused.dense_matmul_fused_torch(*args), reps=20)
-            av = dense_fused.unpack_values(a_pl, k, mode != "bnn", torch.bfloat16)
-            bv = dense_fused.unpack_values(b_pl, k, mode == "tnn", torch.bfloat16).t()
-            lib_ms += cuda_ms(lambda: torch.matmul(av, bv), reps=200)
-            kw = a_pl[0].shape[1]
-            nbytes = 4 * kw * (m * len(a_pl) + n * len(b_pl)) + 4 * m * n + 4 * (m + n)
-            b_ms, b_by = tc_bound(2 * m * n * k, nbytes)
-            bound_ms += b_ms
-            by.add(b_by)
-            shp.append([m, n, k])
-        name = f"dense_gemm_{mode}"
-        kernels.append({
-            "name": name, "route": "cuda", "source": DENSE_SOURCE,
-            "replaces": DENSE_GEMM_REPLACES, "launches": launches2.get(name, 0),
-            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
-            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
+        kernels.append(gemm_kernel(f"dense_gemm_{mode}", DENSE_SOURCE, DENSE_GEMM_REPLACES,
+                                   launches2.get(f"dense_gemm_{mode}", 0)))
 
     for mode in MODES:
         kernels.append(conv_row(f"dense_conv_{mode}", DENSE_SOURCE, DENSE_CONV_REPLACES,

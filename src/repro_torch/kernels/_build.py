@@ -1,11 +1,22 @@
-"""Build, load and count the CUDA kernels of ``csrc/``.
+"""Build, load, launch and count the CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain ``extern "C"`` interface and loaded with
-``ctypes``: pointers and the stream pass as ``c_void_p``, and every entry
-point returns ``cudaGetLastError()`` after its launch, which
-:func:`check_launch` turns into an exception.  Nothing here includes
-PyTorch's headers, so a build takes seconds.
+``ctypes``.  Nothing here includes PyTorch's headers, so a build takes
+seconds.  The libraries and their entry points:
+
+* ``lowbit_gemm``: ``lowbit_gemm_launch`` (popcount GeMM, fused or int32);
+* ``lowbit_conv``: ``conv_pack_launch`` (quantize + pack the padded
+  input once), ``lowbit_conv_launch`` (popcount implicit-im2col conv);
+* ``dense_tc``: ``dense_gemm_launch``, ``dense_conv_launch`` (planes
+  decoded to int8, tensor cores);
+* ``affine_gemm``: ``affine_gemm_launch`` (u8 / u4 raw accumulator).
+
+Every kernel wrapper launches through :func:`launch`: pointers and the
+stream pass as plain ints (the ``argtypes`` declare ``c_void_p``; None is
+a null pointer), on the current stream of the operands' device; every
+entry point returns ``cudaGetLastError()`` after its launch, which
+:func:`launch` turns into an exception.
 
 Libraries go to ``build/kernels/`` at the repository root, named by a
 hash of the sources and flags: a process builds each one at most once,
@@ -13,9 +24,11 @@ and a checkout builds it on first use.  ``--fmad=false`` keeps every
 float multiply and add separately rounded, so the fused epilogue is bit
 for bit the plain version's.
 
-Launch counts: each kernel wrapper calls :func:`count_launch` once per
-launch, after the launch succeeded, so a run can show which kernels its
-main path went through.
+Launch counts: :func:`launch` counts each launch under the wrapper's key,
+after the launch succeeded, so a run can show which kernels its main path
+went through: ``lowbit_gemm_<mode>_{fused,i32}``, ``conv_pack_<mode>``,
+``lowbit_conv_<mode>``, ``dense_gemm_<mode>``, ``dense_conv_<mode>``,
+``affine_gemm_{u8,u4}``.
 """
 
 from __future__ import annotations
@@ -29,11 +42,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "nvcc_path", "build",
-           "build_log", "load", "check_launch", "count_launch",
-           "launches", "reset_launches"]
+           "build_log", "load", "launch", "launches", "reset_launches"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -49,11 +63,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # library name -> {entry point: argtypes}; every entry point returns int
 _SIGNATURES = {
-    # mode, fused, a0, a1, b0, b1, m, n, kw, k_valid, row, col, bias, out,
-    # stream
+    # mode, fused, a0, a1, b0, b1, m, n, kw, k_valid, tile, row, row_stride,
+    # col, bias, out, stream
     "lowbit_gemm": {"lowbit_gemm_launch":
-                    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                     _P]},
+                    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                     _P, _P, _P]},
     "lowbit_conv": {
         # mode, x, B, H, W, C, Hp, Wp, pad_top, pad_left, thr, p0, p1, stream
         "conv_pack_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
@@ -63,10 +77,10 @@ _SIGNATURES = {
         "lowbit_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]},
     "dense_tc": {
-        # mode, a0, a1, b0, b1, m, n, kw, k_valid, row, col, bias, out,
-        # stream
-        "dense_gemm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                              _P, _P, _P],
+        # mode, a0, a1, b0, b1, m, n, kw, k_valid, tile, row, row_stride,
+        # col, bias, out, stream
+        "dense_gemm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                              _I, _P, _P, _P, _P],
         # mode, a0, a1, B, Hp, Wp, C, kh, kw, stride, OH, OW, b0, b1, cout,
         # words, scale, col, bias, out, stream
         "dense_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -75,8 +89,12 @@ _SIGNATURES = {
     "affine_gemm": {"affine_gemm_launch": [_I, _P, _P, _I, _I, _I, _P, _P]},
 }
 
+_LIBRARY_OF = {entry: name for name, entries in _SIGNATURES.items()
+               for entry in entries}
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 _LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -157,15 +175,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def launch(entry: str, key: str, device: int, *args) -> None:
+    """Launch the kernel behind ``entry`` (an entry point of a ``csrc``
+    library, built and loaded on first use) with ``args`` and the current
+    stream of CUDA device ``device``; raise if the launch failed, else
+    count it under ``key``.  Pointers in ``args`` are ints (None: null).
+    The runtime launches on its current device, so ``device`` is made
+    current for the call when it is not."""
+    bound = _ENTRIES.get(entry)
+    if bound is None:
+        lib = load(_LIBRARY_OF[entry])
+        bound = _ENTRIES[entry] = (lib, getattr(lib, entry))
+    lib, fn = bound
+    # _cuda_getCurrentRawStream: the int torch.cuda.current_stream(device)
+    # .cuda_stream gives, without building a Stream object per launch
+    if device == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         msg = lib.lowbit_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+        raise RuntimeError(f"{key}: CUDA launch failed with error {rc} "
                            f"({msg})")
-
-
-def count_launch(key: str) -> None:
     _LAUNCHES[key] += 1
 
 

@@ -55,8 +55,8 @@ def bnn_matmul_fused_torch(a_bits: torch.Tensor, b_bits_t: torch.Tensor,
                            col_scale: torch.Tensor,
                            bias: Optional[torch.Tensor] = None, *,
                            word_chunk: int = _TILES.word_chunk) -> torch.Tensor:
-    """Plain fused form: float32 (m, n); row_scale (m, 1), col_scale and
-    bias (1, n)."""
+    """Plain fused form: float32 (m, n); row_scale (m, 1) or one value,
+    col_scale and bias (1, n)."""
     def epi(acc):
         return scale_epilogue(k_valid - 2 * acc, row_scale, col_scale, bias)
     return chunked_bitwise_matmul(PRODUCT_FNS[_MODE], [a_bits], [b_bits_t],
@@ -83,6 +83,4 @@ def bnn_matmul_fused_cuda(a_bits: torch.Tensor, b_bits_t: torch.Tensor,
                                       row_scale, col_scale, bias)
     return lowbit_matmul_call(
         _MODE, (a_bits,), (b_bits_t,), k_valid,
-        row_scale=row_scale.reshape(-1).contiguous(),
-        col_scale=col_scale.reshape(-1).contiguous(),
-        bias=None if bias is None else bias.reshape(-1).contiguous())
+        row_scale=row_scale, col_scale=col_scale, bias=bias)

@@ -32,7 +32,6 @@ Two backends:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -301,12 +300,16 @@ def _check_conv_input(x: torch.Tensor, cin: int) -> None:
         raise ValueError(f"channel mismatch: x has {x.shape[-1]}, Cin {cin}")
 
 
+_PACK_KEYS = {mode: f"conv_pack_{mode.value}" for mode in _MODE_ID}
+_CONV_KEYS = {mode: f"lowbit_conv_{mode.value}" for mode in _MODE_ID}
+
+
 def _launch_pack(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
                  stride: int, padding: str,
                  stats: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     bsz, h, w, c = x.shape
     _check_conv_input(x, c)
-    dev = x.device
+    dev = x.get_device()
     thr = None
     if mode != QuantMode.BNN:
         thr = stats["thr"]
@@ -316,19 +319,14 @@ def _launch_pack(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
     if x.numel() >= 2**31 or bsz * hp * wp * cw >= 2**31 - 256:
         raise ValueError("conv pack kernel indexes elements with 32-bit ints")
     nplanes = 1 if mode == QuantMode.BNN else 2
-    planes = tuple(torch.empty((bsz, hp, wp, cw), dtype=torch.int32, device=dev)
-                   for _ in range(nplanes))
+    planes = tuple(torch.empty((bsz, hp, wp, cw), dtype=torch.int32,
+                               device=x.device) for _ in range(nplanes))
     if x.numel() == 0:
         return planes
-    lib = _build.load("lowbit_conv")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.conv_pack_launch(
-            _MODE_ID[mode], _ptr(x), bsz, h, w, c, hp, wp, ph // 2, pw // 2,
-            _ptr(thr), _ptr(planes[0]), _ptr(planes[-1]),
-            ctypes.c_void_p(stream))
-    _build.check_launch(lib, rc, f"conv_pack[{mode.value}]")
-    _build.count_launch(f"conv_pack_{mode.value}")
+    _build.launch(
+        "conv_pack_launch", _PACK_KEYS[mode], dev, _MODE_ID[mode], x.data_ptr(),
+        bsz, h, w, c, hp, wp, ph // 2, pw // 2, _ptr(thr), planes[0].data_ptr(),
+        planes[-1].data_ptr())
     return planes
 
 
@@ -354,30 +352,28 @@ def packed_conv_args(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     kh, kw, cin, cout = geometry
     _check_conv_input(x, cin)
     bsz, h, w, _ = x.shape
-    dev = x.device
+    dev = x.get_device()
     oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
     words = kh * kw * (-(-cin // 32))
     nplanes = 2 if mode == QuantMode.TNN else 1
     if len(b_planes) != nplanes:
         raise ValueError(f"{mode.value} conv takes {nplanes} weight plane(s)")
     for p in b_planes:
-        if (p.dtype != torch.int32 or p.device != dev
-                or tuple(p.shape) != (cout, words) or not p.is_contiguous()):
+        if (p.dtype is not torch.int32 or p.get_device() != dev
+                or p.shape != (cout, words) or not p.is_contiguous()):
             raise ValueError(f"weight planes must be contiguous int32 "
-                             f"({cout}, {words}) on {dev}, got {p.dtype} "
+                             f"({cout}, {words}) on {x.device}, got {p.dtype} "
                              f"{tuple(p.shape)} on {p.device}")
     scale = stats["scale"]
     check_f32_vec("scale", scale, 1, dev)
-    col = col_scale.reshape(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).contiguous()
-    check_f32_vec("col_scale", col, cout, dev)
+    check_f32_vec("col_scale", col_scale, cout, dev)
     check_f32_vec("bias", bias, cout, dev)
     m = bsz * oh * ow
     if m >= 2**31:
         raise ValueError("conv kernels index output pixels with 32-bit ints")
-    out = torch.empty((m, cout), dtype=torch.float32, device=dev)
+    out = torch.empty((m, cout), dtype=torch.float32, device=x.device)
     dims = (bsz, h + ph, w + pw, cin, kh, kw, stride, oh, ow)
-    return out, dims, words, scale, col, bias
+    return out, dims, words, scale, col_scale, bias
 
 
 def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
@@ -391,15 +387,11 @@ def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
     a = _launch_pack(mode, x, kh, kw, stride, padding, stats)
-    lib = _build.load("lowbit_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lowbit_conv_launch(
-            _MODE_ID[mode], _ptr(a[0]), _ptr(a[-1]), *dims, _ptr(b_planes[0]),
-            _ptr(b_planes[-1]), cout, words, kh * kw * cin, _ptr(scale),
-            _ptr(col), _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
-    _build.check_launch(lib, rc, f"lowbit_conv[{mode.value}]")
-    _build.count_launch(f"lowbit_conv_{mode.value}")
+    _build.launch(
+        "lowbit_conv_launch", _CONV_KEYS[mode], x.get_device(), _MODE_ID[mode],
+        a[0].data_ptr(), a[-1].data_ptr(), *dims, b_planes[0].data_ptr(),
+        b_planes[-1].data_ptr(), cout, words, kh * kw * cin, scale.data_ptr(),
+        col.data_ptr(), _ptr(bias), out.data_ptr())
     return out.reshape(bsz, oh, ow, cout)
 
 

@@ -8,7 +8,8 @@
 //   dense_conv_fused_pallas    -> dense_conv_kernel
 //
 // GeMM: C[m, n] = sum_k A[m, k] B[n, k] over the decoded planes A (m, kw)
-// and B^T (n, kw), then acc * row[m] * col[n] (+ bias[n]) in float32.
+// and B^T (n, kw), then acc * row[m * row_stride] * col[n] (+ bias[n]) in
+// float32 (row_stride 0: one per-tensor activation scale, never expanded).
 // Conv: the implicit-im2col product of the packed activation planes
 // (B, Hp, Wp, ceil(C/32)) that lowbit_conv.cu's conv_pack_kernel writes
 // (each input pixel quantized and packed once, with the per-tensor
@@ -32,6 +33,20 @@
 //     past C within a position's last word is zeroed on the A side at
 //     decode, which cancels the weights' in-word pads.
 //
+// The GeMM kernel (CTA = TILE x TILE outputs, TILE 64 where the grid fills
+// the card and 32 where it would not, chosen by the caller:
+// _matmul_common.gemm_tile; 4 warps): each step decodes 4 packed words
+// per row of both operands into +-1/0 int8 slabs in shared memory
+// (tc_core.cuh decode_word: four values per lane op) and runs wmma s8 ->
+// s32.  The packed words of step t+1 are loaded straight into registers
+// right after step t's are decoded, so their latency overlaps step t's
+// products and they never pass through shared memory.  (The conv's CTA
+// body below, with its cp.async ring and resident A, was measured as the
+// GeMM's too: it halved the GEMM_GRID diagonal's device time but was
+// 13-19% slower at the CNN's im2col GeMM shapes, where many CTAs per SM
+// already hide synchronous loads and the extra shared-memory round trip
+// of the packed words is what remains.)
+//
 // The conv kernel (CTA = 64 output pixels, 4 warps):
 //   * the packed A words of the CTA's rows are staged once for the whole
 //     depth (up to 64 KB; deeper convs stream them through a two-slot ring
@@ -41,15 +56,19 @@
 //     words % 4 == 0) and, streaming, A's are in flight while step t
 //     decodes and multiplies;
 //   * each step decodes 4 packed words per row to +-1/0 int8 slabs in
-//     shared memory (tc_core.cuh decode_word: four values per lane op,
-//     the slab layout of stage_planes) and runs wmma s8 -> s32.
+//     shared memory (decode_word, the slab layout of the GeMM) and runs
+//     wmma s8 -> s32.
 //
-// What bounds it on this card: at the paper's CNN widths the work is far
-// below the int8 tensor rate (1,979 TOP/s dense), so the bound is the
-// bytes a call must move (x read once by the pack, the float32 output
-// written once) at 3.35 TB/s; on the GEMM_GRID shapes it is launch
-// latency.  Neither the +-1/0 matrices nor the im2col matrix ever reach
-// device memory.  Not done yet (later work): wgmma with TMA-fed staging.
+// What bounds it on this card: at the paper's CNN widths and the CNN's
+// im2col GeMM shapes the work is far below the int8 tensor rate (1,979
+// TOP/s dense), so the bound is the bytes a call must move (the operands
+// read once, the float32 output written once) at 3.35 TB/s; on the
+// GEMM_GRID shapes it is launch and memory latency, which the GeMM meets
+// with a 32 x 32 tile (up to 4x the CTAs of a 64 x 64 one, each with a
+// quarter of the serial decode and epilogue) and the one-step register
+// prefetch.  Neither the +-1/0 matrices nor the im2col matrix ever reach
+// device memory.  Not done yet (later work): wgmma with TMA-fed staging,
+// or decoding straight into mma.sync fragments.
 //
 // Built with --fmad=false (see _build.py).
 
@@ -59,33 +78,73 @@ namespace tc {
 
 constexpr int RESIDENT_A_BYTES = 64 * 1024;   // packed A for the whole depth
 
-template <int MODE>
+// The decode mask of depth word gw of an operand row (ok: the row exists
+// and gw < kw): BNN A values at depth >= k_live are zeroed (their pad bits
+// decode to +1); k_live = INT_MAX masks nothing.
+__device__ __forceinline__ uint32_t live_mask(bool ok, int k_live, int gw) {
+  if (!ok) return 0u;
+  const long long left = static_cast<long long>(k_live) - 32LL * gw;
+  return left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
+}
+
+template <int MODE, int TILE>
 __global__ void __launch_bounds__(THREADS)
 dense_gemm_kernel(const uint32_t* __restrict__ a0,
-                  const uint32_t* __restrict__ a1,
+                  const uint32_t* __restrict__ a1, int m,
                   const uint32_t* __restrict__ b0,
-                  const uint32_t* __restrict__ b1, int m, int n, int kw,
-                  int k_valid, const float* __restrict__ row,
+                  const uint32_t* __restrict__ b1, int n, int kw, int k_live,
+                  const float* __restrict__ row, int row_stride,
                   const float* __restrict__ col,
                   const float* __restrict__ bias, float* __restrict__ out) {
   using lowbit::BNN;
   using lowbit::TNN;
-  __shared__ Smem<int8_t> s;
-  const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  constexpr int kNoMask = 0x7fffffff;
-  Acc acc[2][2];
+  constexpr bool TA = MODE != BNN, TB = MODE == TNN;
+  // (row, word) pairs of one operand a thread loads and decodes per step:
+  // consecutive threads take consecutive words of a row (16 bytes per 4
+  // threads)
+  constexpr int PAIRS = TILE * BKW / THREADS;
+  static_assert(PAIRS * THREADS == TILE * BKW, "tile must divide");
+  __shared__ Smem<int8_t, TILE, TILE> s;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wr = warp / 2, wc = warp % 2;
+  const int m0 = blockIdx.x * TILE, n0 = blockIdx.y * TILE;
+  uint32_t ap[PAIRS], am[PAIRS], bp[PAIRS], bm[PAIRS];
+
+  // The packed words of the step at w0 into the registers (0 where the
+  // row or the word does not exist).
+  auto load = [&](int w0) {
+#pragma unroll
+    for (int j = 0; j < PAIRS; ++j) {
+      const int i = tid + j * THREADS, r = i / BKW, gw = w0 + i % BKW;
+      const bool oka = m0 + r < m && gw < kw, okb = n0 + r < n && gw < kw;
+      const size_t oa = static_cast<size_t>(m0 + r) * kw + gw;
+      const size_t ob = static_cast<size_t>(n0 + r) * kw + gw;
+      ap[j] = oka ? __ldg(a0 + oa) : 0u;
+      am[j] = TA && oka ? __ldg(a1 + oa) : 0u;
+      bp[j] = okb ? __ldg(b0 + ob) : 0u;
+      bm[j] = TB && okb ? __ldg(b1 + ob) : 0u;
+    }
+  };
+
+  Acc acc[Frags<TILE, TILE>::I][Frags<TILE, TILE>::J];
   zero_acc(acc);
+  load(0);
   for (int w0 = 0; w0 < kw; w0 += BKW) {
-    stage_planes<MODE != BNN, BM>(s.in.a, a0, a1, m0, m, w0, kw,
-                                  MODE == BNN ? k_valid : kNoMask);
-    stage_planes<MODE == TNN, BN>(s.in.b, b0, b1, n0, n, w0, kw, kNoMask);
+#pragma unroll
+    for (int j = 0; j < PAIRS; ++j) {
+      const int i = tid + j * THREADS, r = i / BKW, w = i % BKW, gw = w0 + w;
+      decode_word<TA>(ap[j], am[j], live_mask(m0 + r < m && gw < kw, k_live, gw),
+                      &s.in.a.v[2 * w][r][0], &s.in.a.v[2 * w + 1][r][0]);
+      decode_word<TB>(bp[j], bm[j], live_mask(n0 + r < n && gw < kw, 0x7fffffff, gw),
+                      &s.in.b.v[2 * w][r][0], &s.in.b.v[2 * w + 1][r][0]);
+    }
+    if (w0 + BKW < kw) load(w0 + BKW);
     __syncthreads();
     mma_step(s, wr, wc, acc);
     __syncthreads();
   }
   store_acc(s, wr, wc, acc);
-  store_scaled(s, m0, n0, m, n, row, 1, col, bias, out);
+  store_scaled(s, m0, n0, m, n, row, row_stride, col, bias, out);
 }
 
 // Shared-memory words per row of the packed A tile: at least the words it
@@ -235,35 +294,41 @@ dense_conv_kernel(const uint32_t* __restrict__ a0,
 }  // namespace tc
 
 // mode: 0 BNN, 1 TNN, 2 TBN.  a0/a1 (m, kw), b0/b1 (n, kw) int32 words
-// (a1 / b1 ignored for one plane); row (m,), col (n,), bias (n,) or null;
-// out (m, n) float32, row-major.  Returns cudaGetLastError() after the
-// launch.
+// (a1 / b1 ignored for one plane); tile 64 or 32 (the square CTA tile);
+// row read at row[i * row_stride] (0: one per-tensor scale, 1: one per
+// row), col (n,), bias (n,) or null; out (m, n) float32, row-major.
+// Returns cudaGetLastError() after the launch.
 extern "C" int dense_gemm_launch(int mode, const void* a0, const void* a1,
                                  const void* b0, const void* b1, int m, int n,
-                                 int kw, int k_valid, const void* row,
+                                 int kw, int k_valid, int tile,
+                                 const void* row, int row_stride,
                                  const void* col, const void* bias, void* out,
                                  void* stream) {
   using namespace tc;
-  if (m <= 0 || n <= 0 || kw <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  if (m <= 0 || n <= 0 || kw <= 0 || row_stride < 0 || row_stride > 1 ||
+      (tile != 64 && tile != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((m + tile - 1) / tile, (n + tile - 1) / tile);
   auto st = static_cast<cudaStream_t>(stream);
-#define DENSE_GEMM_CASE(MODE)                                                 \
-  case MODE:                                                                  \
-    dense_gemm_kernel<MODE><<<grid, THREADS, 0, st>>>(                        \
+#define DENSE_GEMM_CASE(MODE, TILE)                                           \
+  if (mode == MODE && tile == TILE)                                           \
+    dense_gemm_kernel<MODE, TILE><<<grid, THREADS, 0, st>>>(                  \
         static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),   \
-        static_cast<const uint32_t*>(b0), static_cast<const uint32_t*>(b1),   \
-        m, n, kw, k_valid, static_cast<const float*>(row),                    \
+        m, static_cast<const uint32_t*>(b0),                                  \
+        static_cast<const uint32_t*>(b1), n, kw,                              \
+        MODE == lowbit::BNN ? k_valid : 0x7fffffff,                           \
+        static_cast<const float*>(row), row_stride,                           \
         static_cast<const float*>(col), static_cast<const float*>(bias),      \
-        static_cast<float*>(out));                                            \
-    break;
-  switch (mode) {
-    DENSE_GEMM_CASE(lowbit::BNN)
-    DENSE_GEMM_CASE(lowbit::TNN)
-    DENSE_GEMM_CASE(lowbit::TBN)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+        static_cast<float*>(out));
+  DENSE_GEMM_CASE(lowbit::BNN, 64)
+  DENSE_GEMM_CASE(lowbit::BNN, 32)
+  DENSE_GEMM_CASE(lowbit::TNN, 64)
+  DENSE_GEMM_CASE(lowbit::TNN, 32)
+  DENSE_GEMM_CASE(lowbit::TBN, 64)
+  DENSE_GEMM_CASE(lowbit::TBN, 32)
 #undef DENSE_GEMM_CASE
+  if (mode < lowbit::BNN || mode > lowbit::TBN)
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

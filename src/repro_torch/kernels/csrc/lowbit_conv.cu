@@ -21,20 +21,21 @@
 //                      (patch position p = dy*kw + dx owns ceil(C/32)
 //                      words; channel c is bit c%32 of word c/32).
 //
-// The conv kernel (CTA = BM output pixels; 256 threads):
-//   1. per-CTA tables (lowbit_core.cuh conv_tables): the A word of (row r,
-//      depth word gk) is planes[base[r] + off[gk]], one 4-byte load with no
-//      bounds check, no quantization and no ballot;
-//   2. the CTA loops over its column blocks (all of cout unless the row
+// The conv kernel (CTA = BM output pixels; 256 threads) fills the per-CTA
+// tables (lowbit_core.cuh conv_tables: the A word of (row r, depth word gk)
+// is planes[base[r] + off[gk]], one 4-byte load with no bounds check, no
+// quantization and no ballot) and runs lowbit_core.cuh's popcount_body, as
+// the GeMM kernel (lowbit_gemm.cu) does with a 1x1 geometry:
+//   1. the CTA loops over its column blocks (all of cout unless the row
 //      blocks alone do not fill the card) with the A tile staged ONCE for
 //      the whole depth in shared memory (resident) and reused by every
 //      column block; depths too deep for that (A over 64 KB) stream A
 //      through a two-slot ring per step instead, re-staged per column block;
-//   3. staging is cp.async (4-byte copies into the depth-major tiles that
+//   2. staging is cp.async (4-byte copies into the depth-major tiles that
 //      the popcount core reads conflict-free), double-buffered: the copies
 //      of step t+1 are in flight while step t runs the popcount loop;
-//   4. lowbit_core.cuh's mac_tile, then eq. (6) for BNN and eq. (2)
-//      (acc * scale * col (+ bias)) in store_tile.
+//   3. mac_tile, then eq. (6) for BNN and eq. (2) (acc * scale * col
+//      (+ bias)) in store_tile.
 //
 // The weight rows are staged with 4-byte copies too: mac_tile's depth-major
 // tile holds no 4 consecutive words of one row, so a 16-byte copy has no
@@ -52,8 +53,6 @@
 #include "lowbit_core.cuh"
 
 namespace lowbit {
-
-constexpr int RESIDENT_A_BYTES = 64 * 1024;   // A for the whole depth
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
@@ -122,87 +121,14 @@ lowbit_conv_kernel(const uint32_t* __restrict__ a0,
                    const float* __restrict__ scale_p,
                    const float* __restrict__ col,
                    const float* __restrict__ bias, float* __restrict__ out) {
-  constexpr int NA = Planes<MODE>::A, NB = Planes<MODE>::B;
   extern __shared__ uint32_t smem[];
-  const int ka = resident ? words : 2 * BK;          // A words held per plane
-  uint32_t* s_a = smem;                               // [NA][ka][BM + 1]
-  uint32_t* s_b = s_a + NA * ka * (BM + 1);           // [2][NB][BK][BN + 1]
-  int* s_off = reinterpret_cast<int*>(s_b + 2 * NB * BK * (BN + 1));
-  int* s_base = s_off + words;                        // [BM]
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.x * BM;
-  conv_tables<BM>(s_off, s_base, words, cw, KW, Wp, Hp, stride, OH, OW, m0,
-                  m);
+  int* off = body_tables<MODE, BM, BN>(smem, words, resident);
+  conv_tables<BM>(off, off + words, words, cw, KW, Wp, Hp, stride, OH, OW,
+                  blockIdx.x * BM, m);
   __syncthreads();
-
-  const int nblk = (cout + BN - 1) / BN;
-  const int nb0 = blockIdx.y * blocks_per_cta;
-  const int nb_end = min(nblk, nb0 + blocks_per_cta);
-  const int ks = (words + BK - 1) / BK;
-  const int steps = (nb_end - nb0) * ks;
-
-  // Issue the copies of step t (column block nb0 + t / ks, depth step t % ks)
-  // as one cp.async group: A (every step when streaming, the first column
-  // block's steps when resident) and the B rows into buffer t & 1.
-  auto stage = [&](int t) {
-    const int nb = nb0 + t / ks, k0 = (t % ks) * BK;
-    const int wn = min(BK, words - k0);
-    if (!resident || nb == nb0) {
-      const int slot = resident ? k0 : (t & 1) * BK;
-      for (int i = tid; i < BM * wn; i += THREADS) {
-        const int c = i / BM, r = i % BM;
-        const int src = s_base[r] + s_off[k0 + c];
-        cp_async4(s_a + (slot + c) * (BM + 1) + r, a0 + src, true);
-        if constexpr (NA == 2)
-          cp_async4(s_a + (ka + slot + c) * (BM + 1) + r, a1 + src, true);
-      }
-    }
-    uint32_t* sb = s_b + (t & 1) * NB * BK * (BN + 1);
-    const int n0 = nb * BN;
-    for (int i = tid; i < BN * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      if (c >= wn) continue;
-      const bool ok = n0 + r < cout;
-      const size_t off = ok ? static_cast<size_t>(n0 + r) * words + k0 + c : 0;
-      cp_async4(sb + c * (BN + 1) + r, b0 + off, ok);
-      if constexpr (NB == 2)
-        cp_async4(sb + (BK + c) * (BN + 1) + r, b1 + off, ok);
-    }
-    cp_async_commit();
-  };
-
-  using ARow = const uint32_t (*)[BM + 1];
-  using BRow = const uint32_t (*)[BN + 1];
-  int acc[TM][TN] = {};
-  if (steps > 0) stage(0);
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) {
-      stage(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int kstep = t % ks, k0 = kstep * BK;
-    const int slot = resident ? k0 : (t & 1) * BK;
-    const uint32_t* sb = s_b + (t & 1) * NB * BK * (BN + 1);
-    mac_tile<MODE>(reinterpret_cast<ARow>(s_a + slot * (BM + 1)),
-                   reinterpret_cast<ARow>(s_a + ((NA - 1) * ka + slot) * (BM + 1)),
-                   reinterpret_cast<BRow>(sb),
-                   reinterpret_cast<BRow>(sb + (NB - 1) * BK * (BN + 1)),
-                   min(BK, words - k0), ty, tx, acc);
-    if (kstep == ks - 1) {
-      const int nb = nb0 + t / ks;
-      store_tile<MODE, true>(acc, m0, nb * BN, ty, tx, m, cout, k_valid,
-                             scale_p, 0, col, bias, out);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-    }
-    __syncthreads();
-  }
+  popcount_body<MODE, true, BM, BN>(smem, a0, a1, m, b0, b1, cout, words,
+                                    k_valid, blocks_per_cta, resident, scale_p,
+                                    0, col, bias, out);
 }
 
 }  // namespace lowbit
@@ -264,26 +190,18 @@ extern "C" int lowbit_conv_launch(int mode, const void* a0, const void* a1,
       (OH - 1) * stride + KH > Hp || (OW - 1) * stride + KW > Wp)
     return static_cast<int>(cudaErrorInvalidValue);
   const int m = B * OH * OW;
-  const int m_blocks = (m + BM - 1) / BM, nblk = (cout + BN - 1) / BN;
-  const int per_cta = lowbit_host::conv_blocks_per_cta(m_blocks, nblk);
-  const dim3 grid(m_blocks, (nblk + per_cta - 1) / per_cta);
   auto st = static_cast<cudaStream_t>(stream);
 #define LOWBIT_CONV_CASE(MODE)                                                \
   case MODE: {                                                                \
-    constexpr int NA = Planes<MODE>::A, NB = Planes<MODE>::B;                 \
-    const int resident =                                                      \
-        static_cast<size_t>(NA) * words * (BM + 1) * 4 <= RESIDENT_A_BYTES;   \
-    const int ka = resident ? words : 2 * BK;                                 \
-    const size_t smem =                                                       \
-        4 * (static_cast<size_t>(NA) * ka * (BM + 1) +                        \
-             2 * NB * BK * (BN + 1) + words + BM);                            \
-    if (!lowbit_host::allow_smem(lowbit_conv_kernel<MODE>, smem))             \
+    const auto p = lowbit_host::popcount_plan<MODE, BM, BN>(                  \
+        m, cout, words, true);                                                \
+    if (!lowbit_host::allow_smem(lowbit_conv_kernel<MODE>, p.smem))           \
       return static_cast<int>(cudaErrorInvalidValue);                         \
-    lowbit_conv_kernel<MODE><<<grid, THREADS, smem, st>>>(                    \
+    lowbit_conv_kernel<MODE><<<p.grid, THREADS, p.smem, st>>>(                \
         static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),   \
         Hp, Wp, cw, KW, stride, OH, OW, m, static_cast<const uint32_t*>(b0),  \
-        static_cast<const uint32_t*>(b1), cout, words, k_valid, per_cta,      \
-        resident, static_cast<const float*>(scale),                           \
+        static_cast<const uint32_t*>(b1), cout, words, k_valid, p.per_cta,    \
+        p.resident, static_cast<const float*>(scale),                         \
         static_cast<const float*>(col), static_cast<const float*>(bias),      \
         static_cast<float*>(out));                                            \
     break;                                                                    \

@@ -4,15 +4,16 @@
 // nvcuda::wmma 16x16x16 products with int32 accumulators, and the
 // accumulator tile written back through shared memory.
 //
-// A CTA of 128 threads (4 warps, 2 x 2) owns one BM x BN output tile and
-// loops over the depth itself, BK values per step; each warp keeps a
-// 32 x 32 block of the tile as 2 x 2 int32 accumulator fragments.  An
-// operand tile is stored as BK / 16 slabs of 16 depth values, each row
-// 16 bytes, so every 16 x 16 fragment starts on a 256-byte boundary (wmma
-// wants 256-bit aligned fragment pointers) and both operands load with
-// ldm = 16: A row-major (row r, depth d at r*16 + d), B column-major
-// (depth d, column c at c*16 + d).  Values past an operand's rows or depth
-// are staged as 0 and contribute nothing.
+// A CTA of 128 threads (4 warps, 2 x 2) owns one ROWS x COLS output tile
+// (64 x 64, or 32 x 32 for the dense GeMM's small products) and loops
+// over the depth itself, BK values per step; each warp keeps a
+// (ROWS/2) x (COLS/2) block of the tile as int32 accumulator fragments
+// of 16 x 16.  An operand tile is stored as BK / 16 slabs of 16 depth
+// values, each row 16 bytes, so every 16 x 16 fragment starts on a
+// 256-byte boundary (wmma wants 256-bit aligned fragment pointers) and
+// both operands load with ldm = 16: A row-major (row r, depth d at
+// r*16 + d), B column-major (depth d, column c at c*16 + d).  Values past
+// an operand's rows or depth are staged as 0 and contribute nothing.
 #pragma once
 
 #include <cstdint>
@@ -25,73 +26,86 @@ namespace tc {
 
 using namespace nvcuda;
 
-constexpr int BM = 64;            // output rows per CTA
+constexpr int BM = 64;            // output rows per CTA (the largest tile)
 constexpr int BN = 64;            // output columns per CTA
 constexpr int BK = 128;           // depth values per step
 constexpr int BKW = BK / 32;      // depth words of bit planes per step
 constexpr int KS = BK / 16;       // 16-deep slabs per step
 constexpr int THREADS = 128;      // 4 warps, 2 x 2 over the tile
-constexpr int CLD = BN + 4;       // accumulator row stride in shared memory
 
 template <typename T, int ROWS> struct alignas(128) Operand {
   T v[KS][ROWS][16];
 };
 
 // The operand tiles of a step, and afterwards the accumulator tile in
-// their place (every warp passes a __syncthreads() before the switch).
-template <typename T> struct alignas(128) Smem {
+// their place (every warp passes a __syncthreads() before the switch);
+// accumulator rows padded by 4 ints.
+template <typename T, int ROWS = BM, int COLS = BN> struct alignas(128) Smem {
   union {
     struct {
-      Operand<T, BM> a;
-      Operand<T, BN> b;
+      Operand<T, ROWS> a;
+      Operand<T, COLS> b;
     } in;
-    int c[BM][CLD];
+    int c[ROWS][COLS + 4];
   };
 };
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
-__device__ __forceinline__ void zero_acc(Acc (&acc)[2][2]) {
+// Accumulator fragments of one warp: (ROWS/2) x (COLS/2) in 16 x 16.
+template <int ROWS, int COLS> struct Frags {
+  static constexpr int I = ROWS / 32, J = COLS / 32;
+  static_assert(I >= 1 && J >= 1 && I * 32 == ROWS && J * 32 == COLS,
+                "tile must divide");
+};
+
+template <int FI, int FJ>
+__device__ __forceinline__ void zero_acc(Acc (&acc)[FI][FJ]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < FI; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+    for (int j = 0; j < FJ; ++j) wmma::fill_fragment(acc[i][j], 0);
 }
 
-// acc += the staged A slab x B slab products of this warp's 32 x 32 block
-// (warp row wr, warp column wc of the 2 x 2 arrangement).
-template <typename T>
-__device__ __forceinline__ void mma_step(const Smem<T>& s, int wr, int wc,
-                                         Acc (&acc)[2][2]) {
+// acc += the staged A slab x B slab products of this warp's block (warp
+// row wr, warp column wc of the 2 x 2 arrangement).
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void mma_step(
+    const Smem<T, ROWS, COLS>& s, int wr, int wc,
+    Acc (&acc)[Frags<ROWS, COLS>::I][Frags<ROWS, COLS>::J]) {
+  constexpr int FI = Frags<ROWS, COLS>::I, FJ = Frags<ROWS, COLS>::J;
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[FI];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[FJ];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], &s.in.a.v[ks][wr * 32 + i * 16][0], 16);
+    for (int i = 0; i < FI; ++i)
+      wmma::load_matrix_sync(fa[i], &s.in.a.v[ks][wr * (ROWS / 2) + i * 16][0], 16);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], &s.in.b.v[ks][wc * 32 + j * 16][0], 16);
+    for (int j = 0; j < FJ; ++j)
+      wmma::load_matrix_sync(fb[j], &s.in.b.v[ks][wc * (COLS / 2) + j * 16][0], 16);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < FI; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < FJ; ++j)
         wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
   }
 }
 
 // Write the accumulators into s.c.  Call after the last step's trailing
 // __syncthreads(); s.c is complete after the __syncthreads() here.
-template <typename T>
-__device__ __forceinline__ void store_acc(Smem<T>& s, int wr, int wc,
-                                          const Acc (&acc)[2][2]) {
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void store_acc(
+    Smem<T, ROWS, COLS>& s, int wr, int wc,
+    const Acc (&acc)[Frags<ROWS, COLS>::I][Frags<ROWS, COLS>::J]) {
+  constexpr int FI = Frags<ROWS, COLS>::I, FJ = Frags<ROWS, COLS>::J;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < FI; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&s.c[wr * 32 + i * 16][wc * 32 + j * 16],
-                              acc[i][j], CLD, wmma::mem_row_major);
+    for (int j = 0; j < FJ; ++j)
+      wmma::store_matrix_sync(
+          &s.c[wr * (ROWS / 2) + i * 16][wc * (COLS / 2) + j * 16], acc[i][j],
+          COLS + 4, wmma::mem_row_major);
   __syncthreads();
 }
 
@@ -124,46 +138,19 @@ __device__ __forceinline__ void decode_word(uint32_t plus, uint32_t minus,
   *reinterpret_cast<uint4*>(hi) = make_uint4(q[4], q[5], q[6], q[7]);
 }
 
-// Decode bit-plane words [w0, w0 + BKW) of rows [row0, row0 + ROWS) into
-// +-1/0 int8 values: ternary (plus, minus) -> plus - minus, binary bit b
-// -> 1 - 2b.  Rows past nrows, words past kw and depth >= k_zero stage 0.
-// One thread decodes one (row, word) pair into 32 bytes, two 16-byte
-// stores (one per slab).
-template <bool TERNARY, int ROWS>
-__device__ __forceinline__ void stage_planes(Operand<int8_t, ROWS>& dst,
-                                             const uint32_t* __restrict__ p0,
-                                             const uint32_t* __restrict__ p1,
-                                             int row0, int nrows, int w0,
-                                             int kw, int k_zero) {
-  for (int i = threadIdx.x; i < ROWS * BKW; i += THREADS) {
-    const int r = i / BKW, w = i % BKW;
-    const int gr = row0 + r, gw = w0 + w;
-    uint32_t plus = 0, minus = 0, live = 0;
-    if (gr < nrows && gw < kw) {
-      const size_t off = static_cast<size_t>(gr) * kw + gw;
-      plus = __ldg(p0 + off);
-      if constexpr (TERNARY) minus = __ldg(p1 + off);
-      const long long left = static_cast<long long>(k_zero) - 32LL * gw;
-      live = left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
-    }
-    decode_word<TERNARY>(plus, minus, live, &dst.v[2 * w][r][0],
-                         &dst.v[2 * w + 1][r][0]);
-  }
-}
-
 // eq. (2) on the accumulator tile: out[gm, gn] = acc * row[gm * row_stride]
 // * col[gn] (+ bias[gn]), each step rounded on its own in the reference's
 // order (row_stride 0: one per-tensor scale).  Ragged edges are masked.
-template <typename T>
-__device__ __forceinline__ void store_scaled(const Smem<T>& s, int m0, int n0,
-                                             int m, int n,
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void store_scaled(const Smem<T, ROWS, COLS>& s,
+                                             int m0, int n0, int m, int n,
                                              const float* __restrict__ row,
                                              int row_stride,
                                              const float* __restrict__ col,
                                              const float* __restrict__ bias,
                                              float* __restrict__ out) {
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
+  for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+    const int r = i / COLS, c = i % COLS;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= m || gn >= n) continue;
     float y = __fmul_rn(__fmul_rn(__int2float_rn(s.c[r][c]),

@@ -35,7 +35,6 @@ the conv uses only the first Cin bits of each patch position's words.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -43,8 +42,8 @@ import torch
 from repro_torch.core import encoding
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
-    _MODE_ID, _PLANES, _check_planes, _ptr, check_f32_vec, on_cuda,
-    scale_epilogue)
+    _MODE_ID, _PLANES, DENSE_TILES, _ptr, check_f32_vec, check_row_scale,
+    gemm_dims, gemm_tile, on_cuda, scale_epilogue, sm_count)
 from repro_torch.kernels.conv_fused import (
     conv_pack_cuda, conv_spatial_pad, gather_patch_tile, packed_conv_args,
     quantize_patch_values)
@@ -100,10 +99,14 @@ def dense_matmul_fused_torch(mode: QuantMode, a_planes, b_planes,
                              k_valid: int, row_scale: torch.Tensor,
                              col_scale: torch.Tensor,
                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain fused dense GeMM: float32 (m, n); row_scale (m, 1), col_scale
-    and bias (1, n)."""
+    """Plain fused dense GeMM: float32 (m, n); row_scale (m, 1) or one
+    value, col_scale and bias (1, n)."""
     acc = dense_matmul_torch(mode, a_planes, b_planes, k_valid)
     return scale_epilogue(acc, row_scale, col_scale, bias)
+
+
+_GEMM_KEYS = {mode: f"dense_gemm_{mode.value}" for mode in _MODE_ID}
+_CONV_KEYS = {mode: f"dense_conv_{mode.value}" for mode in _MODE_ID}
 
 
 def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
@@ -112,36 +115,24 @@ def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
                             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused dense GeMM, float32 (m, n): ``csrc/dense_tc.cu`` on CUDA
     operands (raises on anything it does not take), the plain version on
-    CPU operands."""
+    CPU operands.  ``row_scale`` one per-tensor value or (m, 1) (never
+    copied), ``col_scale`` and ``bias`` n contiguous values."""
     if not on_cuda(*a_planes, *b_planes, row_scale, col_scale, bias):
         return dense_matmul_fused_torch(mode, a_planes, b_planes, k_valid,
                                         row_scale, col_scale, bias)
-    na, nb = _PLANES[mode]
-    _check_planes("a", a_planes, na)
-    m, kw = a_planes[0].shape
-    _check_planes("b", b_planes, nb, rows_kw=kw)
-    n = b_planes[0].shape[0]
-    dev = a_planes[0].device
-    if b_planes[0].device != dev:
-        raise ValueError(f"dense GeMM operands on {dev} and {b_planes[0].device}")
-    row = row_scale.reshape(-1).contiguous()
-    col = col_scale.reshape(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).contiguous()
-    check_f32_vec("row_scale", row, m, dev)
-    check_f32_vec("col_scale", col, n, dev)
-    check_f32_vec("bias", bias, n, dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    m, n, kw, device = gemm_dims(mode, a_planes, b_planes)
+    stride = check_row_scale(row_scale, m, device)
+    check_f32_vec("col_scale", col_scale, n, device)
+    check_f32_vec("bias", bias, n, device)
+    out = a_planes[0].new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    lib = _build.load("dense_tc")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dense_gemm_launch(
-            _MODE_ID[mode], _ptr(a_planes[0]), _ptr(a_planes[-1]),
-            _ptr(b_planes[0]), _ptr(b_planes[-1]), m, n, kw, int(k_valid),
-            _ptr(row), _ptr(col), _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
-    _build.check_launch(lib, rc, f"dense_gemm[{mode.value}]")
-    _build.count_launch(f"dense_gemm_{mode.value}")
+    _build.launch(
+        "dense_gemm_launch", _GEMM_KEYS[mode], device, _MODE_ID[mode],
+        a_planes[0].data_ptr(), a_planes[-1].data_ptr(), b_planes[0].data_ptr(),
+        b_planes[-1].data_ptr(), m, n, kw, int(k_valid),
+        gemm_tile(m, n, sm_count(device), DENSE_TILES), row_scale.data_ptr(),
+        stride, col_scale.data_ptr(), _ptr(bias), out.data_ptr())
     return out
 
 
@@ -212,15 +203,11 @@ def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
     if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
     a = conv_pack_cuda(mode, x, kh, kw, stride, padding, stats)
-    lib = _build.load("dense_tc")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dense_conv_launch(
-            _MODE_ID[mode], _ptr(a[0]), _ptr(a[-1]), *dims, _ptr(b_planes[0]),
-            _ptr(b_planes[-1]), cout, words, _ptr(scale), _ptr(col),
-            _ptr(bias), _ptr(out), ctypes.c_void_p(stream))
-    _build.check_launch(lib, rc, f"dense_conv[{mode.value}]")
-    _build.count_launch(f"dense_conv_{mode.value}")
+    _build.launch(
+        "dense_conv_launch", _CONV_KEYS[mode], x.get_device(), _MODE_ID[mode],
+        a[0].data_ptr(), a[-1].data_ptr(), *dims, b_planes[0].data_ptr(),
+        b_planes[-1].data_ptr(), cout, words, scale.data_ptr(), col.data_ptr(),
+        _ptr(bias), out.data_ptr())
     return out.reshape(bsz, oh, ow, cout)
 
 

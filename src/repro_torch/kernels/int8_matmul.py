@@ -19,8 +19,6 @@ wrap modulo 2**32 past the int32 range, as XLA's int32 dot does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -43,6 +41,9 @@ def int8_matmul_torch(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
     return exact_int_matmul(a_u8, b_u8)
 
 
+_KEYS = {False: "affine_gemm_u8", True: "affine_gemm_u4"}
+
+
 def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
                      k: int) -> torch.Tensor:
     """Launch ``csrc/affine_gemm.cu`` on CUDA uint8 operands: u8 a (m, k),
@@ -52,8 +53,8 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
         if t.dtype != torch.uint8 or t.ndim != 2 or not t.is_contiguous():
             raise TypeError(f"{name}: expected a contiguous 2-D torch.uint8 "
                             f"tensor, got {t.dtype} {tuple(t.shape)}")
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev:
+    device = a.get_device()
+    if device < 0 or b.get_device() != device:
         raise ValueError(f"affine GeMM kernel needs CUDA operands on one "
                          f"device, got {a.device} and {b.device}")
     m, ka = a.shape
@@ -61,18 +62,11 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
     if ka != kb or k != (2 * ka if u4 else ka):
         raise ValueError(f"depth mismatch: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, k={k}")
-    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    lib = _build.load("affine_gemm")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.affine_gemm_launch(
-            int(u4), ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-            m, n, k, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-    name = "affine_gemm_u4" if u4 else "affine_gemm_u8"
-    _build.check_launch(lib, rc, name)
-    _build.count_launch(name)
+    _build.launch("affine_gemm_launch", _KEYS[u4], device, int(u4),
+                  a.data_ptr(), b.data_ptr(), m, n, k, out.data_ptr())
     return out
 
 

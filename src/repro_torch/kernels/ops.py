@@ -312,18 +312,19 @@ def packed_matmul(xa: Dict[str, Any], wb: QTensor,
 # ---------------------------------------------------------------------------
 
 def _as_row_scale(scale, m: int, like: torch.Tensor) -> torch.Tensor:
-    """Activation scale (scalar or (m,)) -> (m, 1) float32."""
+    """Activation scale (scalar or (m,)) -> (1, 1) or (m, 1) float32.  A
+    per-tensor scale stays one value: the kernels read it with row stride
+    0 and the plain versions broadcast it, so no (m, 1) copy is made."""
     s = torch.as_tensor(scale, dtype=torch.float32, device=like.device)
-    if s.ndim == 0:
-        return s.reshape(1, 1).expand(m, 1)
-    return s.reshape(m, 1)
+    return s.reshape(1, 1) if s.ndim == 0 else s.reshape(m, 1)
 
 
 def _as_col_vec(v, n: int, like: torch.Tensor) -> torch.Tensor:
-    """Weight scale / bias (scalar or (n,)) -> (1, n) float32."""
+    """Weight scale / bias (scalar or (n,)) -> (1, n) float32, contiguous
+    (the kernels read n values)."""
     x = torch.as_tensor(v, dtype=torch.float32, device=like.device)
     if x.ndim == 0:
-        return x.reshape(1, 1).expand(1, n)
+        return x.reshape(1, 1).expand(1, n).contiguous()
     return x.reshape(1, n)
 
 

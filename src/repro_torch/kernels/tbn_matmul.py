@@ -57,8 +57,8 @@ def tbn_matmul_fused_torch(a_plus: torch.Tensor, a_minus: torch.Tensor,
                            col_scale: torch.Tensor,
                            bias: Optional[torch.Tensor] = None, *,
                            word_chunk: int = _TILES.word_chunk) -> torch.Tensor:
-    """Plain fused form: float32 (m, n); row_scale (m, 1), col_scale and
-    bias (1, n)."""
+    """Plain fused form: float32 (m, n); row_scale (m, 1) or one value,
+    col_scale and bias (1, n)."""
     def epi(acc):
         return scale_epilogue(acc, row_scale, col_scale, bias)
     return chunked_bitwise_matmul(PRODUCT_FNS[_MODE], [a_plus, a_minus],
@@ -89,6 +89,4 @@ def tbn_matmul_fused_cuda(a_plus: torch.Tensor, a_minus: torch.Tensor,
                                       row_scale, col_scale, bias)
     return lowbit_matmul_call(
         _MODE, (a_plus, a_minus), (b_bits_t,), k_valid,
-        row_scale=row_scale.reshape(-1).contiguous(),
-        col_scale=col_scale.reshape(-1).contiguous(),
-        bias=None if bias is None else bias.reshape(-1).contiguous())
+        row_scale=row_scale, col_scale=col_scale, bias=bias)

@@ -15,7 +15,9 @@
 * ``PaperCNN(PAPER_CNN_SMOKE, backend="dense")`` == the popcount run,
   layer by layer and in the logits;
 * the registry: the new cells are listed, and ``modes()`` / ``backends()``
-  agree with the reference's under the backend mapping.
+  agree with the reference's under the backend mapping;
+* the dense GeMM wrapper with one per-tensor activation scale (one value
+  or expanded to (m, 1)), and its operand checks.
 """
 
 import jax.numpy as jnp
@@ -197,3 +199,32 @@ def test_registry_lists_new_cells_and_matches_reference():
     for spec in registry.available():
         assert jregistry.has(JMode(spec.mode.value), BACKEND_MAP[spec.backend],
                              fused=spec.fused, layout=spec.layout), spec.key
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dense_wrapper_takes_one_row_scale_and_checks_operands(mode):
+    """One per-tensor activation scale, as one value or expanded to (m, 1),
+    gives the output of that scale copied to every row; a mix of CPU and
+    CUDA operands, a wrong plane count or dtype raises."""
+    from repro_torch.kernels._matmul_common import gemm_dims
+
+    m, n, k = 29, 13, 97
+    a_pl, b_pl, row, col, bias = _operands(mode, m, n, k, seed=12)
+    ta, tb = [_t(p) for p in a_pl], [_t(p) for p in b_pl]
+    qm = QuantMode(mode)
+    one = _t(row)[:1]
+    want = dense_fused.dense_matmul_fused_cuda(qm, ta, tb, k, one.expand(m, 1).contiguous(),
+                                               _t(col), _t(bias))
+    for r in (one, one.expand(m, 1)):
+        assert torch.equal(dense_fused.dense_matmul_fused_cuda(qm, ta, tb, k, r, _t(col),
+                                                               _t(bias)), want)
+
+    class OnCard:
+        is_cuda = True
+
+    with pytest.raises(ValueError, match="mix"):
+        dense_fused.dense_matmul_fused_cuda(qm, ta, tb, k, one, _t(col), OnCard())
+    with pytest.raises(ValueError, match="planes"):
+        gemm_dims(qm, ta + ta, tb)
+    with pytest.raises(TypeError, match="int32"):
+        gemm_dims(qm, [p.float() for p in ta], tb)

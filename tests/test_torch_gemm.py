@@ -8,6 +8,11 @@
   and the add into one FMA; the port never does);
 * ``qmm`` / ``packed_matmul`` against ``repro.kernels.ops`` with the JAX
   activation statistics injected: ``array_equal``;
+* the launch path: the CTA tile plan at the GEMM_GRID diagonal and the
+  CNN's im2col shapes, the row-scale strides the kernels take, one
+  per-tensor scale (one value, or expanded to (m, 1)) giving the output
+  of that scale copied to every row, and the operand checks (a mix of
+  CPU and CUDA operands, a wrong plane count, dtype or layout raise).
 """
 
 import jax.numpy as jnp
@@ -206,3 +211,86 @@ def test_cpu_operands_never_launch():
     with pytest.raises(ValueError, match="CUDA"):
         from repro_torch.kernels._matmul_common import lowbit_matmul_call
         lowbit_matmul_call(QuantMode.TNN, [_t(p) for p in a_pl], [_t(p) for p in b_pl], 40)
+
+
+# ---------------------------------------------------------------------------
+# The launch path: tile plan, row-scale strides, operand checks
+# ---------------------------------------------------------------------------
+
+GEMM_GRID_DIAGONAL = [(72, 24), (120, 48), (240, 72), (360, 96)]
+CNN_IM2COL_BATCH256 = [(262144, 64), (65536, 128), (16384, 256)]
+
+
+@pytest.mark.parametrize("mn", GEMM_GRID_DIAGONAL + CNN_IM2COL_BATCH256)
+def test_gemm_tile_plan(mn):
+    from repro_torch.kernels._matmul_common import DENSE_TILES, GEMM_TILES, gemm_tile
+
+    m, n = mn
+    tile = gemm_tile(m, n, 132)
+    # the diagonal's 64x64 grids have 2-12 blocks for 132 SMs: smallest
+    # tile; the CNN's im2col GeMMs fill the card with the largest
+    assert tile == (16 if (m, n) in GEMM_GRID_DIAGONAL else 64)
+    # the choice: the largest tile whose grid covers every SM
+    covers = [t for t in GEMM_TILES if -(-m // t) * -(-n // t) >= 132]
+    assert tile == (covers[0] if covers else GEMM_TILES[-1])
+    assert gemm_tile(1000, 130, 132) == 32
+    assert gemm_tile(m, n, 1) == 64
+    # the dense GeMM's tiles: 32 for the diagonal, 64 for the CNN shapes
+    assert gemm_tile(m, n, 132, DENSE_TILES) == (32 if (m, n) in GEMM_GRID_DIAGONAL else 64)
+
+
+@pytest.mark.parametrize("case", ["column", "expanded", "one", "scalar", "strided",
+                                  "flat"])
+def test_row_stride(case):
+    from repro_torch.kernels._matmul_common import row_stride
+
+    m = 6
+    base = torch.arange(2 * m, dtype=torch.float32).reshape(m, 2)
+    row, want = {"column": (base[:, 1:].contiguous(), 1),
+                 "expanded": (base[:1, :1].expand(m, 1), 0),
+                 "one": (base[:1, :1], 0),
+                 "scalar": (torch.tensor(2.0), 0),
+                 "strided": (base[:, :1], None),
+                 "flat": (base[:, 0].contiguous(), None)}[case]
+    if want is None:
+        with pytest.raises(ValueError, match="row_scale"):
+            row_stride(row, m)
+    else:
+        assert row_stride(row, m) == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_wrappers_take_one_row_scale(mode):
+    """A per-tensor activation scale as one value or expanded to (m, 1)
+    (stride 0) gives the output of the same scale copied to every row."""
+    m, n, k = 37, 21, 130
+    a_pl, b_pl, row, col, bias = _operands(mode, m, n, k, seed=9)
+    ta = [_t(p) for p in a_pl + b_pl]
+    one = _t(row)[:1]
+    want = PORT_CUDA[mode][1](*ta, k, one.expand(m, 1).contiguous(), _t(col), _t(bias))
+    for r in (one, one.expand(m, 1), one.reshape(())):
+        assert torch.equal(PORT_CUDA[mode][1](*ta, k, r, _t(col), _t(bias)), want)
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor: the dispatch reads only ``is_cuda``."""
+    is_cuda = True
+
+
+def test_wrappers_raise_on_bad_operands():
+    from repro_torch.kernels._matmul_common import lowbit_matmul_call
+
+    a_pl, b_pl, row, col, _ = _operands("tnn", 8, 8, 40, seed=2)
+    ta = [_t(p) for p in a_pl + b_pl]
+    with pytest.raises(ValueError, match="mix"):
+        tnn_matmul.tnn_matmul_fused_cuda(*ta, 40, _t(row), _t(col), _OnCard())
+    with pytest.raises(ValueError, match="mix"):
+        bnn_matmul.bnn_matmul_cuda(ta[0], _OnCard(), 40)
+    with pytest.raises(ValueError, match="planes"):
+        lowbit_matmul_call(QuantMode.TNN, ta[:1], ta[2:], 40)
+    with pytest.raises(TypeError, match="int32"):
+        lowbit_matmul_call(QuantMode.TNN, [p.long() for p in ta[:2]], ta[2:], 40)
+    with pytest.raises(ValueError, match="contiguous"):
+        lowbit_matmul_call(QuantMode.TNN, [p.t() for p in ta[:2]], ta[2:], 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        lowbit_matmul_call(QuantMode.TNN, ta[:2], ta[2:], 40)

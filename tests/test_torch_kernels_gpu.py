@@ -37,18 +37,51 @@ def _planes(vals: torch.Tensor, ternary: bool):
     return list(encoding.pack_ternary(vals)) if ternary else [encoding.pack_binary(vals)]
 
 
+# (m, n, k) of the GeMM cases: on a 132-SM card the popcount tile plan
+# picks 16 for the GEMM_GRID corners and the ragged cases, 32 for
+# (1000, 130), 64 for the CNN's first im2col GeMM at batch 2 and the
+# 9000-row case (the dense plan: 64 for the 9000-row case, else 32); the
+# last two are deep enough that A streams through the ring instead of
+# staying resident (kw = 129 in 64-row tiles, 500 in 16- or 32-row tiles);
+# k = 130 and 33 give kw % 4 != 0 (4-byte weight copies in the dense
+# kernel).
+GEMM_CASES = [(72, 24, 128), (360, 96, 512), (37, 21, 130), (5, 3, 33),
+              (1000, 130, 1152), (2048, 64, 288), (9000, 64, 4128),
+              (40, 20, 16000)]
+
+
+def _gemm_operands(device, mode, m, n, k, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randint(-1, 2, (m, k), generator=g, device=device).float()
+    b = torch.randint(-1, 2, (n, k), generator=g, device=device).float()
+    row = torch.rand((m, 1), generator=g, device=device) + 0.5
+    col = torch.rand((1, n), generator=g, device=device) + 0.5
+    bias = torch.randn((1, n), generator=g, device=device)
+    return _planes(a, mode != "bnn"), _planes(b, mode == "tnn"), row, col, bias
+
+
+def _row_scales(row):
+    """The per-row scale as (m, 1) values (row stride 1), one per-tensor
+    value (1, 1), and that value expanded to (m, 1) (row stride 0)."""
+    one = row[:1]
+    return [row, one, one.expand(row.shape[0], 1)]
+
+
+def test_gemm_cases_cover_every_tile(cuda_device):
+    from repro_torch.kernels._matmul_common import (DENSE_TILES, GEMM_TILES, gemm_tile,
+                                                    sm_count)
+
+    sms = sm_count(cuda_device.index or 0)
+    assert {gemm_tile(m, n, sms) for m, n, _ in GEMM_CASES} == set(GEMM_TILES)
+    assert {gemm_tile(m, n, sms, DENSE_TILES) for m, n, _ in GEMM_CASES} == set(DENSE_TILES)
+
+
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", [(72, 24, 128), (360, 96, 512), (37, 21, 130),
-                                   (1000, 130, 1152)])
+@pytest.mark.parametrize("shape", GEMM_CASES)
 def test_gemm_kernel_matches_plain(cuda_device, mode, shape):
     m, n, k = shape
-    g = torch.Generator(device=cuda_device).manual_seed(m)
-    a = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device).float()
-    b = torch.randint(-1, 2, (n, k), generator=g, device=cuda_device).float()
-    ops_ = _planes(a, mode != "bnn") + _planes(b, mode == "tnn")
-    row = torch.rand((m, 1), generator=g, device=cuda_device) + 0.5
-    col = torch.rand((1, n), generator=g, device=cuda_device) + 0.5
-    bias = torch.randn((1, n), generator=g, device=cuda_device)
+    a_pl, b_pl, row, col, bias = _gemm_operands(cuda_device, mode, m, n, k, m + k)
+    ops_ = a_pl + b_pl
     mod = KERNELS[mode]
     k_int = getattr(mod, f"{mode}_matmul_cuda")
     k_fused = getattr(mod, f"{mode}_matmul_fused_cuda")
@@ -56,10 +89,56 @@ def test_gemm_kernel_matches_plain(cuda_device, mode, shape):
     p_fused = getattr(mod, f"{mode}_matmul_fused_torch")
     _build.reset_launches()
     assert torch.equal(k_int(*ops_, k), p_int(*ops_, k))
-    assert torch.equal(k_fused(*ops_, k, row, col), p_fused(*ops_, k, row, col))
-    assert torch.equal(k_fused(*ops_, k, row, col, bias), p_fused(*ops_, k, row, col, bias))
+    for r in _row_scales(row):
+        for bb in (None, bias):
+            assert torch.equal(k_fused(*ops_, k, r, col, bb), p_fused(*ops_, k, r, col, bb))
     assert _build.launches() == {f"lowbit_gemm_{mode}_i32": 1,
-                                 f"lowbit_gemm_{mode}_fused": 2}
+                                 f"lowbit_gemm_{mode}_fused": 6}
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous view that starts 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_gemm_kernels_take_misaligned_planes(cuda_device, mode):
+    """Planes that are views at a 4-byte, not 16-byte, aligned offset:
+    kw % 4 == 0, so only the alignment keeps the dense kernel off its
+    16-byte weight copies."""
+    from repro_torch.kernels import dense_fused
+
+    m, n, k = 100, 70, 512
+    a_pl, b_pl, row, col, bias = _gemm_operands(cuda_device, mode, m, n, k, 5)
+    a_mis, b_mis = [_misaligned(p) for p in a_pl], [_misaligned(p) for p in b_pl]
+    qm = QuantMode(mode)
+    fused = getattr(KERNELS[mode], f"{mode}_matmul_fused_cuda")
+    plain = getattr(KERNELS[mode], f"{mode}_matmul_fused_torch")
+    want = plain(*a_pl, *b_pl, k, row, col, bias)
+    assert torch.equal(fused(*a_mis, *b_mis, k, row, col, bias), want)
+    assert torch.equal(dense_fused.dense_matmul_fused_cuda(qm, a_mis, b_mis, k, row, col,
+                                                           bias), want)
+    assert torch.equal(dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_mis, k, row, col,
+                                                           bias), want)
+
+
+def test_launch_on_another_device(cuda_device):
+    """The runtime launches on its current device: operands on the second
+    card must be computed there, and the current device left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    a_pl, b_pl, row, col, bias = _gemm_operands(other, "tnn", 64, 48, 256, 3)
+    current = torch.cuda.current_device()
+    got = tnn_matmul.tnn_matmul_fused_cuda(*a_pl, *b_pl, 256, row, col, bias)
+    assert torch.cuda.current_device() == current and got.device == other
+    assert torch.equal(got, tnn_matmul.tnn_matmul_fused_torch(*a_pl, *b_pl, 256, row, col,
+                                                              bias))
 
 
 CONV_CASES = [((2, 8, 8, 32), (3, 3, 32, 16), 1, "SAME"),
@@ -117,6 +196,14 @@ def test_cuda_operands_never_run_plain(cuda_device):
     a = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError, match="int32"):
         bnn_matmul.bnn_matmul_cuda(a, a, 64)
+    p = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    row = torch.ones((4, 2), device=cuda_device)[:, :1]       # row stride 2
+    col = torch.ones((1, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="row_scale"):
+        bnn_matmul.bnn_matmul_fused_cuda(p, p, 64, row, col)
+    with pytest.raises(ValueError, match="contiguous"):
+        bnn_matmul.bnn_matmul_fused_cuda(p, p, 64, row[:1], torch.ones((4, 2),
+                                         device=cuda_device)[:, 0])
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -146,28 +233,22 @@ def test_entry_points_on_card_match_plain(cuda_device, mode):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", [(72, 24, 128), (360, 96, 512), (37, 21, 130),
-                                   (1000, 130, 1152), (5, 3, 33)])
+@pytest.mark.parametrize("shape", GEMM_CASES)
 def test_dense_gemm_kernel_matches_plain(cuda_device, mode, shape):
     from repro_torch.kernels import dense_fused
 
     m, n, k = shape
-    g = torch.Generator(device=cuda_device).manual_seed(m + 1)
-    a = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device).float()
-    b = torch.randint(-1, 2, (n, k), generator=g, device=cuda_device).float()
-    a_pl, b_pl = _planes(a, mode != "bnn"), _planes(b, mode == "tnn")
-    row = torch.rand((m, 1), generator=g, device=cuda_device) + 0.5
-    col = torch.rand((1, n), generator=g, device=cuda_device) + 0.5
-    bias = torch.randn((1, n), generator=g, device=cuda_device)
+    a_pl, b_pl, row, col, bias = _gemm_operands(cuda_device, mode, m, n, k, m + 1)
     qm = QuantMode(mode)
+    popcount = getattr(KERNELS[mode], f"{mode}_matmul_fused_cuda")
     _build.reset_launches()
-    for bb in (None, bias):
-        got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, row, col, bb)
-        assert torch.equal(got, dense_fused.dense_matmul_fused_torch(
-            qm, a_pl, b_pl, k, row, col, bb))
-        popcount = getattr(KERNELS[mode], f"{mode}_matmul_fused_cuda")
-        assert torch.equal(got, popcount(*a_pl, *b_pl, k, row, col, bb))
-    assert _build.launches() == {f"dense_gemm_{mode}": 2, f"lowbit_gemm_{mode}_fused": 2}
+    for r in _row_scales(row)[:2]:
+        for bb in (None, bias):
+            got = dense_fused.dense_matmul_fused_cuda(qm, a_pl, b_pl, k, r, col, bb)
+            assert torch.equal(got, dense_fused.dense_matmul_fused_torch(
+                qm, a_pl, b_pl, k, r, col, bb))
+            assert torch.equal(got, popcount(*a_pl, *b_pl, k, r, col, bb))
+    assert _build.launches() == {f"dense_gemm_{mode}": 4, f"lowbit_gemm_{mode}_fused": 4}
 
 
 @pytest.mark.parametrize("mode", MODES)
