@@ -6,10 +6,10 @@ against its plain PyTorch version, drives the main path, times it.
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times [--src DIR]
 
-The second form runs phases 1, 2 and the GeMM rows of phase 6 only, for
-the ``repro_torch`` package under ``DIR`` (default this checkout's
-``src``): the way to time another checkout's GeMM kernels, e.g. the
-parent commit's, on the same card.
+The second form runs phases 1, 2 and the GeMM rows of phase 6 only
+(popcount, dense, u8 and u4), for the ``repro_torch`` package under
+``DIR`` (default this checkout's ``src``): the way to time another
+checkout's GeMM kernels, e.g. the parent commit's, on the same card.
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -33,8 +33,11 @@ without printing a result:
    the shapes of phase 3 (and the offset planes) and the dense conv at
    the geometries of phase 4, each mode, with and without bias:
    ``torch.equal`` to the plain version and to the popcount kernel; the
-   u8 and u4 kernels at every ``GEMM_GRID`` shape and an odd depth,
-   operands over the full 0..255 / 0..15 range: ``torch.equal``;
+   u8 and u4 kernels at every ``GEMM_GRID`` shape, ``AFFINE_EXTRA``
+   (ragged m, n and k, both tiles, a CTA walking several row blocks, B
+   staged in chunks) and the CNN's im2col shapes at batch 8, and on
+   operands 1, 4 and 8 bytes past a 16-byte boundary, operands over the
+   full 0..255 / 0..15 range: ``torch.equal``;
 5. the main path, launch counters zeroed just before and read just
    after: ``qmm`` and ``packed_matmul`` requests at the paper's GEMM_GRID
    diagonal in all three modes, then ``PaperCNN(PAPER_CNN)`` at full
@@ -74,10 +77,11 @@ without printing a result:
    and one CNN batch's device time by kernel from ``torch.profiler``
    (popcount and dense); the tensor-core kernels' bound is 2*m*n*k at the
    int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger.
-   The GeMM rows (:func:`gemm_rows`) add the host us per call, the
-   library call's device time, one ``qmm`` request's time, and the same
-   times at the CNN's im2col GeMM shapes at batch 256, whose outputs are
-   held against the plain versions and dense against popcount;
+   The GeMM rows (:func:`gemm_rows`; popcount, dense, u8 and u4) add the
+   host us per call, the library call's device time, one ``qmm``
+   request's time, and the same times at the CNN's im2col GeMM shapes at
+   batch 256, whose outputs are held against the plain versions and
+   dense against popcount (u8/u4 also beside ``torch._int_mm``);
 7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -132,6 +136,17 @@ BATCH, BATCHES = 256, 4
 GEMM_EXTRA = [(37, 21, 130), (1, 1, 1), (5, 3, 33), (1000, 130, 1152), (9000, 64, 4128),
               (40, 20, 16000)]
 MISALIGNED = (100, 70, 512)   # (m, n, k): kw % 4 == 0, planes 4 bytes off 16
+# Phase 4b u8/u4 geometries beside GEMM_GRID and the CNN's im2col shapes:
+# an odd depth (the u4 nibble pad), one output, k % 16 != 0, n % 4 != 0
+# with n % 16 != 0, m below a tile, an odd depth with n % 4 == 0, and the
+# plan's 64 tile (the last three on 132 SMs; every other shape takes 32),
+# more row blocks than the card holds CTAs (60000 x 32: a CTA walks
+# several), a depth past the B chunk a CTA holds (1200 > 1152); then
+# operands 1, 4 and 8 bytes past a 16-byte boundary (the launcher's 1-, 4-
+# and 8-byte copies of A, byte loads of B below 4).
+AFFINE_EXTRA = [(37, 21, 131), (1, 1, 1), (100, 64, 200), (90, 30, 256), (5, 70, 64),
+                (33, 40, 77), (2100, 300, 96), (60000, 32, 288), (20000, 64, 1200)]
+AFFINE_MISALIGNED = ((130, 72, 256), (1, 4, 8))     # (m, n, k), byte offsets
 
 
 def log(msg: str) -> None:
@@ -198,13 +213,13 @@ def kernel_device_ms(fn, pattern, reps: int = 1):
 
 
 def kernel_launches(fn) -> int:
-    """CUDA kernels one ``fn()`` launched, by torch.profiler (a session
-    that records no device events is tried again)."""
-    for _ in range(3):
-        n = sum(calls for _, _, calls in profiled(fn)[0])
-        if n:
-            return n
-    raise AssertionError("the profiler recorded no kernel in three sessions")
+    """CUDA kernels one ``fn()`` launched, by torch.profiler: the most that
+    any of three sessions recorded (a session now and then drops some or
+    all of its device events; none records a kernel that did not run)."""
+    n = max(sum(calls for _, _, calls in profiled(fn)[0]) for _ in range(3))
+    if not n:
+        raise AssertionError("the profiler recorded no kernel in three sessions")
+    return n
 
 
 def tc_bound(ops: float, nbytes: float):
@@ -272,12 +287,13 @@ def row_scales(row):
     return [row, one, one.expand(row.shape[0], 1)]
 
 
-def misaligned(t):
-    """``t`` copied into a contiguous view 4 bytes past a 16-byte boundary."""
+def misaligned(t, elems=1):
+    """``t`` copied into a contiguous view ``elems`` elements past a 16-byte
+    boundary (4 bytes for the int32 planes)."""
     import torch
 
-    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-    view = buf[1:1 + t.numel()].view(t.shape)
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[elems:elems + t.numel()].view(t.shape)
     view.copy_(t)
     return view
 
@@ -318,20 +334,46 @@ def diag_requests(dev):
     return requests, rng
 
 
-def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
-    """Times of the GeMM rows, popcount fused and int32 per mode and dense
-    per mode, through the public wrappers of the ``repro_torch`` on
-    ``sys.path`` (this checkout's or, with ``--src``, another's):
+def affine_requests(dev):
+    """One u8 and one u4 qmm request per GEMM_GRID diagonal shape: (mode,
+    x, packed weights), from numpy seed 1."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_cnn import GEMM_GRID
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.modes import QuantMode
 
-    * at the GEMM_GRID diagonal (``requests``, summed over the four
-      shapes): events ms, device ms (torch.profiler), host us per call
-      ((events - device) / calls), plain ms, bound, the bf16
-      ``torch.matmul`` on the same +-1/0 values (events and device ms)
-      and, fused, one ``qmm`` request (events);
-    * at the CNN's im2col GeMM shapes (``cnn_shapes``: (mode, m, n, k)):
-      events ms, device ms, bound and the bf16 ``torch.matmul``; with
-      ``check`` (a Checker) the outputs there are held against the plain
-      versions and dense against popcount.
+    rng = np.random.default_rng(1)
+    requests = []
+    for m, n, k in zip(GEMM_GRID["height"], GEMM_GRID["width"], GEMM_GRID["depth"]):
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dev)
+        for mode in ("int8", "int4"):
+            requests.append((mode, x, ops.pack_weights(w, QuantMode(mode))))
+    return requests
+
+
+def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
+    """Times of the GeMM rows — popcount fused and int32 per mode, dense
+    per mode, u8 and u4 — through the public wrappers of the
+    ``repro_torch`` on ``sys.path`` (this checkout's or, with ``--src``,
+    another's):
+
+    * at the GEMM_GRID diagonal (``requests``, and for u8/u4 the requests
+      of :func:`affine_requests`, summed over the four shapes): events ms,
+      device ms (torch.profiler), host us per call ((events - device) /
+      calls), plain ms, bound, the library call (events and device ms:
+      bf16 ``torch.matmul`` on the same +-1/0 values; for u8/u4 float64
+      ``torch.matmul`` on the same integers, exact) and, fused and u8/u4,
+      one ``qmm`` request (events);
+    * at the CNN's im2col GeMM shapes (``cnn_shapes``: (mode, m, n, k);
+      u8/u4 at all four, full-range operands from ``gen``): events ms,
+      device ms, bound and the library call; for u8/u4 also
+      ``torch._int_mm`` on signed int8 operands of the same shapes, B
+      stored k-contiguous (events and device ms: cuBLAS's int8 path at its
+      preferred layout, not the same function, so not the library time);
+      with ``check`` (a Checker) the outputs there are held
+      against the plain versions and dense against popcount.
 
     Every events time is taken before the first profiler session of the
     call, since a session leaves launches slower for the rest of the
@@ -339,7 +381,7 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
     every version of the wrappers takes; ``qmm`` passes what the entry
     point builds."""
     import torch
-    from repro_torch.kernels import dense_fused, ops
+    from repro_torch.kernels import dense_fused, int4_matmul, int8_matmul, ops
     from repro_torch.kernels.modes import QuantMode
 
     a_keys = {"tnn": ("plus", "minus"), "tbn": ("plus", "minus"), "bnn": ("bits",)}
@@ -359,11 +401,47 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
         cases.append({"mode": mode, "cnn": True, "k": k, "a": a_pl, "b": b_pl, "row": row,
                       "col": col})
     for c in cases:
-        c["av"] = dense_fused.unpack_values(c["a"], c["k"], c["mode"] != "bnn", torch.bfloat16)
-        c["bv"] = dense_fused.unpack_values(c["b"], c["k"], c["mode"] == "tnn",
-                                            torch.bfloat16).t()
+        av = dense_fused.unpack_values(c["a"], c["k"], c["mode"] != "bnn", torch.bfloat16)
+        bv = dense_fused.unpack_values(c["b"], c["k"], c["mode"] == "tnn", torch.bfloat16).t()
+        c["lib"] = lambda av=av, bv=bv: torch.matmul(av, bv)
+    # u8/u4: the operands qmm builds at the diagonal, full-range ones at the
+    # CNN shapes; the u4 operands nibble-packed along k
+    for tag, qmode in (("u8", QuantMode.INT8), ("u4", QuantMode.INT4)):
+        top = 256 if tag == "u8" else 16
+        grids = []
+        for mode, x, qt in affine_requests(dev):
+            if mode == qmode.value:
+                grids.append((False, x, qt, ops.quantize_activations(x, qmode)["q"].to(
+                    torch.uint8), qt.payload["q"].to(torch.uint8)))
+        for _, m, n, k in cnn_shapes:
+            grids.append((True, None, None,
+                          torch.randint(0, top, (m, k), generator=gen, device=dev,
+                                        dtype=torch.uint8),
+                          torch.randint(0, top, (k, n), generator=gen, device=dev,
+                                        dtype=torch.uint8)))
+        for cnn, x, qt, a8, b8 in grids:
+            (m, k), n = a8.shape, b8.shape[1]
+            ops_ = (int4_matmul.pack_nibbles_rows(a8), int4_matmul.pack_nibbles_cols(b8)) \
+                if tag == "u4" else (a8, b8)
+            ad, bd = a8.double(), b8.double()
+            c = {"mode": tag, "cnn": cnn, "x": x, "qt": qt, "k": k, "ops": ops_,
+                 "lib": lambda ad=ad, bd=bd: torch.matmul(ad, bd),
+                 "nbytes": ops_[0].numel() + ops_[1].numel() + 4 * m * n, "mnk": [m, n, k]}
+            if cnn:       # B stored k-contiguous, the layout cuBLAS's int8 path wants
+                ai = (a8 ^ 0x80).view(torch.int8)
+                bi = (b8 ^ 0x80).view(torch.int8).t().contiguous().t()
+                c["int_mm"] = lambda ai=ai, bi=bi: torch._int_mm(ai, bi)
+            cases.append(c)
 
     rows, jobs = [], []
+
+    def new_row(name, qmm):
+        return {"name": name, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
+                "qmm_ms": 0.0 if qmm else None, "cnn_ms": 0.0, "cnn_device_ms": 0.0,
+                "cnn_bound_ms": 0.0, "cnn_library_ms": 0.0, "cnn_library_device_ms": 0.0,
+                "shapes_mnk": [], "cnn_shapes_mnk": []}
+
     for mode in MODES:
         qm, fn = QuantMode(mode), gemm_fns(mode)
         for dense, fused in ((False, True), (False, False), (True, True)):
@@ -383,11 +461,7 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
 
                 def pfn(c, f=fn["_fused_torch" if fused else "_torch"], fused=fused):
                     return f(*c["a"], *c["b"], c["k"], *((c["row"], c["col"]) if fused else ()))
-            r = {"name": name, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                 "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
-                 "qmm_ms": 0.0 if fused else None, "cnn_ms": 0.0, "cnn_device_ms": 0.0,
-                 "cnn_bound_ms": 0.0, "cnn_library_ms": 0.0, "cnn_library_device_ms": 0.0,
-                 "shapes_mnk": [], "cnn_shapes_mnk": []}
+            r = new_row(name, fused)
             by = {"": set(), "cnn_": set()}
             for c in cases:
                 if c["mode"] != mode:
@@ -401,45 +475,79 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
                 r[pre + "bound_ms"] += b_ms
                 by[pre].add(b_by)
                 r[pre + "shapes_mnk"].append([m, n, c["k"]])
-                jobs.append((r, pre, c, kfn, pfn, dense, fused,
-                             "dense_gemm_kernel" if dense else "lowbit_gemm_kernel"))
+                qmm = None
+                if fused and not c["cnn"]:
+                    qmm = (lambda c=c, be="dense" if dense else "cuda":
+                           ops.qmm(c["x"], c["qt"], backend=be))
+                jobs.append({"r": r, "pre": pre, "c": c, "kfn": kfn, "pfn": pfn, "qmm": qmm,
+                             "dense": dense,
+                             "pattern": "dense_gemm_kernel" if dense else "lowbit_gemm_kernel"})
             r["bound_by"] = "operations" if "operations" in by[""] else "bytes"
             r["cnn_bound_by"] = "operations" if "operations" in by["cnn_"] else "bytes"
             rows.append(r)
+    for tag, kfn_, pfn_ in (("u8", int8_matmul.int8_matmul_cuda, int8_matmul.int8_matmul_torch),
+                            ("u4", int4_matmul.int4_matmul_cuda, int4_matmul.int4_matmul_torch)):
+        r = new_row(f"affine_gemm_{tag}", True)
+        r.update({"cnn_int_mm_ms": 0.0, "cnn_int_mm_device_ms": 0.0})
+        by = {"": set(), "cnn_": set()}
+        for c in cases:
+            if c["mode"] != tag:
+                continue
+            pre = "cnn_" if c["cnn"] else ""
+            m, n, k = c["mnk"]
+            b_ms, b_by = tc_bound(2 * m * n * k, c["nbytes"])
+            r[pre + "bound_ms"] += b_ms
+            by[pre].add(b_by)
+            r[pre + "shapes_mnk"].append([m, n, k])
+            jobs.append({"r": r, "pre": pre, "c": c,
+                         "kfn": lambda c, f=kfn_: f(*c["ops"]),
+                         "pfn": lambda c, f=pfn_: f(*c["ops"]),
+                         "qmm": None if c["cnn"] else
+                         (lambda c=c: ops.qmm(c["x"], c["qt"], backend="cuda")),
+                         "dense": False, "pattern": "affine_gemm_kernel"})
+        r["bound_by"] = "operations" if "operations" in by[""] else "bytes"
+        r["cnn_bound_by"] = "operations" if "operations" in by["cnn_"] else "bytes"
+        rows.append(r)
 
     def add(r, key, v):      # a sum stays None once a term is None
         r[key] = None if v is None or r[key] is None else r[key] + v
 
-    for r, pre, c, kfn, pfn, dense, fused, _ in jobs:          # events
+    for j in jobs:                                              # events
+        r, pre, c, kfn = j["r"], j["pre"], j["c"], j["kfn"]
         reps = 20 if c["cnn"] else 200
         add(r, pre + "ms", cuda_ms(lambda: kfn(c), reps=reps))
-        add(r, pre + "library_ms", cuda_ms(lambda: torch.matmul(c["av"], c["bv"]), reps=reps))
+        add(r, pre + "library_ms", cuda_ms(c["lib"], reps=reps))
         if not c["cnn"]:
-            add(r, "plain_ms", cuda_ms(lambda: pfn(c), reps=10))
-            if fused:
-                backend = "dense" if dense else "cuda"
-                add(r, "qmm_ms", cuda_ms(lambda: ops.qmm(c["x"], c["qt"], backend=backend),
-                                         reps=200))
-        elif check is not None:
-            got = kfn(c)
-            what = f"{r['name']} {tuple(c['a'][0].shape)} (CNN im2col, batch 256)"
-            check.equal(r["name"], got, pfn(c), what)
-            if dense and not torch.equal(got, gemm_fns(c["mode"])["_fused_cuda"](
-                    *c["a"], *c["b"], c["k"], c["row"], c["col"])):
-                raise AssertionError(f"{what}: dense != popcount kernel")
-    for r, pre, c, kfn, _, _, _, pattern in jobs:               # torch.profiler
-        add(r, pre + "device_ms", kernel_device_ms(lambda: kfn(c), pattern, reps=10))
-        add(r, pre + "library_device_ms",
-            kernel_device_ms(lambda: torch.matmul(c["av"], c["bv"]), "", reps=10))
+            add(r, "plain_ms", cuda_ms(lambda: j["pfn"](c), reps=10))
+            if j["qmm"] is not None:
+                add(r, "qmm_ms", cuda_ms(j["qmm"], reps=200))
+        else:
+            if "int_mm" in c:
+                add(r, "cnn_int_mm_ms", cuda_ms(c["int_mm"], reps=reps))
+            if check is not None:
+                got = kfn(c)
+                what = f"{r['name']} {c.get('mnk') or tuple(c['a'][0].shape)} (CNN im2col, " \
+                       f"batch 256)"
+                check.equal(r["name"], got, j["pfn"](c), what)
+                if j["dense"] and not torch.equal(got, gemm_fns(c["mode"])["_fused_cuda"](
+                        *c["a"], *c["b"], c["k"], c["row"], c["col"])):
+                    raise AssertionError(f"{what}: dense != popcount kernel")
+    for j in jobs:                                              # torch.profiler
+        r, pre, c, kfn = j["r"], j["pre"], j["c"], j["kfn"]
+        add(r, pre + "device_ms", kernel_device_ms(lambda: kfn(c), j["pattern"], reps=10))
+        add(r, pre + "library_device_ms", kernel_device_ms(c["lib"], "", reps=10))
+        if "int_mm" in c:
+            add(r, "cnn_int_mm_device_ms", kernel_device_ms(c["int_mm"], "", reps=10))
 
     def ratio(a, b):
-        return None if a is None or b is None else a / b
+        return None if a is None or not b else a / b
 
     for r in rows:
         r["host_us_per_call"] = None if r["device_ms"] is None else \
             (r["ms"] - r["device_ms"]) / len(r["shapes_mnk"]) * 1e3
         r["ratio_lib_events"] = ratio(r["ms"], r["library_ms"])
         r["ratio_lib_device"] = ratio(r["device_ms"], r["library_device_ms"])
+        r["cnn_ratio_bound_device"] = ratio(r["cnn_device_ms"], r["cnn_bound_ms"])
     return rows
 
 
@@ -532,7 +640,7 @@ def main(argv=None) -> int:
         from repro_torch.core import conv as tconv
         from repro_torch.kernels import (_build, conv_fused, dense_fused, int4_matmul,
                                          int8_matmul, ops)
-        from repro_torch.kernels._matmul_common import DENSE_TILES, gemm_tile
+        from repro_torch.kernels._matmul_common import AFFINE_TILES, DENSE_TILES, gemm_tile
         from repro_torch.kernels.modes import QuantMode
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script ({e})",
@@ -662,21 +770,27 @@ def main(argv=None) -> int:
                             what)
                 if not torch.equal(got, ops.qconv(x, qt, stride=stride, padding=padding)):
                     raise AssertionError(f"{what}: dense != popcount conv kernel")
-    affine_shapes = grid + [(37, 21, 131), (1, 1, 1)]
-    for m, n, k in affine_shapes:
+    affine_shapes = grid + AFFINE_EXTRA + im2col
+    affine_tiles = sorted({gemm_tile(m, n, sms, AFFINE_TILES) for m, n, _ in affine_shapes})
+    (mm, nn, kk), offsets = AFFINE_MISALIGNED
+    for (m, n, k), off in [(s_, 0) for s_ in affine_shapes] + [((mm, nn, kk), o) for o in offsets]:
         a8 = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         b8 = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
-        check.equal("affine_gemm_u8", int8_matmul.int8_matmul_cuda(a8, b8),
-                    int8_matmul.int8_matmul_torch(a8, b8), f"u8 {m}x{n}x{k}")
         pa = int4_matmul.pack_nibbles_rows(a8 >> 4)
         pb = int4_matmul.pack_nibbles_cols(b8 & 0xF)
-        check.equal("affine_gemm_u4", int4_matmul.int4_matmul_cuda(pa, pb),
-                    int4_matmul.int4_matmul_torch(pa, pb), f"u4 {m}x{n}x{k}")
+        want8 = int8_matmul.int8_matmul_torch(a8, b8)
+        want4 = int4_matmul.int4_matmul_torch(pa, pb)
+        if off:
+            a8, b8, pa, pb = (misaligned(t, off) for t in (a8, b8, pa, pb))
+        what = f"{m}x{n}x{k}" + (f", operands {off} bytes past 16" if off else "")
+        check.equal("affine_gemm_u8", int8_matmul.int8_matmul_cuda(a8, b8), want8, f"u8 {what}")
+        check.equal("affine_gemm_u4", int4_matmul.int4_matmul_cuda(pa, pb), want4, f"u4 {what}")
     torch.cuda.synchronize()
     log(f"[dense] gemm {len(shapes)} shapes (x row scale (m, 1) / one value) and planes at a "
         f"4-byte offset, conv {len(geoms)} geometries, x 3 modes x (no bias, bias): kernel "
         f"== plain == popcount kernel; [affine] u8 and u4 at "
-        f"{len(affine_shapes)} shapes, full-range operands: kernel == plain "
+        f"{len(affine_shapes)} shapes (tiles {affine_tiles}) and operands {offsets} bytes "
+        f"past a 16-byte boundary, full-range operands: kernel == plain "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 5. the main path --------------------------------------------------
@@ -1016,39 +1130,9 @@ def main(argv=None) -> int:
                                 ("conv_pack_kernel", "dense_conv_kernel"), True,
                                 launches2.get(f"dense_conv_{mode}", 0)))
 
-    for tag, qmode in (("u8", QuantMode.INT8), ("u4", QuantMode.INT4)):
-        ms = plain_ms = lib_ms = bound_ms = device_ms = 0.0
-        by, shp = set(), []
-        for rmode, _, x, qt in requests2:
-            if rmode != qmode.value:
-                continue
-            m, k = x.shape
-            n = qt.out_features
-            a8 = ops.quantize_activations(x, qmode)["q"].to(torch.uint8)
-            b8 = qt.payload["q"].to(torch.uint8)
-            if tag == "u4":
-                ops_ = (int4_matmul.pack_nibbles_rows(a8), int4_matmul.pack_nibbles_cols(b8))
-                kfn, pfn = int4_matmul.int4_matmul_cuda, int4_matmul.int4_matmul_torch
-            else:
-                ops_ = (a8, b8)
-                kfn, pfn = int8_matmul.int8_matmul_cuda, int8_matmul.int8_matmul_torch
-            ms += cuda_ms(lambda: kfn(*ops_), reps=200)
-            device_ms += kernel_device_ms(lambda: kfn(*ops_), "affine_gemm_kernel") or 0.0
-            plain_ms += cuda_ms(lambda: pfn(*ops_), reps=20)
-            ad, bd = a8.double(), b8.double()
-            lib_ms += cuda_ms(lambda: torch.matmul(ad, bd), reps=200)
-            nbytes = ops_[0].numel() + ops_[1].numel() + 4 * m * n
-            b_ms, b_by = tc_bound(2 * m * n * k, nbytes)
-            bound_ms += b_ms
-            by.add(b_by)
-            shp.append([m, n, k])
-        name = f"affine_gemm_{tag}"
-        kernels.append({
-            "name": name, "route": "cuda", "source": AFFINE_SOURCE,
-            "replaces": AFFINE_REPLACES[tag], "launches": launches2.get(name, 0),
-            "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if "operations" in by else "bytes",
-            "library_ms": lib_ms, "device_ms": device_ms or None, "shapes_mnk": shp})
+    for tag in ("u8", "u4"):
+        kernels.append(gemm_kernel(f"affine_gemm_{tag}", AFFINE_SOURCE, AFFINE_REPLACES[tag],
+                                   launches2.get(f"affine_gemm_{tag}", 0)))
 
     log(f"[times] per kernel: ms = sum over the main path's calls of that kernel "
         f"(GeMM, dense GeMM, u8/u4: one request per GEMM_GRID diagonal shape; pack, conv, "

@@ -85,8 +85,8 @@ _SIGNATURES = {
         # words, scale, col, bias, out, stream
         "dense_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]},
-    # u4, a, b, m, n, k, out, stream
-    "affine_gemm": {"affine_gemm_launch": [_I, _P, _P, _I, _I, _I, _P, _P]},
+    # u4, a, b, m, n, k, tile, out, stream
+    "affine_gemm": {"affine_gemm_launch": [_I, _P, _P, _I, _I, _I, _I, _P, _P]},
 }
 
 _LIBRARY_OF = {entry: name for name, entries in _SIGNATURES.items()

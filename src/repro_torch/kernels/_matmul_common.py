@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.modes import QuantMode
 
-__all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES",
+__all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_TILES",
            "gemm_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
            "scale_epilogue", "on_cuda", "gemm_dims", "row_stride",
            "check_f32_vec", "check_row_scale", "sm_count",
@@ -53,11 +53,13 @@ DEFAULT_TILES: Dict[str, TileConfig] = {
 
 # Square CTA tiles compiled into the GeMM kernels, largest first: the
 # popcount GeMM (csrc/lowbit_gemm.cu; 256 threads, 4x4, 2x2 or 1x1
-# outputs each) and the dense GeMM (csrc/dense_tc.cu; 4 warps of 2x2 or
-# 1x1 wmma fragments).  The reference's 128x128x256-word tiles are VMEM
-# choices and do not carry over.
+# outputs each), the dense GeMM (csrc/dense_tc.cu) and the u8/u4 GeMM
+# (csrc/affine_gemm.cu; both 4 warps of 2x2 or 1x1 wmma fragments).  The
+# reference's 128x128x256-word tiles are VMEM choices and do not carry
+# over.
 GEMM_TILES = (64, 32, 16)
 DENSE_TILES = (64, 32)
+AFFINE_TILES = (64, 32)
 
 
 def gemm_tile(m: int, n: int, sms: int, tiles=GEMM_TILES) -> int:

@@ -1,5 +1,5 @@
-// Tensor-core tile shared by the Hopper dense and affine kernels
-// (dense_tc.cu, affine_gemm.cu): 8-bit operands staged in shared memory
+// Tensor-core tile of the Hopper dense kernels (dense_tc.cu): 8-bit
+// operands staged in shared memory
 // (bit planes decoded four values per lane op, decode_word),
 // nvcuda::wmma 16x16x16 products with int32 accumulators, and the
 // accumulator tile written back through shared memory.

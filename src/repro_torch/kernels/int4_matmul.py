@@ -8,9 +8,10 @@ in the low nibble, 2t+1 in the high nibble; A packs along its k axis
 (axis 1), B along its k axis (axis 0); an odd k pads a 0 on both sides,
 which adds nothing to the product.
 
-The kernel unpacks the nibbles to u8 while staging its tiles and runs the
-u8 tensor-core loop; the plain version unpacks with shifts and masks and
-takes the exact float64 product of ``int8_matmul.exact_int_matmul``.
+The kernel reads each packed byte once and splits the nibbles in
+registers (B while staging it, A as it feeds the u8 tensor-core
+products); the plain version unpacks with shifts and masks and takes the
+exact float64 product of ``int8_matmul.exact_int_matmul``.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._matmul_common import on_cuda
+from repro_torch.kernels._matmul_common import AFFINE_TILES, gemm_tile, on_cuda, sm_count
 
 __all__ = ["int8_matmul_cuda", "int8_matmul_torch", "exact_int_matmul",
            "affine_gemm_call"]
@@ -47,8 +47,11 @@ _KEYS = {False: "affine_gemm_u8", True: "affine_gemm_u4"}
 def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
                      k: int) -> torch.Tensor:
     """Launch ``csrc/affine_gemm.cu`` on CUDA uint8 operands: u8 a (m, k),
-    b (k, n), or nibble-packed a (m, k/2), b (k/2, n) with ``k`` even.
-    Raises on anything the kernel does not take; never falls back."""
+    b (k, n), or nibble-packed a (m, k/2), b (k/2, n) with ``k`` even, in
+    the CTA tile :func:`gemm_tile` plans over ``AFFINE_TILES`` (the
+    launcher picks the widest copy the operands' addresses and row strides
+    allow).  Raises on anything the kernel does not take; never falls
+    back."""
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.uint8 or t.ndim != 2 or not t.is_contiguous():
             raise TypeError(f"{name}: expected a contiguous 2-D torch.uint8 "
@@ -66,7 +69,8 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
     _build.launch("affine_gemm_launch", _KEYS[u4], device, int(u4),
-                  a.data_ptr(), b.data_ptr(), m, n, k, out.data_ptr())
+                  a.data_ptr(), b.data_ptr(), m, n, k,
+                  gemm_tile(m, n, sm_count(device), AFFINE_TILES), out.data_ptr())
     return out
 
 

@@ -21,7 +21,11 @@ on the CPU.
   (atol 1e-6 of the largest output: float32 dots sum in another order);
   bf16 within the float32 summation bound ``k * 2**-24 * (|x| @ |w|)`` of
   the bf16-rounded operands, whose products are exact in float32;
-* ``interop`` round trips of INT8/INT4/F32/BF16 QTensors.
+* ``interop`` round trips of INT8/INT4/F32/BF16 QTensors;
+* the kernel's launch plan: the CTA tile (32 at the GEMM_GRID diagonal,
+  64 at the CNN's im2col GeMMs at batch 256 on 132 SMs; the largest tile
+  whose grid covers every SM; 64 on one SM) and the operand checks of
+  ``affine_gemm_call``.
 """
 
 import jax.numpy as jnp
@@ -50,7 +54,10 @@ def _qtensor(jqt):
         zero=None if jqt.zero is None else np.asarray(jqt.zero), device="cpu")
 
 
-@pytest.mark.parametrize("shape", [(13, 9, 70), (40, 33, 256)])
+# ragged shapes beside the two first: k % 16 != 0, n % 4 != 0 with
+# n % 16 != 0, m below a 32 tile
+@pytest.mark.parametrize("shape", [(13, 9, 70), (40, 33, 256), (20, 16, 200), (9, 30, 48),
+                                   (3, 7, 33)])
 def test_int8_plain_matches_pallas(shape):
     m, n, k = shape
     rng = np.random.default_rng(k)
@@ -67,7 +74,9 @@ def test_int8_plain_matches_pallas(shape):
     assert _build.launches() == {}
 
 
-@pytest.mark.parametrize("shape", [(13, 9, 71), (8, 20, 64)])
+# odd logical depths (71, 77, 33: a zero nibble pads both sides), n % 4 != 0,
+# m below a 32 tile
+@pytest.mark.parametrize("shape", [(13, 9, 71), (8, 20, 64), (20, 30, 77), (3, 7, 33)])
 def test_int4_plain_and_packers_match_jax(shape):
     m, n, k = shape
     rng = np.random.default_rng(k)
@@ -214,3 +223,39 @@ def test_interop_round_trip_affine_and_float(mode):
     np.testing.assert_array_equal(interop.qtensor_to_numpy(again)["payload"]["q" if mode
                                   in ("int8", "int4") else "w"],
                                   back["payload"]["q" if mode in ("int8", "int4") else "w"])
+
+
+GEMM_GRID_DIAGONAL = [(72, 24), (120, 48), (240, 72), (360, 96)]
+CNN_IM2COL_BATCH256 = [(262144, 64), (65536, 128), (16384, 256)]
+
+
+@pytest.mark.parametrize("mn", GEMM_GRID_DIAGONAL + CNN_IM2COL_BATCH256)
+def test_affine_tile_plan(mn):
+    from repro_torch.kernels._matmul_common import AFFINE_TILES, gemm_tile
+
+    m, n = mn
+    tile = gemm_tile(m, n, 132, AFFINE_TILES)
+    # the diagonal's 64x64 grids have 2-12 blocks for 132 SMs, its 32x32
+    # grids 3-36: the smaller tile; the CNN's im2col GeMMs fill the card
+    # with the larger
+    assert tile == (32 if mn in GEMM_GRID_DIAGONAL else 64)
+    covers = [t for t in AFFINE_TILES if -(-m // t) * -(-n // t) >= 132]
+    assert tile == (covers[0] if covers else AFFINE_TILES[-1])
+    assert gemm_tile(m, n, 1, AFFINE_TILES) == 64
+
+
+def test_affine_call_raises_on_bad_operands():
+    a = torch.zeros((4, 8), dtype=torch.uint8)
+    b = torch.zeros((8, 3), dtype=torch.uint8)
+    call = int8_matmul.affine_gemm_call
+    with pytest.raises(TypeError, match="uint8"):
+        call(False, a.to(torch.int8), b, 8)
+    with pytest.raises(TypeError, match="contiguous"):
+        call(False, a, b.t().contiguous().t(), 8)
+    with pytest.raises(TypeError, match="2-D"):
+        call(False, a.reshape(-1), b, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(False, a, b, 8)
+    _build.reset_launches()
+    assert torch.equal(int4_matmul.int4_matmul_cuda(a, b), int4_matmul.int4_matmul_torch(a, b))
+    assert _build.launches() == {}

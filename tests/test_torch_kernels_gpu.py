@@ -275,17 +275,42 @@ def test_dense_conv_kernel_matches_plain(cuda_device, mode, case):
                                           backend="cuda"))
 
 
-@pytest.mark.parametrize("shape", [(72, 24, 128), (360, 96, 512), (37, 21, 131),
-                                   (300, 200, 1000)])
+# (m, n, k) of the u8/u4 cases: the GEMM_GRID corners; k % 16 != 0 (A runs
+# that cross the depth's end); n % 4 != 0 (B and the output byte by byte at
+# the column edge) with n % 16 != 0; m below a tile; odd logical u4 depths
+# (131, 77: a zero nibble pads both sides); the CNN's first im2col GeMM at
+# batch 8; on a 132-SM card, tile 64 for the last three and tile 32 for
+# every other case; more row blocks than the card holds CTAs, so a CTA
+# walks several (60000 x 32), and a depth past the B chunk a CTA holds
+# (1200 > 1152: B staged chunk by chunk for each row block).
+AFFINE_CASES = [(72, 24, 128), (360, 96, 512), (37, 21, 131), (300, 200, 1000),
+                (100, 64, 200), (90, 30, 256), (5, 70, 64), (33, 40, 77),
+                (8192, 64, 288), (2100, 300, 96), (60000, 32, 288), (20000, 64, 1200)]
+
+
+def _affine_operands(device, m, n, k, seed):
+    from repro_torch.kernels import int4_matmul
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    a8 = torch.randint(0, 256, (m, k), generator=g, device=device, dtype=torch.uint8)
+    b8 = torch.randint(0, 256, (k, n), generator=g, device=device, dtype=torch.uint8)
+    return a8, b8, int4_matmul.pack_nibbles_rows(a8 >> 4), int4_matmul.pack_nibbles_cols(b8 & 0xF)
+
+
+def test_affine_cases_cover_every_tile(cuda_device):
+    from repro_torch.kernels._matmul_common import AFFINE_TILES, gemm_tile, sm_count
+
+    sms = sm_count(cuda_device.index or 0)
+    assert {gemm_tile(m, n, sms, AFFINE_TILES) for m, n, _ in AFFINE_CASES} == \
+        set(AFFINE_TILES)
+
+
+@pytest.mark.parametrize("shape", AFFINE_CASES)
 def test_affine_kernels_match_plain(cuda_device, shape):
     from repro_torch.kernels import int4_matmul, int8_matmul
 
     m, n, k = shape
-    g = torch.Generator(device=cuda_device).manual_seed(k)
-    a8 = torch.randint(0, 256, (m, k), generator=g, device=cuda_device, dtype=torch.uint8)
-    b8 = torch.randint(0, 256, (k, n), generator=g, device=cuda_device, dtype=torch.uint8)
-    a4, b4 = a8 & 0xF, b8 & 0xF
-    pa, pb = int4_matmul.pack_nibbles_rows(a4), int4_matmul.pack_nibbles_cols(b4)
+    a8, b8, pa, pb = _affine_operands(cuda_device, m, n, k, k)
     _build.reset_launches()
     assert torch.equal(int8_matmul.int8_matmul_cuda(a8, b8),
                        int8_matmul.int8_matmul_torch(a8, b8))
@@ -294,6 +319,49 @@ def test_affine_kernels_match_plain(cuda_device, shape):
     assert _build.launches() == {"affine_gemm_u8": 1, "affine_gemm_u4": 1}
     with pytest.raises(TypeError, match="uint8"):
         int8_matmul.int8_matmul_cuda(a8.to(torch.int32), b8)
+
+
+def test_affine_kernels_in_any_depth_order(cuda_device):
+    """The kernel's shared memory grows with the depth of B it holds (up to
+    1152): a shallower launch between two deep ones leaves the deep one
+    launchable (tile 64 for 3000 x 300 on a 132-SM card: ~104 KB, then
+    ~72 KB, then ~104 KB again)."""
+    from repro_torch.kernels import int4_matmul, int8_matmul
+
+    for k in (1152, 640, 1152, 256, 1200):
+        a8, b8, pa, pb = _affine_operands(cuda_device, 3000, 300, k, k + 1)
+        assert torch.equal(int8_matmul.int8_matmul_cuda(a8, b8),
+                           int8_matmul.int8_matmul_torch(a8, b8))
+        assert torch.equal(int4_matmul.int4_matmul_cuda(pa, pb),
+                           int4_matmul.int4_matmul_torch(pa, pb))
+
+
+def _offset(t, nbytes):
+    """``t`` (uint8) copied into a contiguous view ``nbytes`` past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[nbytes:nbytes + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("nbytes", [1, 4, 8])
+def test_affine_kernels_take_misaligned_operands(cuda_device, nbytes):
+    """Operands 1, 4 or 8 bytes past a 16-byte boundary (row strides of 16
+    bytes and more): the launcher takes the 1-, 4- or 8-byte copy of A (and
+    byte loads of B where a 4-byte word does not fit), and the result is
+    still the plain version's."""
+    from repro_torch.kernels import int4_matmul, int8_matmul
+
+    a8, b8, pa, pb = _affine_operands(cuda_device, 130, 72, 256, nbytes)
+    want8 = int8_matmul.int8_matmul_torch(a8, b8)
+    want4 = int4_matmul.int4_matmul_torch(pa, pb)
+    a8, b8, pa, pb = (_offset(t, nbytes) for t in (a8, b8, pa, pb))
+    assert a8.data_ptr() % 16 == nbytes
+    _build.reset_launches()
+    assert torch.equal(int8_matmul.int8_matmul_cuda(a8, b8), want8)
+    assert torch.equal(int4_matmul.int4_matmul_cuda(pa, pb), want4)
+    assert _build.launches() == {"affine_gemm_u8": 1, "affine_gemm_u4": 1}
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4", "f32", "bf16"])
