@@ -82,7 +82,33 @@ without printing a result:
    request's time, and the same times at the CNN's im2col GeMM shapes at
    batch 256, whose outputs are held against the plain versions and
    dense against popcount (u8/u4 also beside ``torch._int_mm``);
-7. the last line: ``{"ok": true, "device": {...}}``.
+7. the LM path (7a-7c run after phase 5b's timed CNN batches, before
+   any profiler session; 7d after phase 6), counters zeroed just before
+   each run and read just after:
+   7a. TinyLlama-1.1B at its published width and depth (22 layers,
+       d_model 2048, 32 heads / 4 KV heads, d_ff 5632, vocab 32000,
+       bf16), random weights from a generator on the card, packed with
+       ``pack_lm_params`` under ``tnn``: prefill 4 prompts of 128 tokens,
+       16 greedy decode steps; exactly 7 x 22 fused TNN GeMM launches per
+       forward and nothing else; finite logits; every logits tensor and
+       the tokens ``torch.equal`` to the same run on ``backend="torch"``
+       (the plain versions, no cut) and to the QAT run (master weights
+       through ``quantized_matmul``); prefill tokens/s and decode
+       ms/token for ``tnn`` packed and ``bf16`` (host clock around
+       synchronized work, after a warm-up), packed projection bytes;
+   7b. the same model at full width and 2 layers under ``bnn``,
+       ``tnn_dense`` and ``int8``, 2 decode steps each: each launches its
+       GeMM kernel (``lowbit_gemm`` BNN, ``dense_gemm_kernel``,
+       ``affine_gemm`` u8) 7 x 2 times per forward and equals its plain
+       run;
+   7c. ``QuantLinear(2048, 5632, TNN)`` on the card: forward ==
+       ``qmm(x, pack(w))``; ``gx`` and ``gw`` within the float32
+       summation bound of the float64 STE formula, ``gx`` zero where
+       ``|x| > 1``;
+   7d. torch.profiler over one prefill and one decode step of the tnn
+       model: device kernel time, kernels launched, busy share against
+       the unprofiled host times of 7a;
+8. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -147,6 +173,15 @@ MISALIGNED = (100, 70, 512)   # (m, n, k): kw % 4 == 0, planes 4 bytes off 16
 AFFINE_EXTRA = [(37, 21, 131), (1, 1, 1), (100, 64, 200), (90, 30, 256), (5, 70, 64),
                 (33, 40, 77), (2100, 300, 96), (60000, 32, 288), (20000, 64, 1200)]
 AFFINE_MISALIGNED = ((130, 72, 256), (1, 4, 8))     # (m, n, k), byte offsets
+# Phase 7, the LM path: TinyLlama-1.1B at its published width and depth,
+# 4 prompts of 128 tokens, 16 greedy decode steps; the other policies at
+# full width and LM_CUT_LAYERS layers, LM_CUT_STEPS steps each.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "tinyllama-1.1b", 4, 128, 16
+LM_CUT_LAYERS, LM_CUT_STEPS = 2, 2
+# policy -> the GeMM kernel its projections launch
+LM_POLICY_KERNELS = {"tnn": "lowbit_gemm_tnn_fused", "bnn": "lowbit_gemm_bnn_fused",
+                     "tnn_dense": "dense_gemm_tnn", "int8": "affine_gemm_u8"}
+PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def log(msg: str) -> None:
@@ -564,6 +599,255 @@ def cnn_gemm_shapes(cfg, batch):
     return shapes
 
 
+def lm_generate(torch, params, cfg, prompt, steps, time_it=False):
+    """Greedy generation through the port's entry points: ``prefill`` on
+    ``prompt`` (B, P) tokens, then ``steps`` ``decode_step`` calls, each
+    fed the previous step's argmax.  Returns (the logits of every call,
+    the generated tokens (B, steps + 1), prefill s, decode s); the times
+    are on the host clock around synchronized work when ``time_it``."""
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.kvcache import init_caches
+
+    lay = ShardLayout()
+    b, p = prompt.shape
+    caches = init_caches(cfg, lay, b, p + steps, device=prompt.device)
+    if time_it:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": prompt}, caches, cfg, lay)
+    if time_it:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, toks = [logits], [logits[:, -1].argmax(-1, keepdim=True)]
+    for t in range(steps):
+        logits, caches = model.decode_step(params, {"tokens": toks[-1]}, caches, p + t,
+                                           cfg, lay)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    if time_it:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, torch.cat(toks, dim=1), t1 - t0, t2 - t1
+
+
+def lm_equal(torch, got, want, what):
+    """Every logits tensor and the tokens of two lm_generate runs equal."""
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        if not torch.equal(a, b):
+            err = (a.double() - b.double()).abs().max().item()
+            raise AssertionError(f"{what}: logits of call {i} differ (max abs err {err})")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{what}: generated tokens differ")
+
+
+def projection_bytes(tree):
+    """Bytes of the projection leaves of an LM tree: master weights or
+    packed QTensors (payload + scales)."""
+    from repro_torch.kernels.qtensor import QTensor
+
+    total = 0
+    for blk in tree["blocks"]:
+        for grp in ("mixer", "ffn"):
+            for name in PROJECTIONS:
+                leaf = blk[grp].get(name)
+                if leaf is not None:
+                    total += leaf.nbytes() if isinstance(leaf, QTensor) else \
+                        leaf["w"].numel() * leaf["w"].element_size()
+    return total
+
+
+def lm_bounds(cfg, batch, prompt, packed_bytes):
+    """Least times of the LM path, from shapes: a decode step moves at
+    least the packed projections, the bf16 LM head and the bf16 KV cache
+    at its longest (bytes at 3.35 TB/s); the prefill's popcount GeMMs do
+    at least m * n * words * POPC per output word (16 per clock per SM,
+    132 SMs, 1980 MHz).  Returns (decode ms, prefill GeMM ms)."""
+    d, dh = cfg.d_model, cfg.head_dim_
+    kv_bytes = 2 * cfg.num_layers * batch * (prompt + LM_STEPS) * cfg.num_kv_heads * dh * 2
+    decode_s = (packed_bytes + d * cfg.vocab_size * 2 + kv_bytes) / HBM_BYTES_PER_S
+    m, hd, kvd = batch * prompt, cfg.num_heads * dh, cfg.num_kv_heads * dh
+    shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd), (cfg.d_ff, d), (cfg.d_ff, d),
+              (d, cfg.d_ff)]                                     # (n, k) per projection
+    popc = cfg.num_layers * sum(m * n * -(-k // 32) * NPOPC["tnn"] for n, k in shapes)
+    return decode_s * 1e3, popc / (SMS * POPC_PER_CLK_PER_SM * 1980e6) * 1e3
+
+
+def lm_phase(torch, dev):
+    """Phase 7a-7c (see the module docstring); nothing here runs under
+    torch.profiler.  Returns (the report, {kernel: launches on the LM
+    path}, what phase 7d profiles)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantLinear
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.modes import QuantMode
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.packing import pack_lm_params
+
+    t_phase = time.perf_counter()
+    lay = ShardLayout()
+    report, lm_launches = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    # -- 7a. TinyLlama-1.1B, full width and depth, tnn packed ---------------
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    t0 = time.perf_counter()
+    master = model.init_lm(gen, cfg, lay, dtype=cfg.dtype, device=dev)
+    packed = pack_lm_params(master, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev)
+    bf16_cfg = cfg.with_(quant_policy="bf16")
+    with torch.no_grad():
+        lm_generate(torch, packed, cfg, prompt[:, :8], 2)           # warm-up
+        lm_generate(torch, master, bf16_cfg, prompt[:, :8], 2)
+        _build.reset_launches()
+        run = lm_generate(torch, packed, cfg, prompt, LM_STEPS, time_it=True)
+        launches = _build.launches()
+        forwards = 1 + LM_STEPS
+        want = {LM_POLICY_KERNELS["tnn"]: len(PROJECTIONS) * cfg.num_layers * forwards}
+        if launches != want:
+            raise AssertionError(f"LM path launches {launches}, expected {want} "
+                                 f"({len(PROJECTIONS)} x {cfg.num_layers} per forward)")
+        lm_launches.update(launches)
+        vp = lay.pad_vocab(cfg.vocab_size)
+        if run[0][0].shape != (LM_BATCH, 1, vp) or not all(
+                torch.isfinite(lg).all() for lg in run[0]):
+            raise AssertionError("LM logits of the wrong shape or not finite")
+        bf16 = lm_generate(torch, master, bf16_cfg, prompt, LM_STEPS, time_it=True)
+        for lg in bf16[0]:
+            if not torch.isfinite(lg).all():
+                raise AssertionError("bf16 LM logits not finite")
+        t0 = time.perf_counter()
+        lm_equal(torch, lm_generate(torch, packed, cfg.with_(quant_backend="torch"), prompt,
+                                    LM_STEPS), run, "tnn packed: kernels vs plain")
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm_equal(torch, lm_generate(torch, master, cfg, prompt, LM_STEPS), run,
+                 "tnn: packed vs QAT (master weights, quantized_matmul)")
+        qat_s = time.perf_counter() - t0
+    toks = LM_BATCH * LM_PROMPT
+    report["7a"] = {
+        "config": {"arch": LM_ARCH, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+                   "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "dtype": str(cfg.dtype),
+                   "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_STEPS,
+                   "weights": "random, torch.Generator seed 7 on the card"},
+        "init_and_pack_s": init_s,
+        "launches": launches,
+        "tnn_prefill_tokens_per_s": toks / run[2], "tnn_prefill_ms": run[2] * 1e3,
+        "tnn_decode_ms_per_token": run[3] * 1e3 / LM_STEPS,
+        "bf16_prefill_tokens_per_s": toks / bf16[2], "bf16_prefill_ms": bf16[2] * 1e3,
+        "bf16_decode_ms_per_token": bf16[3] * 1e3 / LM_STEPS,
+        "plain_run": {"cut": "none: full depth, the same prompts and steps", "s": plain_s},
+        "qat_run_s": qat_s,
+        "kernel_equals_plain": True, "packed_equals_qat": True,
+        "projection_bytes": {"tnn_packed": projection_bytes(packed),
+                             "bf16": projection_bytes(master)},
+    }
+    pb = report["7a"]["projection_bytes"]
+    pb["ratio_bf16_over_packed"] = pb["bf16"] / pb["tnn_packed"]
+    report["7a"]["tnn_decode_bound_ms"], report["7a"]["tnn_prefill_gemm_bound_ms"] = \
+        lm_bounds(cfg, LM_BATCH, LM_PROMPT, pb["tnn_packed"])
+    report["7a"]["bf16_decode_bound_ms"] = lm_bounds(cfg, LM_BATCH, LM_PROMPT, pb["bf16"])[0]
+    log("[lm 7a] " + json.dumps(report["7a"]))
+
+    # -- 7b. bnn, tnn_dense, int8 at full width, cut depth ------------------
+    report["7b"] = {}
+    for policy in ("bnn", "tnn_dense", "int8"):
+        pcfg = get_config(LM_ARCH, quant_policy=policy, num_layers=LM_CUT_LAYERS)
+        p_master = model.init_lm(gen, pcfg, lay, dtype=pcfg.dtype, device=dev)
+        p_packed = pack_lm_params(p_master, pcfg)
+        with torch.no_grad():
+            _build.reset_launches()
+            got = lm_generate(torch, p_packed, pcfg, prompt, LM_CUT_STEPS, time_it=True)
+            launches = _build.launches()
+            key = LM_POLICY_KERNELS[policy]
+            want = {key: len(PROJECTIONS) * LM_CUT_LAYERS * (1 + LM_CUT_STEPS)}
+            if launches != want:
+                raise AssertionError(f"{policy}: launches {launches}, expected {want}")
+            lm_launches[key] = lm_launches.get(key, 0) + launches[key]
+            for lg in got[0]:
+                if not torch.isfinite(lg).all():
+                    raise AssertionError(f"{policy}: logits not finite")
+            lm_equal(torch, got, lm_generate(torch, p_packed,
+                                             pcfg.with_(quant_backend="torch"), prompt,
+                                             LM_CUT_STEPS), f"{policy}: kernels vs plain")
+        report["7b"][policy] = {"num_layers": LM_CUT_LAYERS, "decode_steps": LM_CUT_STEPS,
+                                "launches": launches, "kernel_equals_plain": True,
+                                "prefill_ms": got[2] * 1e3,
+                                "decode_ms_per_token": got[3] * 1e3 / LM_CUT_STEPS}
+        del p_master, p_packed
+    log("[lm 7b] " + json.dumps(report["7b"]))
+
+    # -- 7c. QuantLinear(2048, 5632, TNN) forward and backward --------------
+    layer = QuantLinear(cfg.d_model, cfg.d_ff, mode=QuantMode.TNN)
+    params = layer.init(gen, device=dev)
+    x = (torch.randn((LM_PROMPT, cfg.d_model), generator=gen, device=dev) * 1.2)
+    x.requires_grad_(True)
+    w = params["w"].requires_grad_(True)
+    y = layer.apply({"w": w}, x)
+    if not torch.equal(y, ops.qmm(x.detach(), layer.pack(params))):
+        raise AssertionError("QuantLinear forward != qmm(x, pack(w))")
+    c = torch.randn(y.shape, generator=gen, device=dev)
+    (y * c).sum().backward()
+    xd, wd, cd = x.detach().double(), w.detach().double(), c.double()
+    mask = xd.abs() <= 1
+    gx_ref, gw_ref = (cd @ wd.t()) * mask, xd.t() @ cd
+    # float32 summation bound: depth * 2**-24 * (|a| @ |b|)
+    gx_bound = cfg.d_ff * 2.0 ** -24 * (cd.abs() @ wd.abs().t()) * mask
+    gw_bound = LM_PROMPT * 2.0 ** -24 * (xd.abs().t() @ cd.abs())
+    gx_err = (x.grad.double() - gx_ref).abs()
+    gw_err = (w.grad.double() - gw_ref).abs()
+    if (gx_err > gx_bound).any() or (gw_err > gw_bound).any():
+        raise AssertionError(f"QuantLinear gradients past the float32 summation bound "
+                             f"(max err gx {gx_err.max().item()}, gw {gw_err.max().item()})")
+    if (x.grad[~mask] != 0).any():
+        raise AssertionError("QuantLinear gx not masked where |x| > 1")
+    report["7c"] = {"shape": [LM_PROMPT, cfg.d_model, cfg.d_ff], "forward_equals_qmm": True,
+                    "gx_max_abs_err": gx_err.max().item(),
+                    "gw_max_abs_err": gw_err.max().item(),
+                    "gx_max_err_over_bound": (gx_err / gx_bound.clamp(min=1e-30)).max().item(),
+                    "gw_max_err_over_bound": (gw_err / gw_bound.clamp(min=1e-30)).max().item(),
+                    "masked_share": float((~mask).double().mean().item()),
+                    "bound": "float32 summation bound depth * 2**-24 * (|a| @ |b|), "
+                             "against float64"}
+    log("[lm 7c] " + json.dumps(report["7c"]))
+    del master
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, lm_launches, (packed, cfg, prompt)
+
+
+def lm_profile(torch, packed, cfg, prompt, prefill_ms, decode_ms):
+    """Phase 7d: torch.profiler over one prefill and over one decode step
+    of the tnn packed model (two sessions: a session over the whole run
+    records ~10**5 kernels and takes minutes to read back); busy share =
+    device kernel time over the unprofiled host time of 7a."""
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.kvcache import init_caches
+
+    lay = ShardLayout()
+    b, p = prompt.shape
+    caches = init_caches(cfg, lay, b, p + 1, device=prompt.device)
+    out = {}
+    with torch.no_grad():
+        for name, fn, host_ms in (
+                ("prefill", lambda: model.prefill(packed, {"tokens": prompt}, caches, cfg,
+                                                  lay), prefill_ms),
+                ("decode_step", lambda: model.decode_step(packed, {"tokens": prompt[:, -1:]},
+                                                          caches, p, cfg, lay), decode_ms)):
+            rows, prof_ms = profiled(fn)
+            dev_ms = sum(r[1] for r in rows)
+            gemm_ms = sum(ms for name_, ms, _ in rows if "lowbit_gemm_kernel" in name_)
+            out[name] = {"device_kernel_ms": dev_ms, "host_ms_profiled": prof_ms,
+                         "host_ms_unprofiled": host_ms, "device_busy_share": dev_ms / host_ms,
+                         "gemm_kernel_ms": gemm_ms, "pytorch_kernels_ms": dev_ms - gemm_ms,
+                         "kernels": sum(r[2] for r in rows),
+                         "top": [[n[:80], ms, calls] for n, ms, calls in rows[:10]]}
+    return out
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -929,6 +1213,11 @@ def main(argv=None) -> int:
         f"{(BATCHES - 1) * BATCH / cnn_s:.1f} images/s ({cnn_s * 1e3 / (BATCHES - 1):.3f} "
         f"ms/batch); logits and every layer's map equal to the popcount CNN's; qmm "
         f"dense == popcount, u8/u4 == plain")
+    # -- 7. the LM path (7a-7c: after both CNN timings, before any profiler
+    # session) ------------------------------------------------------------
+    lm_report, lm_launches, lm_state = lm_phase(torch, dev)
+    log(card)
+
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
     # counts the kernels; it runs only after the timed batches, since a
@@ -1141,6 +1430,24 @@ def main(argv=None) -> int:
         f"time from torch.profiler (conv rows: pack + conv kernels); popcount "
         f"bound at max SM clock {max_sm_mhz:.0f} MHz, tensor-core bound at 1,979 TOP/s "
         f"int8; total run {time.perf_counter() - t_start:.1f} s")
+    # -- 7d. the LM path under torch.profiler --------------------------------
+    a = lm_report["7a"]
+    lm_report["7d"] = lm_profile(torch, *lm_state, a["tnn_prefill_ms"],
+                                 a["tnn_decode_ms_per_token"])
+    log("[lm 7d] " + json.dumps(lm_report["7d"]))
+    for k in kernels:
+        if k["name"] in lm_launches:
+            k["launches_lm_path"] = lm_launches[k["name"]]
+    log(f"[lm] {LM_ARCH} (22 x 2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch "
+        f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_STEPS} greedy steps: tnn packed "
+        f"prefill {a['tnn_prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{a['tnn_decode_ms_per_token']:.3f} ms/token; bf16 prefill "
+        f"{a['bf16_prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{a['bf16_decode_ms_per_token']:.3f} ms/token; busy share prefill "
+        f"{lm_report['7d']['prefill']['device_busy_share']:.3f}, decode "
+        f"{lm_report['7d']['decode_step']['device_busy_share']:.3f}; projection bytes "
+        f"bf16 / tnn packed {a['projection_bytes']['ratio_bf16_over_packed']:.2f}; kernels "
+        f"== plain, packed == QAT; phase {lm_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,10 +9,10 @@ patches and B the (kh*kw*Cin, Cout) filters, column order (dy, dx, c).
   each call runs the implicit-im2col kernel (``ops.qconv``).
   ``fused=False`` runs the materializing oracle instead — im2col + one
   ``ops.qmm`` with the same ``conv_act_stats`` scalars, bit-identical.
-* ``conv2d_quantized`` — the forward of the reference's QAT conv: the
-  float modes are im2col + a float32 matrix product (the CNN's first
-  layer), the low-bit modes pack the filters per call and run ``qmm``.
-  The reference's straight-through backward is not ported.
+* ``conv2d_quantized`` — the reference's QAT conv: the float modes are
+  im2col + a float32 matrix product (the CNN's first layer), the
+  quantized modes im2col + ``ops.quantized_matmul`` (filters packed per
+  call, ``qmm`` forward, straight-through gradients).
 
 Float products here run in full float32: TF32 is switched off for CUDA
 matrix products (``torch.backends.cuda.matmul.allow_tf32 = False``), as
@@ -71,8 +71,9 @@ def conv2d_quantized(x: torch.Tensor, filters: torch.Tensor,
                      stride: int = 1, padding: str = "SAME",
                      backend: str = DEFAULT_BACKEND,
                      paper_accum_i16: bool = False) -> torch.Tensor:
-    """Quantized conv forward: x (B,H,W,Cin), filters (kh,kw,Cin,Cout)
-    float master weights -> (B, OH, OW, Cout) float32."""
+    """Quantized conv: x (B,H,W,Cin), filters (kh,kw,Cin,Cout) float
+    master weights -> (B, OH, OW, Cout) float32; differentiable in both
+    (im2col + the STE quantized GeMM)."""
     kh, kw, cin, cout = filters.shape
     if paper_accum_i16 and mode.is_lowbit:
         check_conv_depth(cin, kh, kw)
@@ -81,7 +82,7 @@ def conv2d_quantized(x: torch.Tensor, filters: torch.Tensor,
     if mode.is_float:
         y = matmul_f32(a, w2)
     else:
-        y = ops.qmm(a, QTensor.from_dense(w2, mode), backend=backend)
+        y = ops.quantized_matmul(a, w2, mode, backend)
     return y.reshape(b, oh, ow, cout)
 
 

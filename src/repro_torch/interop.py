@@ -6,6 +6,12 @@ scales; ``np.asarray`` of each gives arrays that load here bit for bit
 (``uint32 -> int32`` is a free view, bfloat16 widens exactly to float32
 on the way and narrows back).  The port imports nothing of the JAX
 package: the caller hands over the arrays and the static fields.
+
+LM parameter trees (:func:`lm_params_from_numpy`) come across whole: the
+reference's ``init_lm`` tree (period-stacked leaves) or its
+``pack_lm_params`` tree, whose packed projections are stacked containers
+(payload planes and scales with a leading period dim), with every leaf
+a numpy array — ``jax.tree.map(np.asarray, tree)`` makes one.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
 from repro_torch.kernels.qtensor import (LAYOUT_AFFINE, LAYOUT_BITPLANE,
                                          LAYOUT_DENSE, QTensor)
 
-__all__ = ["qtensor_from_numpy", "qtensor_to_numpy", "paper_cnn_from_numpy"]
+__all__ = ["qtensor_from_numpy", "qtensor_to_numpy", "paper_cnn_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -95,3 +102,37 @@ def paper_cnn_from_numpy(filters: Sequence[np.ndarray], classifier: np.ndarray,
     return PaperCNN(cfg, filters=[np.asarray(f, np.float32) for f in filters],
                     classifier=np.asarray(classifier, np.float32),
                     device=device, backend=backend)
+
+
+def lm_params_from_numpy(tree, device=DEFAULT_DEVICE):
+    """The port's LM parameter tree from the reference's, every leaf a
+    numpy array: dicts and lists keep their structure, arrays become
+    tensors of the same dtype (bfloat16 stays bfloat16, exactly), and
+    every packed container — any object with ``payload``, ``scale``,
+    ``mode`` and ``shape`` attributes, as the reference's ``QTensor``
+    is — becomes a port :class:`QTensor` holding the same (possibly
+    period-stacked) tensors."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return _tensor(a, dev).to(torch.bfloat16)
+        return _tensor(a, dev)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if all(hasattr(node, a) for a in ("payload", "scale", "mode", "shape")):
+            def opt(a):
+                return None if a is None else np.asarray(a)
+            return qtensor_from_numpy(
+                {k: np.asarray(v) for k, v in node.payload.items()}, opt(node.scale),
+                opt(getattr(node, "bias", None)), getattr(node.mode, "value", node.mode),
+                node.shape, geometry=getattr(node, "geometry", None), device=dev,
+                zero=opt(getattr(node, "zero", None)))
+        return leaf(node)
+
+    return walk(tree)

@@ -14,7 +14,10 @@ Counterpart of the GeMM and conv half of ``repro/kernels/ops.py``:
   kernel;
 * ``packed_matmul(xa, qt)`` — the low-bit int32 core alone;
 * ``lowbit_matmul``, ``int8_affine_matmul``, ``int4_affine_matmul`` —
-  the integer cores on unpacked operands (Table III's entries).
+  the integer cores on unpacked operands (Table III's entries);
+* ``quantized_matmul(x, w, mode)`` — float master weights, the QAT
+  forward (``qmm`` on ``w`` packed per call) with straight-through
+  gradients, a ``torch.autograd.Function``.
 
 Kernels are chosen through :mod:`repro_torch.kernels.registry`; the
 backend ``"cuda"`` (the default) launches the Hopper kernels on CUDA
@@ -23,10 +26,11 @@ the plain versions anywhere, ``"dense"`` the tensor-core kernels of
 :mod:`repro_torch.kernels.dense_fused`.  A failing launch raises: there
 is no fallback chain.
 
-Not ported (see ROADMAP.md): the plan cache and tuner (tiles are
-``DEFAULT_TILES``), the obs counters and fault-injection points, the
-fallback chain, the mesh branch, the indexed backend and
-``quantized_matmul`` with its STE backward.
+The CUDA kernels' tiles come from ``_matmul_common.gemm_tile`` (per
+shape and SM count).  Not ported (see ROADMAP.md): the plan cache and
+tuner, the obs counters and fault-injection points, the fallback chain,
+the mesh branch, the indexed backend, and the deprecated ``fused_qmm``
+shim (call ``qmm`` with a QTensor).
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from repro_torch.kernels.tnn_matmul import (
 __all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
            "quantize_activations", "packed_matmul", "has_conv_kernel",
            "lowbit_matmul", "int8_affine_matmul", "int4_affine_matmul",
-           "DEFAULT_BACKEND"]
+           "quantized_matmul", "DEFAULT_BACKEND"]
 
 # Planes each mode consumes on the ACTIVATION side (weights use
 # qtensor.PAYLOAD_KEYS); TBN is ternary activations x binary weights.
@@ -459,6 +463,61 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
                                   padding)
     return _qmm_oracle(patches, qt, act_stats=act_stats).reshape(b, oh, ow,
                                                                  cout)
+
+
+# ---------------------------------------------------------------------------
+# Float-facing quantized matmul with STE gradients (QAT)
+# ---------------------------------------------------------------------------
+
+def _qmm_fwd_value(x: torch.Tensor, w: torch.Tensor, mode: QuantMode,
+                   backend: str) -> torch.Tensor:
+    """F32: a float32 product; BF16: bf16 operands, exact float32
+    products and sums (never a bf16 ``torch.matmul``, which rounds its
+    output to bf16); every quantized mode: ``qmm`` against ``w`` packed
+    here (QAT re-packs per call; inference packs once and calls ``qmm``)."""
+    from repro_torch.core.conv import matmul_f32   # core.conv imports ops
+
+    if mode == QuantMode.F32:
+        return matmul_f32(x, w)
+    if mode == QuantMode.BF16:
+        return matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    return qmm(x, QTensor.from_dense(w, mode), backend=backend)
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+    """Straight-through at matmul granularity: the backward treats the
+    whole pipeline as ``x @ w`` (reference ``ops._qmm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mode, backend):
+        ctx.save_for_backward(x, w)
+        ctx.mode = mode
+        return _qmm_fwd_value(x, w, mode, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.conv import matmul_f32
+
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        gx = matmul_f32(g, w.t())
+        gw = matmul_f32(x.t(), g)
+        if ctx.mode.is_lowbit:
+            gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
+        return gx.to(x.dtype), gw.to(w.dtype), None, None
+
+
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
+                     mode: QuantMode = QuantMode.TNN,
+                     backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+    """y ~= x @ w, x (m, k) and float master weights w (k, n) -> float32
+    (m, n), computed through the selected quantized pipeline.
+
+    Gradients are straight-through (standard for BNN/TNN QAT):
+    ``gx = g @ w.T`` and ``gw = x.T @ g`` in float32, with a hard-tanh
+    clip mask ``|x| <= 1`` on ``gx`` for the binary/ternary modes
+    (XNOR-Net)."""
+    return _QuantizedMatmul.apply(x, w, QuantMode(mode), backend)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,14 @@ Conv-packed low-bit weights whose ``Cin % 32 != 0`` also carry the
 its Cin channels into its own word-aligned run, the layout the
 implicit-im2col conv kernel streams.
 
+Stacked containers: a projection of an LM's period-stacked layers packs
+into ONE QTensor whose payload, scale, bias and zero carry a leading
+``(num_periods,)`` dim while ``shape`` stays the logical 2-D (k, n) — as
+the reference's vmapped ``_pack_leaf`` builds it.  :meth:`QTensor.stack`
+makes one from per-period containers and :meth:`QTensor.period` takes
+period ``r`` back out (views, no copy): the one way the port's model
+code reads a stacked projection.
+
 Not ported: the reference's mesh ``pspec`` (sharded serving comes with a
 later slice of the port).
 """
@@ -115,6 +123,43 @@ class QTensor:
 
     def replace(self, **kw) -> "QTensor":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def stacked(self) -> bool:
+        """True when the tensors carry a leading period dim (the payload
+        is 3-D, not the 2-D planes / grid / matrix)."""
+        return next(iter(self.payload.values())).ndim == 3
+
+    @classmethod
+    def stack(cls, parts) -> "QTensor":
+        """One stacked container from per-period ones of equal mode,
+        shape, geometry and layout: every tensor gains a leading dim."""
+        first = parts[0]
+        for p in parts[1:]:
+            if (p.mode, p.shape, p.geometry, p.layout) != (
+                    first.mode, first.shape, first.geometry, first.layout):
+                raise ValueError(f"cannot stack {p!r} onto {first!r}")
+
+        def st(get):
+            vals = [get(p) for p in parts]
+            return None if vals[0] is None else torch.stack(vals)
+
+        return first.replace(
+            payload={k: torch.stack([p.payload[k] for p in parts]) for k in first.payload},
+            scale=st(lambda p: p.scale), bias=st(lambda p: p.bias),
+            zero=st(lambda p: p.zero))
+
+    def period(self, r: int) -> "QTensor":
+        """Period ``r`` of a stacked container: the 2-D container of that
+        period, its tensors views into this one's."""
+        if not self.stacked:
+            raise ValueError(f"{self!r} is not stacked over periods")
+
+        def at(t):
+            return None if t is None else t[r]
+
+        return self.replace(payload={k: v[r] for k, v in self.payload.items()},
+                            scale=at(self.scale), bias=at(self.bias), zero=at(self.zero))
 
     def tensors(self):
         """Every tensor the container holds (payload, scale, bias, zero)."""

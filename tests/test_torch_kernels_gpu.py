@@ -391,3 +391,56 @@ def test_dense_cnn_on_card_matches_popcount(cuda_device):
     popcount = PaperCNN(PAPER_CNN_SMOKE, seed=2)
     assert torch.equal(dense.features(imgs), popcount.features(imgs))
     assert torch.equal(dense(imgs), popcount(imgs))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b"])
+def test_smoke_lm_on_card_matches_plain(cuda_device, arch):
+    """A smoke LM packed under tnn on the card: prefill and two decode
+    steps on the cuda backend == the plain versions, seven fused TNN
+    GeMMs per layer per forward, the prefill's argmax == the full
+    forward's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.kvcache import init_caches
+    from repro_torch.models.packing import pack_lm_params
+
+    cfg = get_smoke(arch).with_(dtype=torch.float32, quant_policy="tnn")
+    plain = cfg.with_(quant_backend="torch")
+    lay = ShardLayout()
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    params = pack_lm_params(model.init_lm(g, cfg, lay, device=cuda_device), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=g, device=cuda_device)
+    caches = {c: init_caches(c, lay, 2, 16, dtype=torch.float32, device=cuda_device)
+              for c in (cfg, plain)}
+    _build.reset_launches()
+    got, _ = model.prefill(params, {"tokens": toks[:, :8]}, caches[cfg], cfg, lay)
+    assert _build.launches() == {"lowbit_gemm_tnn_fused": 7 * cfg.num_layers}
+    want, _ = model.prefill(params, {"tokens": toks[:, :8]}, caches[plain], plain, lay)
+    assert torch.equal(got, want)
+    full, _ = model.forward(params, {"tokens": toks[:, :8]}, cfg, lay)
+    assert torch.equal(got[:, -1].argmax(-1), full[:, -1].argmax(-1))
+    for t in (8, 9):
+        tok = toks[:, 8:9] if t == 8 else got.argmax(-1)
+        got, _ = model.decode_step(params, {"tokens": tok}, caches[cfg], t, cfg, lay)
+        want, _ = model.decode_step(params, {"tokens": tok}, caches[plain], t, plain, lay)
+        assert torch.equal(got, want)
+        assert torch.isfinite(got).all()
+
+
+def test_quantlinear_backward_on_card(cuda_device):
+    from repro_torch.core import QuantLinear
+
+    layer = QuantLinear(256, 96, mode=QuantMode.TNN)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    params = layer.init(g, device=cuda_device)
+    x = (torch.randn((40, 256), generator=g, device=cuda_device) * 1.2).requires_grad_(True)
+    w = params["w"].requires_grad_(True)
+    y = layer.apply({"w": w}, x)
+    assert torch.equal(y, layer.apply_packed(layer.pack(params), x))
+    c = torch.randn(y.shape, generator=g, device=cuda_device)
+    (y * c).sum().backward()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xd, wd, cd = x.detach().double(), w.detach().double(), c.double()
+    gx = (cd @ wd.t()) * (xd.abs() <= 1)
+    assert torch.allclose(x.grad.double(), gx, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(w.grad.double(), xd.t() @ cd, rtol=1e-5, atol=1e-5)
