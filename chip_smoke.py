@@ -108,7 +108,34 @@ without printing a result:
    7d. torch.profiler over one prefill and one decode step of the tnn
        model: device kernel time, kernels launched, busy share against
        the unprofiled host times of 7a;
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. the rest of the model layer (right after 7c, before any profiler
+   session), counters zeroed just before each run and read just after,
+   every model at its published width, random weights from a generator
+   on the card, packed under ``tnn`` (each expert, SSM and attention
+   projection a fused TNN GeMM launch):
+   8a. Qwen2-MoE-A2.7B (24 layers, d_model 2048, 16 heads, 60 experts
+       top-4 of d_ff 1408, a shared FFN of 5632, vocab 151936, bf16):
+       4 prompts x 128, ``MOE_STEPS`` greedy steps; exactly (4 + 3 +
+       3 x 60) x 24 launches per forward (every expert runs on its
+       capacity rows) and nothing else; every logits tensor and the
+       tokens ``torch.equal`` to the plain run and to the QAT run;
+       prefill tokens/s, decode ms/token and its bound, the aux loss;
+   8b. Mamba2-1.3B (48 layers, d_inner 4096, 64 SSD heads of 64, state
+       128, chunk 256, vocab 50280, tied): 4 prompts x 512 (two SSD
+       chunks), 16 steps; 2 x 48 launches per forward; the same checks;
+   8c. TinyLlama-1.1B (phase 7a's packed weights) on the paged ternary
+       cache (``kv_cache_dtype="tnn2"``): the prompts in chunks of 32
+       through ``EntryPager`` / ``sync_page_tables`` into 16-token pages,
+       16 steps; 7 x 22 launches per forward; ``torch.equal`` to the
+       plain run; the ``tnn2-oracle`` run, in chunks of 32 and with the
+       prompt as one chunk, against 7a's bf16 slab run (tokens agreeing,
+       max abs logit difference); cache bytes bf16 /
+       tnn2 (``tree_nbytes``); the allocator balanced after release;
+   8d. the indexed policies (``tnn_indexed``, ``bnn_indexed``,
+       ``tnn_mixed``) on TinyLlama at full width and 2 layers, 2 steps:
+       logits and tokens ``torch.equal`` to the popcount backend under
+       the same mode; ms/token;
+9. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -181,7 +208,16 @@ LM_CUT_LAYERS, LM_CUT_STEPS = 2, 2
 # policy -> the GeMM kernel its projections launch
 LM_POLICY_KERNELS = {"tnn": "lowbit_gemm_tnn_fused", "bnn": "lowbit_gemm_bnn_fused",
                      "tnn_dense": "dense_gemm_tnn", "int8": "affine_gemm_u8"}
-PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "in_proj", "out_proj")
+# Phase 8, the rest of the model layer at published width: Qwen2-MoE-A2.7B
+# (MOE_STEPS greedy steps after 4 x 128), Mamba2-1.3B (4 x SSM_PROMPT, two
+# SSD chunks, SSM_STEPS steps), TinyLlama-1.1B on the paged ternary cache
+# (prefill in PAGED_CHUNK-token chunks into PAGED_PAGE-token pages) and
+# the indexed policies at LM_CUT_LAYERS layers.
+MOE_ARCH, MOE_STEPS = "qwen2-moe-a2.7b", 3
+SSM_ARCH, SSM_PROMPT, SSM_STEPS = "mamba2-1.3b", 512, 16
+PAGED_CHUNK, PAGED_PAGE = 32, 16
+INDEXED_POLICIES = {"tnn_indexed": "tnn", "bnn_indexed": "bnn", "tnn_mixed": "tnn"}
 
 
 def log(msg: str) -> None:
@@ -641,34 +677,87 @@ def lm_equal(torch, got, want, what):
 
 
 def projection_bytes(tree):
-    """Bytes of the projection leaves of an LM tree: master weights or
-    packed QTensors (payload + scales)."""
+    """Bytes of the projection leaves of an LM tree — master weights or
+    packed QTensors (payload + scales) — MoE experts and the shared
+    expert, SSM in/out projections included."""
     from repro_torch.kernels.qtensor import QTensor
 
     total = 0
-    for blk in tree["blocks"]:
-        for grp in ("mixer", "ffn"):
-            for name in PROJECTIONS:
-                leaf = blk[grp].get(name)
-                if leaf is not None:
-                    total += leaf.nbytes() if isinstance(leaf, QTensor) else \
-                        leaf["w"].numel() * leaf["w"].element_size()
+    for key, leaf in tree.items():
+        if key not in PROJECTIONS:
+            if isinstance(leaf, dict):
+                total += projection_bytes(leaf)
+            elif isinstance(leaf, list):
+                total += sum(projection_bytes(t) for t in leaf)
+        elif isinstance(leaf, QTensor):
+            total += leaf.nbytes()
+        elif isinstance(leaf, dict) and "w" in leaf:
+            total += leaf["w"].numel() * leaf["w"].element_size()
     return total
 
 
-def lm_bounds(cfg, batch, prompt, packed_bytes):
-    """Least times of the LM path, from shapes: a decode step moves at
-    least the packed projections, the bf16 LM head and the bf16 KV cache
-    at its longest (bytes at 3.35 TB/s); the prefill's popcount GeMMs do
-    at least m * n * words * POPC per output word (16 per clock per SM,
-    132 SMs, 1980 MHz).  Returns (decode ms, prefill GeMM ms)."""
+def proj_shapes(cfg, m, m_expert):
+    """(m, n, k) of every packed projection of one forward at ``m`` token
+    rows (``m_expert`` rows per MoE expert)."""
     d, dh = cfg.d_model, cfg.head_dim_
-    kv_bytes = 2 * cfg.num_layers * batch * (prompt + LM_STEPS) * cfg.num_kv_heads * dh * 2
-    decode_s = (packed_bytes + d * cfg.vocab_size * 2 + kv_bytes) / HBM_BYTES_PER_S
-    m, hd, kvd = batch * prompt, cfg.num_heads * dh, cfg.num_kv_heads * dh
-    shapes = [(hd, d), (kvd, d), (kvd, d), (d, hd), (cfg.d_ff, d), (cfg.d_ff, d),
-              (d, cfg.d_ff)]                                     # (n, k) per projection
-    popc = cfg.num_layers * sum(m * n * -(-k // 32) * NPOPC["tnn"] for n, k in shapes)
+    hd, kvd = cfg.num_heads * dh, cfg.num_kv_heads * dh
+
+    def ffn(rows, f):
+        return [(rows, f, d), (rows, f, d), (rows, d, f)]
+
+    out = []
+    for mixer, ffn_kind in cfg.layer_pattern:
+        if mixer in ("A", "AL"):
+            out += [(m, hd, d), (m, kvd, d), (m, kvd, d), (m, d, hd)]
+        elif mixer == "M":
+            din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
+            out += [(m, 2 * din + 2 * g * n + cfg.ssm_nheads, d), (m, d, din)]
+        if ffn_kind == "D":
+            out += ffn(m, cfg.d_ff)
+        elif ffn_kind == "E":
+            out += cfg.num_experts * ffn(m_expert, cfg.d_ff)
+            if cfg.shared_expert_d_ff:
+                out += ffn(m, cfg.shared_expert_d_ff)
+    return out * cfg.num_periods
+
+
+def tnn_gemms_per_forward(cfg) -> int:
+    """Fused TNN GeMM launches of one forward of a model packed under tnn:
+    one per projection, every MoE expert included (each runs on its
+    capacity rows)."""
+    return len(proj_shapes(cfg, 1, 1))
+
+
+def kv_bytes_per_token(cfg, kv: str) -> int:
+    """Cache bytes one token occupies in one attention layer: K and V and
+    its position (bf16 slab: 2 bytes a value; tnn2: two bit planes of
+    ceil(dh / 32) words a head and a float32 scale, for K and for V)."""
+    dh, kvh = cfg.head_dim_, cfg.num_kv_heads
+    if kv == "tnn2":
+        return 2 * (kvh * 2 * -(-dh // 32) * 4 + 4) + 4
+    return 2 * kvh * dh * 2 + 4
+
+
+def lm_bounds(cfg, batch, prompt, steps, packed_bytes, kv="bf16"):
+    """Least times of an LM run, from shapes: a decode step moves at least
+    the packed projections, the bf16 LM head and its cache (the KV cache
+    at its longest, or the SSM states read and written) at 3.35 TB/s; the
+    prefill's popcount GeMMs do at least m * n * words * POPC per output
+    word (16 per clock per SM, 132 SMs, 1980 MHz).  Returns (decode ms,
+    prefill GeMM ms)."""
+    from repro_torch.models.moe import moe_capacity
+
+    attn = sum(m in ("A", "AL") for m, _ in cfg.layer_pattern) * cfg.num_periods
+    ssm = sum(m == "M" for m, _ in cfg.layer_pattern) * cfg.num_periods
+    cache = attn * batch * (prompt + steps) * kv_bytes_per_token(cfg, kv)
+    if ssm:
+        din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
+        state = cfg.ssm_nheads * n * cfg.ssm_headdim + (cfg.ssm_conv - 1) * (din + 2 * g * n)
+        cache += 2 * ssm * batch * state * 4
+    decode_s = (packed_bytes + cfg.d_model * cfg.vocab_size * 2 + cache) / HBM_BYTES_PER_S
+    m_exp = batch * moe_capacity(cfg, prompt) if cfg.num_experts else 0
+    popc = sum(m * n * -(-k // 32) * NPOPC["tnn"]
+               for m, n, k in proj_shapes(cfg, batch * prompt, m_exp))
     return decode_s * 1e3, popc / (SMS * POPC_PER_CLK_PER_SM * 1980e6) * 1e3
 
 
@@ -705,10 +794,10 @@ def lm_phase(torch, dev):
         run = lm_generate(torch, packed, cfg, prompt, LM_STEPS, time_it=True)
         launches = _build.launches()
         forwards = 1 + LM_STEPS
-        want = {LM_POLICY_KERNELS["tnn"]: len(PROJECTIONS) * cfg.num_layers * forwards}
+        want = {LM_POLICY_KERNELS["tnn"]: tnn_gemms_per_forward(cfg) * forwards}
         if launches != want:
             raise AssertionError(f"LM path launches {launches}, expected {want} "
-                                 f"({len(PROJECTIONS)} x {cfg.num_layers} per forward)")
+                                 f"(7 x {cfg.num_layers} per forward)")
         lm_launches.update(launches)
         vp = lay.pad_vocab(cfg.vocab_size)
         if run[0][0].shape != (LM_BATCH, 1, vp) or not all(
@@ -748,8 +837,9 @@ def lm_phase(torch, dev):
     pb = report["7a"]["projection_bytes"]
     pb["ratio_bf16_over_packed"] = pb["bf16"] / pb["tnn_packed"]
     report["7a"]["tnn_decode_bound_ms"], report["7a"]["tnn_prefill_gemm_bound_ms"] = \
-        lm_bounds(cfg, LM_BATCH, LM_PROMPT, pb["tnn_packed"])
-    report["7a"]["bf16_decode_bound_ms"] = lm_bounds(cfg, LM_BATCH, LM_PROMPT, pb["bf16"])[0]
+        lm_bounds(cfg, LM_BATCH, LM_PROMPT, LM_STEPS, pb["tnn_packed"])
+    report["7a"]["bf16_decode_bound_ms"] = lm_bounds(cfg, LM_BATCH, LM_PROMPT, LM_STEPS,
+                                                     pb["bf16"])[0]
     log("[lm 7a] " + json.dumps(report["7a"]))
 
     # -- 7b. bnn, tnn_dense, int8 at full width, cut depth ------------------
@@ -763,7 +853,7 @@ def lm_phase(torch, dev):
             got = lm_generate(torch, p_packed, pcfg, prompt, LM_CUT_STEPS, time_it=True)
             launches = _build.launches()
             key = LM_POLICY_KERNELS[policy]
-            want = {key: len(PROJECTIONS) * LM_CUT_LAYERS * (1 + LM_CUT_STEPS)}
+            want = {key: tnn_gemms_per_forward(pcfg) * (1 + LM_CUT_STEPS)}
             if launches != want:
                 raise AssertionError(f"{policy}: launches {launches}, expected {want}")
             lm_launches[key] = lm_launches.get(key, 0) + launches[key]
@@ -816,7 +906,7 @@ def lm_phase(torch, dev):
     del master
     torch.cuda.empty_cache()
     report["phase_s"] = time.perf_counter() - t_phase
-    return report, lm_launches, (packed, cfg, prompt)
+    return report, lm_launches, (packed, cfg, prompt, run)
 
 
 def lm_profile(torch, packed, cfg, prompt, prefill_ms, decode_ms):
@@ -846,6 +936,263 @@ def lm_profile(torch, packed, cfg, prompt, prefill_ms, decode_ms):
                          "kernels": sum(r[2] for r in rows),
                          "top": [[n[:80], ms, calls] for n, ms, calls in rows[:10]]}
     return out
+
+
+def paged_generate(torch, params, cfg, prompt, steps, time_it=False, chunk=None):
+    """Greedy generation against a paged cache: the prompt in chunks of
+    ``chunk`` (default PAGED_CHUNK) tokens (pages backed through ``EntryPager`` and pushed by
+    ``sync_page_tables`` before each chunk), then ``steps`` decode steps.
+    Returns (the logits of the last prompt position and of every decode
+    step, the tokens (B, steps + 1), prefill s, decode s, caches,
+    pagers)."""
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models import paged_kvcache as paged
+    from repro_torch.models.kvcache import init_caches
+
+    lay = ShardLayout()
+    b, p = prompt.shape
+    chunk = chunk or PAGED_CHUNK
+    caches = init_caches(cfg, lay, b, p + steps, page_size=PAGED_PAGE,
+                         prefill_chunk=chunk, device=prompt.device)
+    pagers = paged.make_pagers(caches, b)
+
+    def back(hi):
+        for slot in range(b):
+            for pg in pagers:
+                pg.ensure(slot, hi)
+        return paged.sync_page_tables(caches, pagers)
+
+    if time_it:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, p, chunk):
+        n = min(chunk, p - start)
+        toks = torch.zeros((b, chunk), dtype=prompt.dtype, device=prompt.device)
+        toks[:, :n] = prompt[:, start:start + n]
+        caches = back(start + n)
+        st = torch.tensor([[start, n]] * b, dtype=torch.int32, device=prompt.device)
+        logits, caches = model.decode_step(params, {"tokens": toks}, caches, st, cfg, lay)
+    logits = logits[:, n - 1:n]
+    if time_it:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, toks = [logits], [logits[:, -1].argmax(-1, keepdim=True)]
+    for t in range(steps):
+        caches = back(p + t + 1)
+        logits, caches = model.decode_step(params, {"tokens": toks[-1]}, caches, p + t, cfg,
+                                           lay)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    if time_it:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, torch.cat(toks, dim=1), t1 - t0, t2 - t1, caches, pagers
+
+
+def phase8(torch, dev, lm_state):
+    """Phase 8a-8d (see the module docstring); nothing here runs under
+    torch.profiler.  ``lm_state`` is phase 7a's (packed TinyLlama, its
+    config, the prompt, its run).  Returns (the report, {kernel:
+    launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models import paged_kvcache as paged
+    from repro_torch.models.kvcache import init_caches
+    from repro_torch.models.packing import pack_lm_params
+
+    t_phase = time.perf_counter()
+    lay = ShardLayout()
+    report, launches8 = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    key = LM_POLICY_KERNELS["tnn"]
+
+    def add(launches):
+        for k, v in launches.items():
+            launches8[k] = launches8.get(k, 0) + v
+
+    def arch_config(cfg, batch, prompt, steps):
+        return {"arch": cfg.name, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+                "vocab_size": cfg.vocab_size, "dtype": str(cfg.dtype), "batch": batch,
+                "prompt": prompt, "decode_steps": steps,
+                "weights": "random, torch.Generator seed 8 on the card"}
+
+    def full_run(name, arch, prompt_len, steps):
+        """Build ``arch`` at full size, pack it under tnn, run it, hold it to
+        the plain and QAT runs; returns (report, master, packed, cfg,
+        prompt)."""
+        cfg = get_config(arch, quant_policy="tnn")
+        t0 = time.perf_counter()
+        master = model.init_lm(gen, cfg, lay, dtype=cfg.dtype, device=dev)
+        packed = pack_lm_params(master, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt_len), generator=gen,
+                               device=dev)
+        with torch.no_grad():
+            lm_generate(torch, packed, cfg, prompt[:, :8], 1)            # warm-up
+            _build.reset_launches()
+            run = lm_generate(torch, packed, cfg, prompt, steps, time_it=True)
+            launches = _build.launches()
+            per_forward = tnn_gemms_per_forward(cfg)
+            want = {key: per_forward * (1 + steps)}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches}, expected {want} "
+                                     f"({per_forward} per forward)")
+            add(launches)
+            for lg in run[0]:
+                if lg.shape != (LM_BATCH, 1, lay.pad_vocab(cfg.vocab_size)) or \
+                        not torch.isfinite(lg).all():
+                    raise AssertionError(f"{name}: logits of the wrong shape or not finite")
+            t0 = time.perf_counter()
+            lm_equal(torch, lm_generate(torch, packed, cfg.with_(quant_backend="torch"),
+                                        prompt, steps), run, f"{name}: kernels vs plain")
+            plain_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lm_equal(torch, lm_generate(torch, master, cfg, prompt, steps), run,
+                     f"{name}: packed vs QAT (master weights, quantized_matmul)")
+            qat_s = time.perf_counter() - t0
+        pb = projection_bytes(packed)
+        decode_bound, prefill_bound = lm_bounds(cfg, LM_BATCH, prompt_len, steps, pb)
+        rep = {"config": arch_config(cfg, LM_BATCH, prompt_len, steps),
+               "init_and_pack_s": init_s, "launches": launches,
+               "tnn_gemms_per_forward": per_forward,
+               "prefill_tokens_per_s": LM_BATCH * prompt_len / run[2],
+               "prefill_ms": run[2] * 1e3, "decode_ms_per_token": run[3] * 1e3 / steps,
+               "decode_bound_ms": decode_bound, "prefill_gemm_bound_ms": prefill_bound,
+               "kernel_equals_plain": True, "packed_equals_qat": True,
+               "plain_run": {"cut": "none: the same prompts and steps", "s": plain_s},
+               "qat_run_s": qat_s,
+               "projection_bytes": {"tnn_packed": pb, "bf16": projection_bytes(master)}}
+        return rep, master, packed, cfg, prompt
+
+    # -- 8a. Qwen2-MoE-A2.7B ----------------------------------------------
+    rep, master, packed, cfg, prompt = full_run("8a moe", MOE_ARCH, LM_PROMPT, MOE_STEPS)
+    with torch.no_grad():
+        aux = model.forward(packed, {"tokens": prompt}, cfg, lay)[1]
+    from repro_torch.models.moe import moe_capacity
+    rep["config"].update(num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                         d_ff=cfg.d_ff, shared_expert_d_ff=cfg.shared_expert_d_ff,
+                         capacity_prefill=moe_capacity(cfg, LM_PROMPT),
+                         capacity_decode=moe_capacity(cfg, 1))
+    rep["aux_loss"] = aux.item()
+    report["8a"] = rep
+    log("[lm 8a] " + json.dumps(rep))
+    del master, packed
+    torch.cuda.empty_cache()
+
+    # -- 8b. Mamba2-1.3B ---------------------------------------------------
+    rep, master, packed, cfg, _ = full_run("8b ssm", SSM_ARCH, SSM_PROMPT, SSM_STEPS)
+    rep["config"].update(d_inner=cfg.ssm_d_inner, ssm_heads=cfg.ssm_nheads,
+                         ssm_state=cfg.ssm_state, ssm_chunk=cfg.ssm_chunk,
+                         chunks_per_prompt=SSM_PROMPT // cfg.ssm_chunk)
+    report["8b"] = rep
+    log("[lm 8b] " + json.dumps(rep))
+    del master, packed
+    torch.cuda.empty_cache()
+
+    # -- 8c. TinyLlama-1.1B on the paged ternary cache ---------------------
+    packed, cfg7, prompt, run7 = lm_state
+    cfg = cfg7.with_(kv_cache_dtype="tnn2")
+    forwards = -(-LM_PROMPT // PAGED_CHUNK) + LM_STEPS
+    with torch.no_grad():
+        paged_generate(torch, packed, cfg, prompt[:, :8], 1)              # warm-up
+        _build.reset_launches()
+        run = paged_generate(torch, packed, cfg, prompt, LM_STEPS, time_it=True)
+        launches = _build.launches()
+        want = {key: tnn_gemms_per_forward(cfg) * forwards}
+        if launches != want:
+            raise AssertionError(f"8c paged: launches {launches}, expected {want}")
+        add(launches)
+        for lg in run[0]:
+            if not torch.isfinite(lg).all():
+                raise AssertionError("8c paged: logits not finite")
+        lm_equal(torch, paged_generate(torch, packed, cfg.with_(quant_backend="torch"), prompt,
+                                       LM_STEPS)[:2], run[:2], "8c tnn2: kernels vs plain")
+        ocfg = cfg7.with_(kv_cache_dtype="tnn2-oracle")
+        oracle = paged_generate(torch, packed, ocfg, prompt, LM_STEPS, time_it=True)
+        oracle1 = paged_generate(torch, packed, ocfg, prompt, LM_STEPS, chunk=LM_PROMPT)
+
+    def against_7a(o):
+        """Greedy tokens agreeing with 7a's bf16 slab run, and the max abs
+        logit difference over the calls whose inputs still agree."""
+        same = (o[1] == run7[1]).all(dim=0)
+        n_cmp = min(int(same.long().cumprod(0).sum().item()) + 1, len(run7[0]))
+        return {"tokens_agreeing": (o[1] == run7[1]).double().mean().item(),
+                "calls_compared": n_cmp,
+                "max_abs_logit_diff": max((a - b).abs().max().item()
+                                          for a, b in zip(o[0][:n_cmp], run7[0][:n_cmp]))}
+
+    caches, pagers = run[4], run[5]
+    tnn2_bytes = paged.tree_nbytes(caches)
+    slab_bytes = paged.tree_nbytes(init_caches(cfg7, lay, LM_BATCH, LM_PROMPT + LM_STEPS,
+                                               device=dev))
+    high = [pg.stats()["high_water"] for pg in pagers]
+    for entry, pg in zip(caches, pagers):
+        for slot in range(LM_BATCH):
+            paged.reset_pages(entry, pg.release(slot))
+        if pg.alloc.n_used or pg.alloc.n_free != pg.alloc.n_pages - 1:
+            raise AssertionError(f"8c: the page allocator does not balance: {pg.stats()}")
+    if (caches[0]["pos"] != paged.INVALID_POS).any():
+        raise AssertionError("8c: released pages keep positions")
+    pb = projection_bytes(packed)
+    dec_bound, _ = lm_bounds(cfg, LM_BATCH, LM_PROMPT, LM_STEPS, pb, kv="tnn2")
+    report["8c"] = {
+        "config": {"arch": cfg.name, "num_layers": cfg.num_layers, "kv_cache_dtype": "tnn2",
+                   "batch": LM_BATCH, "prompt": LM_PROMPT, "prefill_chunk": PAGED_CHUNK,
+                   "page": PAGED_PAGE, "decode_steps": LM_STEPS,
+                   "weights": "phase 7a's (packed under tnn)"},
+        "launches": launches, "forwards": forwards, "kernel_equals_plain": True,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / run[2], "prefill_ms": run[2] * 1e3,
+        "decode_ms_per_token": run[3] * 1e3 / LM_STEPS, "decode_bound_ms": dec_bound,
+        "bf16_slab_decode_bound_ms": lm_bounds(cfg7, LM_BATCH, LM_PROMPT, LM_STEPS, pb)[0],
+        "oracle_vs_7a_bf16_slab": {
+            **against_7a(oracle), "oracle_decode_ms_per_token": oracle[3] * 1e3 / LM_STEPS,
+            "note": "a prefill chunk quantizes its activations with its own per-tensor "
+                    "statistics, so a chunked tnn prefill is not 7a's full one",
+            "prompt_as_one_chunk": against_7a(oracle1)},
+        "cache_bytes": {"bf16_slab": slab_bytes, "tnn2": tnn2_bytes,
+                        "ratio": slab_bytes / tnn2_bytes,
+                        "per_token_layer_bf16": kv_bytes_per_token(cfg, "bf16"),
+                        "per_token_layer_tnn2": kv_bytes_per_token(cfg, "tnn2"),
+                        "ratio_per_token": kv_bytes_per_token(cfg, "bf16")
+                        / kv_bytes_per_token(cfg, "tnn2")},
+        "pages_high_water": high, "allocator_balanced_after_release": True}
+    log("[lm 8c] " + json.dumps(report["8c"]))
+
+    # -- 8d. the indexed policies, full width, cut depth ---------------------
+    report["8d"] = {}
+    masters = {}
+    for policy, mode in INDEXED_POLICIES.items():
+        pcfg = get_config(LM_ARCH, quant_policy=policy, num_layers=LM_CUT_LAYERS)
+        if mode not in masters:
+            mcfg = pcfg.with_(quant_policy=mode)
+            masters[mode] = pack_lm_params(
+                model.init_lm(gen, mcfg, lay, dtype=mcfg.dtype, device=dev), mcfg)
+        params = masters[mode]
+        with torch.no_grad():
+            _build.reset_launches()
+            got = lm_generate(torch, params, pcfg, prompt, LM_CUT_STEPS, time_it=True)
+            launches = _build.launches()
+            attn = 4 * LM_CUT_LAYERS * (1 + LM_CUT_STEPS)
+            want = {key: attn} if policy == "tnn_mixed" else {}
+            if launches != want:
+                raise AssertionError(f"8d {policy}: launches {launches}, expected {want}")
+            add(launches)
+            ref = lm_generate(torch, params, pcfg.with_(quant_policy=mode), prompt,
+                              LM_CUT_STEPS, time_it=True)
+            lm_equal(torch, got, ref, f"8d {policy}: indexed vs popcount ({mode})")
+        report["8d"][policy] = {"num_layers": LM_CUT_LAYERS, "decode_steps": LM_CUT_STEPS,
+                                "launches": launches, "equals_popcount": mode,
+                                "prefill_ms": got[2] * 1e3,
+                                "decode_ms_per_token": got[3] * 1e3 / LM_CUT_STEPS,
+                                "popcount_prefill_ms": ref[2] * 1e3,
+                                "popcount_decode_ms_per_token": ref[3] * 1e3 / LM_CUT_STEPS}
+    del masters
+    torch.cuda.empty_cache()
+    log("[lm 8d] " + json.dumps(report["8d"]))
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, launches8
 
 
 def device_and_build(torch, _build):
@@ -1217,6 +1564,12 @@ def main(argv=None) -> int:
     # session) ------------------------------------------------------------
     lm_report, lm_launches, lm_state = lm_phase(torch, dev)
     log(card)
+    # -- 8. MoE, SSM, the paged cache and the indexed backend (before any
+    # profiler session) ----------------------------------------------------
+    lm8_report, lm8_launches = phase8(torch, dev, lm_state)
+    for k_, v_ in lm8_launches.items():
+        lm_launches[k_] = lm_launches.get(k_, 0) + v_
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -1432,7 +1785,7 @@ def main(argv=None) -> int:
         f"int8; total run {time.perf_counter() - t_start:.1f} s")
     # -- 7d. the LM path under torch.profiler --------------------------------
     a = lm_report["7a"]
-    lm_report["7d"] = lm_profile(torch, *lm_state, a["tnn_prefill_ms"],
+    lm_report["7d"] = lm_profile(torch, *lm_state[:3], a["tnn_prefill_ms"],
                                  a["tnn_decode_ms_per_token"])
     log("[lm 7d] " + json.dumps(lm_report["7d"]))
     for k in kernels:
@@ -1448,6 +1801,18 @@ def main(argv=None) -> int:
         f"{lm_report['7d']['decode_step']['device_busy_share']:.3f}; projection bytes "
         f"bf16 / tnn packed {a['projection_bytes']['ratio_bf16_over_packed']:.2f}; kernels "
         f"== plain, packed == QAT; phase {lm_report['phase_s']:.1f} s")
+    r8a, r8b, r8c = lm8_report["8a"], lm8_report["8b"], lm8_report["8c"]
+    log(f"[lm 8] {MOE_ARCH} (24 x 2048, 60 experts top-4 of d_ff 1408, shared 5632) "
+        f"batch {LM_BATCH} x {LM_PROMPT}, {MOE_STEPS} steps: prefill "
+        f"{r8a['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{r8a['decode_ms_per_token']:.3f} ms/token (bound {r8a['decode_bound_ms']:.3f}), aux "
+        f"{r8a['aux_loss']:.6f}; {SSM_ARCH} (48 x 2048) batch {LM_BATCH} x {SSM_PROMPT}, "
+        f"{SSM_STEPS} steps: prefill {r8b['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{r8b['decode_ms_per_token']:.3f} ms/token (bound {r8b['decode_bound_ms']:.3f}); "
+        f"{LM_ARCH} tnn2 paged: prefill {r8c['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{r8c['decode_ms_per_token']:.3f} ms/token (bound {r8c['decode_bound_ms']:.3f}), "
+        f"cache bytes bf16 / tnn2 {r8c['cache_bytes']['ratio']:.2f}; indexed == popcount; "
+        f"kernels == plain, packed == QAT; phase {lm8_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

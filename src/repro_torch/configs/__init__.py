@@ -3,11 +3,9 @@ the LM registry — ``get_config("tinyllama-1.1b")`` etc.
 
 Counterpart of ``repro/configs``: every architecture exposes its full
 published ``CONFIG`` and a ``SMOKE`` (same family and features, tiny
-dims).  All ten load; the six dense-attention ones ("A"/"AL" mixers,
-"D" FFNs: tinyllama-1.1b, gemma2-27b, starcoder2-7b, minitron-4b,
-chameleon-34b, musicgen-large) run in this slice, and building mixtral,
-qwen2-moe, mamba2 or jamba raises ``NotImplementedError`` naming the
-slice that brings MoE and the SSM.
+dims).  All ten build and run: the dense-attention decoders, the MoE
+ones (mixtral-8x22b, qwen2-moe-a2.7b), the SSM (mamba2-1.3b) and the
+hybrid (jamba-1.5-large-398b: "M", "A" and "E" entries).
 """
 
 from __future__ import annotations

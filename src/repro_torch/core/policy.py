@@ -9,10 +9,8 @@ head's float product stay in high precision.
 Backends map onto the port's registry: the reference's default ``"xla"``
 becomes ``"cuda"`` (the Hopper kernels; their plain versions only on CPU
 tensors), never the plain ``"torch"``; ``"dense"`` stays ``"dense"`` (the
-tensor-core kernels).  The ``"indexed"`` backend is not ported yet: the
-policies that name it (``tnn_indexed``, ``bnn_indexed``, ``tnn_mixed``)
-raise ``KeyError`` in :meth:`QuantPolicy.validate` and at their first
-projection, as the reference does for a missing registry cell.
+tensor-core kernels); ``"indexed"`` stays ``"indexed"`` (the RSR
+backend of ``kernels/indexed_matmul.py``, plain PyTorch on any device).
 """
 
 from __future__ import annotations
@@ -95,7 +93,7 @@ POLICIES = {
     # packed storage, tensor-core compute
     "tnn_dense": _uniform("tnn_dense", QuantMode.TNN, backend="dense"),
     "bnn_dense": _uniform("bnn_dense", QuantMode.BNN, backend="dense"),
-    # the indexed-redundancy backend (not ported yet: KeyError)
+    # the indexed-redundancy backend (kernels/indexed_matmul.py)
     "tnn_indexed": _uniform("tnn_indexed", QuantMode.TNN, backend="indexed"),
     "bnn_indexed": _uniform("bnn_indexed", QuantMode.BNN, backend="indexed"),
     # mixed per-class backends: FFN on the indexed gather, attention popcount

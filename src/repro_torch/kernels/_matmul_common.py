@@ -38,10 +38,13 @@ __all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_T
 @dataclasses.dataclass(frozen=True, order=True)
 class TileConfig:
     """One blocking choice of the plain versions: ``word_chunk`` is the
-    words per step.  The CUDA kernels' tiles are not a choice of the
-    caller: :func:`gemm_tile` derives the popcount GeMM's from the shape,
-    and the others are compiled in."""
+    words per step (for the indexed backend, the segments per step) and
+    ``seg_bits`` the indexed backend's segment width in bits (the
+    reference reads it from ``block_kw``).  The CUDA kernels' tiles are
+    not a choice of the caller: :func:`gemm_tile` derives the popcount
+    GeMM's from the shape, and the others are compiled in."""
     word_chunk: int = 8
+    seg_bits: int = 8
 
 
 DEFAULT_TILES: Dict[str, TileConfig] = {

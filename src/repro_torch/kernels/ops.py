@@ -28,9 +28,11 @@ is no fallback chain.
 
 The CUDA kernels' tiles come from ``_matmul_common.gemm_tile`` (per
 shape and SM count).  Not ported (see ROADMAP.md): the plan cache and
-tuner, the obs counters and fault-injection points, the fallback chain,
-the mesh branch, the indexed backend, and the deprecated ``fused_qmm``
-shim (call ``qmm`` with a QTensor).
+tuner, the obs counters and fault-injection points, the fallback chain
+and the mesh branch, and the deprecated ``fused_qmm`` shim (call
+``qmm`` with a QTensor).  The indexed backend (``backend="indexed"``,
+:mod:`repro_torch.kernels.indexed_matmul`) is plain PyTorch on any
+device; its cells read the weight QTensor's payload (``payload_aware``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 from repro_torch.core import encoding, quantize
 from repro_torch.kernels import conv_fused, dense_fused, registry
+from repro_torch.kernels import indexed_matmul as _indexed_matmul
 from repro_torch.kernels._matmul_common import (
     DEFAULT_TILES, TileConfig, scale_epilogue)
 from repro_torch.kernels.bnn_matmul import (
@@ -238,10 +241,17 @@ def int4_affine_matmul(a_q: torch.Tensor, b_q: torch.Tensor, za, zb,
 # ---------------------------------------------------------------------------
 
 def pack_weights(w: torch.Tensor, mode: QuantMode, *,
-                 per_channel: bool = True) -> QTensor:
+                 per_channel: bool = True,
+                 indexed_bits: Optional[int] = None) -> QTensor:
     """Offline weight packing (Algorithm 2's PackedB): (k, n) float ->
-    :class:`QTensor` on ``w``'s device."""
-    return QTensor.from_dense(w, mode, per_channel=per_channel)
+    :class:`QTensor` on ``w``'s device.  ``indexed_bits`` (2/4/8) also
+    stores the segment indices the indexed backend reads
+    (``idx{b}_*`` payload keys); without them it derives them, with the
+    same result."""
+    qt = QTensor.from_dense(w, mode, per_channel=per_channel)
+    if indexed_bits is not None:
+        qt = _indexed_matmul.add_indexed_payload(qt, indexed_bits)
+    return qt
 
 
 def _stat(v, like: torch.Tensor) -> torch.Tensor:
@@ -308,7 +318,8 @@ def packed_matmul(xa: Dict[str, Any], wb: QTensor,
         raise ValueError(f"packed_matmul only handles low-bit modes, got {mode}")
     spec = registry.lookup(mode, backend, fused=False)
     a_pl = tuple(xa[k] for k in _A_KEYS[mode])
-    return spec.fn(a_pl, _b_planes(wb, mode), wb.k_valid)
+    extra = {"payload": wb.payload} if spec.payload_aware else {}
+    return spec.fn(a_pl, _b_planes(wb, mode), wb.k_valid, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +398,8 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     b2 = None if qt.bias is None else _as_col_vec(qt.bias, n, x)
     spec = registry.lookup(mode, backend, fused=True)
     a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
-    return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2)
+    extra = {"payload": qt.payload} if spec.payload_aware else {}
+    return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, **extra)
 
 
 def _qmm_oracle(x: torch.Tensor, qt: QTensor,

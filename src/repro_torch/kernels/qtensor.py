@@ -22,10 +22,12 @@ implicit-im2col conv kernel streams.
 Stacked containers: a projection of an LM's period-stacked layers packs
 into ONE QTensor whose payload, scale, bias and zero carry a leading
 ``(num_periods,)`` dim while ``shape`` stays the logical 2-D (k, n) — as
-the reference's vmapped ``_pack_leaf`` builds it.  :meth:`QTensor.stack`
-makes one from per-period containers and :meth:`QTensor.period` takes
-period ``r`` back out (views, no copy): the one way the port's model
-code reads a stacked projection.
+the reference's vmapped ``_pack_leaf`` builds it; MoE expert weights
+carry two, ``(num_periods, num_experts)``.  :meth:`QTensor.stack` makes
+one from per-period (or per-expert) containers and :meth:`QTensor.period`
+takes entry ``r`` of the leading dim back out (views, no copy): the one
+way the port's model code reads a stacked projection, a period of it
+first, then an expert.
 
 Not ported: the reference's mesh ``pspec`` (sharded serving comes with a
 later slice of the port).
@@ -126,9 +128,9 @@ class QTensor:
 
     @property
     def stacked(self) -> bool:
-        """True when the tensors carry a leading period dim (the payload
-        is 3-D, not the 2-D planes / grid / matrix)."""
-        return next(iter(self.payload.values())).ndim == 3
+        """True when the tensors carry leading period (or expert) dims
+        (the payload has more dims than the 2-D planes / grid / matrix)."""
+        return next(iter(self.payload.values())).ndim > 2
 
     @classmethod
     def stack(cls, parts) -> "QTensor":
@@ -150,8 +152,9 @@ class QTensor:
             zero=st(lambda p: p.zero))
 
     def period(self, r: int) -> "QTensor":
-        """Period ``r`` of a stacked container: the 2-D container of that
-        period, its tensors views into this one's."""
+        """Entry ``r`` of a stacked container's leading dim (a period, or
+        an expert): the container one dim down, its tensors views into
+        this one's."""
         if not self.stacked:
             raise ValueError(f"{self!r} is not stacked over periods")
 

@@ -9,6 +9,10 @@ cells alike):
     port "torch"  <->  reference "xla"      their plain PyTorch versions
     port "dense"  <->  reference "dense"    planes decoded to +-1/0 on
                                             chip, tensor-core product
+    port "indexed" <-> reference "indexed"  RSR subset-sum tables and a
+                                            gather per column, plain
+                                            PyTorch on any device
+                                            (kernels/indexed_matmul.py)
 
 A "cuda" or fused "dense" entry handed CPU tensors runs the plain
 version (that is how the CPU tests reach it); handed CUDA tensors it
@@ -31,9 +35,13 @@ modes the (integer grid, zero point) pair of each operand):
 * im2col_fused: ``fn(x, b_planes, geometry, stride, padding, stats,
   col_scale, bias, *, tiles=None)`` -> float32 (B, OH, OW, Cout)
 
-``tiles`` (a ``TileConfig``) sets the plain versions' ``word_chunk``;
-the CUDA kernels' tiles are compiled in (``DEFAULT_TILES``).  ``tunable``
-stays None until the port has a tuner.
+``tiles`` (a ``TileConfig``) sets the plain versions' ``word_chunk``
+(and the indexed cells' ``seg_bits``); the CUDA kernels' tiles are
+compiled in (``DEFAULT_TILES``).  ``tunable`` is None but for the
+indexed cells, which carry the reference's candidate axes
+(``indexed_matmul.INDEXED_SPACE``) for a tuner the port does not have
+yet.  A ``payload_aware`` cell also takes ``payload=`` (the weight
+QTensor's payload dict).
 """
 
 from __future__ import annotations
@@ -63,6 +71,9 @@ class KernelSpec:
     description: str = ""
     tunable: Optional[Any] = None
     layout: str = LAYOUT_GEMM
+    # True when ``fn`` takes ``payload=`` (the weight QTensor's whole
+    # payload dict: the indexed cells read its pack-time ``idx`` planes)
+    payload_aware: bool = False
 
     @property
     def key(self) -> Tuple[QuantMode, str, bool, str]:
@@ -74,7 +85,8 @@ _REGISTRY: Dict[Tuple[QuantMode, str, bool, str], KernelSpec] = {}
 
 def register(mode: QuantMode, backend: str, *, fused: bool,
              epilogue: str, compute: str, description: str = "",
-             tunable: Optional[Any] = None, layout: str = LAYOUT_GEMM):
+             tunable: Optional[Any] = None, layout: str = LAYOUT_GEMM,
+             payload_aware: bool = False):
     """Decorator: register ``fn`` as THE kernel for (mode, backend, fused,
     layout).  Re-registration overwrites."""
 
@@ -82,7 +94,7 @@ def register(mode: QuantMode, backend: str, *, fused: bool,
         spec = KernelSpec(mode=mode, backend=backend, fused=fused, fn=fn,
                           epilogue=epilogue, compute=compute,
                           description=description, tunable=tunable,
-                          layout=layout)
+                          layout=layout, payload_aware=payload_aware)
         _REGISTRY[spec.key] = spec
         return fn
 

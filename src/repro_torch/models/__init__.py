@@ -1,7 +1,7 @@
 """Model zoo of the port: decoder LMs with quantized (binary / ternary /
-ternary-binary / u8 / u4 / float) projections.  This slice runs the
-dense-attention decoders (layer patterns of "A"/"AL" mixers and "D"
-FFNs); MoE, SSM and the paged cache come with a later slice."""
+ternary-binary / u8 / u4 / float) projections: attention ("A", "AL")
+and Mamba2/SSD ("M") mixers, dense ("D") and MoE ("E") FFNs, dense slab,
+paged ternary (``tnn2``) and SSM decode caches."""
 
 from repro_torch.models.common import ModelConfig, ShardLayout
 from repro_torch.models.kvcache import init_caches

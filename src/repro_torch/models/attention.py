@@ -15,7 +15,9 @@ tp=1 (one card) the layout is the identity.
 KV caches are written in place: ``attention(..., cache_update=c)`` fills
 ``c`` with the prompt's roped K/V, :func:`decode_attention` writes one
 token per row at ``step`` (``step % L`` in a ring cache of a windowed
-layer), and both return the cache they wrote.
+layer), :func:`paged_attention_step` writes a decode token or a prefill
+chunk into the pages of a paged entry (models/paged_kvcache.py), and
+each returns the cache it wrote.
 """
 
 from __future__ import annotations
@@ -312,9 +314,53 @@ def decode_attention(params, x, cfg: ModelConfig, layout: ShardLayout,
 
 
 def paged_attention_step(params, x, cfg: ModelConfig, layout: ShardLayout,
-                         entry, step, *, window: int = 0):
-    """Write-then-attend over a paged cache entry: waits for the port of
-    ``models/paged_kvcache.py``."""
-    raise NotImplementedError(
-        "paged_attention_step needs the paged KV cache, which is not ported "
-        "yet (ROADMAP.md queue 1: MoE, SSM and the paged cache)")
+                         entry: Dict[str, torch.Tensor], step,
+                         *, window: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """Write-then-attend over a paged cache entry (models/paged_kvcache).
+
+    x (B,S,D): S new tokens per slot (S=1 decode, S=prefill_chunk for a
+    chunked prefill).  ``step`` says what each row does:
+
+    * (B,) int32 (or a scalar, or an int): decode, row b writes ONE token
+      at position step[b]; step[b] < 0 marks a dead row that writes
+      nothing and whose output is discarded;
+    * (B, 2) int32: a chunk, row b writes ``step[b, 1]`` real tokens at
+      positions ``step[b, 0] ..``; rows with step[b, 1] == 0 are dead.
+
+    Dead and padding tokens go to the scratch page with ``INVALID_POS``.
+    Scores and mix are float32 products of the page view.  Returns
+    (y (B,S,D), the entry, written in place)."""
+    from repro_torch.models import paged_kvcache as paged
+
+    b, s, d = x.shape
+    dh = cfg.head_dim_
+    hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
+    policy = cfg.policy
+    if not isinstance(step, torch.Tensor):
+        step = torch.full((b,), int(step), dtype=torch.int32, device=x.device)
+    step = step.to(device=x.device, dtype=torch.int32)
+    if step.ndim == 2:
+        p0, nvalid = step[:, 0], step[:, 1]
+    else:
+        step_v = step.expand(b)
+        p0 = step_v.clamp(min=0)
+        nvalid = (step_v >= 0).to(torch.int32)
+    offs = torch.arange(s, dtype=torch.int32, device=x.device)
+    positions = p0[:, None] + offs[None, :]                   # (B, S)
+    live = offs[None, :] < nvalid[:, None]
+    q, k, v = _qkv(params, x, cfg, hl, torch.where(live, positions, 0), policy)
+    entry = paged.append_tokens(entry, k, v, positions, live)
+    kd, vd, pos_k = paged.page_view(entry, dh)                # (B,L,KVp,dh)
+
+    qg = q.reshape(b, s, hl.kvp, hl.g, dh)
+    scores = einsum_f32("bskgd,blkd->bkgsl", qg, kd) * (dh ** -0.5)
+    scores = softcap(scores, cfg.attn_logit_softcap)
+    valid = pos_k[:, None, :] <= positions[:, :, None]        # (B, S, L)
+    if window:
+        valid &= (positions[:, :, None] - pos_k[:, None, :]) < window
+    scores = torch.where(valid[:, None, None, :, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = einsum_f32("bkgsl,blkd->bskgd", probs, vd)
+    out = out.reshape(b, s, hl.hp * dh).to(x.dtype)
+    y = project(params["wo"], out, policy.attn_proj, policy.backend_for("attn_proj"))
+    return y, entry

@@ -44,7 +44,7 @@ def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
 class KVCacheFormat:
     """Resolved ``ModelConfig.kv_cache_dtype`` value: ``storage_dtype`` is
     the element dtype of a dense cache (None for packed formats);
-    ``paged`` selects the page-table cache (not ported yet)."""
+    ``paged`` selects the page-table cache (models/paged_kvcache.py)."""
     name: str
     storage_dtype: Any            # torch dtype or None (packed payload)
     paged: bool

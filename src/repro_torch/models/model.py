@@ -9,8 +9,12 @@ but means nothing here: this serving path does not checkpoint.
 ``input_kind == "embeddings"`` (musicgen's frame embeddings) bypasses
 the token embedding.
 
-``prefill`` fills the caches it is given and ``decode_step`` writes one
-token per row into them, in place; both return them.
+``prefill`` fills the caches it is given (KV slabs, pages, SSM states)
+and ``decode_step`` writes one token per row into them, in place; both
+return them.  Against paged caches ``decode_step`` also takes a (B, 2)
+``step`` of (start, n): a chunk of up to S new tokens per row
+(``attention.paged_attention_step``).  The MoE aux losses of all blocks
+are summed.
 """
 
 from __future__ import annotations
@@ -105,7 +109,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, layout: ShardLayout
     x = sharding.constrain(_embed(params, batch, cfg), ("batch", "seq", "embed"))
     x, aux = _layers(params, x, cfg, layout, decode=False)
     x = apply_norm(params["final_norm"], x, cfg)
-    return x, f32_scalar(aux, x)
+    return x, aux if isinstance(aux, torch.Tensor) else f32_scalar(aux, x)
 
 
 def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig,
@@ -142,9 +146,10 @@ def prefill(params, batch, caches, cfg: ModelConfig, layout: ShardLayout):
 def decode_step(params, batch, caches, step, cfg: ModelConfig, layout: ShardLayout):
     """One token for every sequence.
 
-    batch: {"tokens": (B,1)} or {"embeddings": (B,1,D)}; step: the
-    current position (an int, a scalar or a per-row (B,) tensor).  ->
-    (logits (B,1,Vp), caches, written in place)."""
+    batch: {"tokens": (B,S)} or {"embeddings": (B,S,D)}, S = 1 but for a
+    chunk against paged caches; step: the current position (an int, a
+    scalar or a per-row (B,) tensor), or (B, 2) (start, n) rows for a
+    paged chunk.  -> (logits (B,S,Vp), caches, written in place)."""
     x = sharding.constrain(_embed(params, batch, cfg), ("batch", None, "embed"))
     if not isinstance(step, torch.Tensor):      # one fill, not one per layer
         step = torch.full((x.shape[0],), int(step), dtype=torch.int32, device=x.device)

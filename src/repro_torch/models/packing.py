@@ -12,7 +12,10 @@ whose quantization class (``_CLASS_OF``) is low-bit with a
 Period-stacked weights (P, k, n) become ONE stacked container whose
 tensors carry the leading (P,) dim while its ``shape`` stays the logical
 (k, n) (``QTensor.stack``; the model takes period r with
-``QTensor.period``).  Embeddings, norms and the LM head stay as they are.
+``QTensor.period``); MoE expert weights (P, E, k, n) carry both leading
+dims (``moe._expert_matmul`` takes expert i with a second ``period``).
+Embeddings, norms, the MoE router, the SSM's conv and scan parameters
+and the LM head stay as they are.
 At serve time ``attention.project`` sees a QTensor leaf and runs one
 ``ops.qmm`` per projection: decode streams 1/8 (ternary) or 1/16
 (binary) of the bf16 weight bytes per token.

@@ -45,7 +45,7 @@ CONV_CASES = {
     "3x3s2valid": ((1, 9, 11, 40), (3, 3, 40, 7), 2, "VALID"),
 }
 # port backend -> reference backend
-BACKEND_MAP = {"cuda": "pallas", "torch": "xla", "dense": "dense"}
+BACKEND_MAP = {"cuda": "pallas", "torch": "xla", "dense": "dense", "indexed": "indexed"}
 
 
 def _t(a):

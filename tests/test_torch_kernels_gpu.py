@@ -427,6 +427,94 @@ def test_smoke_lm_on_card_matches_plain(cuda_device, arch):
         assert torch.isfinite(got).all()
 
 
+def _tnn_gemms_per_forward(cfg):
+    """Fused TNN GeMM launches of one forward of a model packed under tnn:
+    4 per attention mixer, 2 per SSM mixer, 3 per dense FFN, 3 per expert
+    (every expert runs on its capacity rows) plus 3 for a shared expert."""
+    per = {"A": 4, "AL": 4, "M": 2, "D": 3, "-": 0,
+           "E": 3 * cfg.num_experts + (3 if cfg.shared_expert_d_ff else 0)}
+    return cfg.num_periods * sum(per[m] + per[f] for m, f in cfg.layer_pattern)
+
+
+@pytest.mark.parametrize("arch,kv", [("qwen2-moe-a2.7b", "bf16"), ("mixtral-8x22b", "bf16"),
+                                     ("mamba2-1.3b", "bf16"),
+                                     ("jamba-1.5-large-398b", "bf16"),
+                                     ("tinyllama-1.1b", "tnn2"),
+                                     ("gemma2-27b", "tnn2-oracle")])
+def test_smoke_moe_ssm_paged_on_card_matches_plain(cuda_device, arch, kv):
+    """MoE, SSM, hybrid and paged-cache smoke models packed under tnn on
+    the card: prefill (chunks of 4 through pagers on a paged cache) and
+    two greedy decode steps on the cuda backend == the plain versions,
+    the fused TNN GeMM launched exactly as often as the projections ask,
+    and nothing else."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models import paged_kvcache as paged
+    from repro_torch.models.kvcache import init_caches
+    from repro_torch.models.packing import pack_lm_params
+
+    cfg = get_smoke(arch).with_(dtype=torch.float32, quant_policy="tnn", kv_cache_dtype=kv)
+    lay = ShardLayout()
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    params = pack_lm_params(model.init_lm(g, cfg, lay, device=cuda_device), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g, device=cuda_device)
+
+    def run(c):
+        caches = init_caches(c, lay, 2, 16, page_size=4, prefill_chunk=4,
+                             device=cuda_device)
+        outs = []
+        if kv == "bf16":
+            lg, caches = model.prefill(params, {"tokens": toks}, caches, c, lay)
+        else:
+            pagers = paged.make_pagers(caches, 2)
+            for start in (0, 4):
+                for slot in range(2):
+                    for pg in pagers:
+                        pg.ensure(slot, start + 4)
+                caches = paged.sync_page_tables(caches, pagers)
+                st = torch.tensor([[start, 4]] * 2, dtype=torch.int32, device=cuda_device)
+                lg, caches = model.decode_step(params, {"tokens": toks[:, start:start + 4]},
+                                               caches, st, c, lay)
+            for slot in range(2):
+                for pg in pagers:
+                    pg.ensure(slot, 10)
+            caches = paged.sync_page_tables(caches, pagers)
+        outs.append(lg)
+        for t in (8, 9):
+            lg, caches = model.decode_step(params, {"tokens": lg[:, -1:].argmax(-1)}, caches,
+                                           t, c, lay)
+            outs.append(lg)
+        return outs
+
+    _build.reset_launches()
+    got = run(cfg)
+    forwards = 3 if kv == "bf16" else 4
+    assert _build.launches() == {"lowbit_gemm_tnn_fused": forwards * _tnn_gemms_per_forward(cfg)}
+    want = run(cfg.with_(quant_backend="torch"))
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,mode", [("tnn_indexed", "tnn"), ("bnn_indexed", "bnn"),
+                                       ("tnn_mixed", "tnn")])
+def test_indexed_policies_on_card_equal_popcount(cuda_device, name, mode):
+    """The indexed backend (plain PyTorch on the card) gives the popcount
+    kernel's logits bit for bit on a packed smoke LM."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.packing import pack_lm_params
+
+    cfg = get_smoke("tinyllama-1.1b").with_(dtype=torch.float32, quant_policy=name)
+    lay = ShardLayout()
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    params = pack_lm_params(model.init_lm(g, cfg, lay, device=cuda_device), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g, device=cuda_device)
+    got, _ = model.forward(params, {"tokens": toks}, cfg, lay)
+    want, _ = model.forward(params, {"tokens": toks}, cfg.with_(quant_policy=mode), lay)
+    assert torch.equal(got, want)
+
+
 def test_quantlinear_backward_on_card(cuda_device):
     from repro_torch.core import QuantLinear
 

@@ -24,8 +24,11 @@ Bounds, as ``assert_allclose(rtol=tol, atol=tol)``:
 
 Plus the twins of ``tests/test_packed_serving.py`` (packed == QAT,
 bytes shrink, other leaves untouched) and ``tests/test_configs_smoke.py``
-(prefill/decode consistency), the policies, and the archs that wait for
-the next slice.
+(prefill/decode consistency), the policies (the indexed ones run and
+equal both the JAX package and the port's popcount backend), the MoE,
+SSM and hybrid archs' smoke forward against the JAX package (their
+prefill and decode: ``test_torch_moe.py``, ``test_torch_ssm.py``), and
+the cache formats, paged ones included.
 """
 
 import functools
@@ -57,6 +60,7 @@ from repro_torch.models.packing import pack_lm_params
 ARCHS = ["tinyllama-1.1b", "gemma2-27b", "starcoder2-7b", "minitron-4b",
          "chameleon-34b", "musicgen-large"]
 LATER = ["mixtral-8x22b", "qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-1.5-large-398b"]
+INDEXED_MODE = {"tnn_indexed": "tnn", "bnn_indexed": "bnn", "tnn_mixed": "tnn"}
 POLICY_TOL = {"f32": 1e-5, "bf16": 1e-5, "tnn": 5e-4, "bnn": 5e-4}
 FLIP_TOL = 1e-2
 JL, TL = jcommon.ShardLayout(tp=1), common.ShardLayout(tp=1)
@@ -456,20 +460,43 @@ def test_policies_mirror_the_reference():
 
 @pytest.mark.parametrize("name", ["tnn_indexed", "bnn_indexed", "tnn_mixed"])
 def test_indexed_policies_raise_keyerror(name):
-    with pytest.raises(KeyError, match="indexed"):
-        POLICIES[name].validate()
-    cfg = get_smoke("tinyllama-1.1b").with_(dtype=torch.float32, quant_policy=name)
-    params = model.init_lm(torch.Generator().manual_seed(14), cfg, TL, device="cpu")
-    with pytest.raises(KeyError, match="indexed"):
-        model.forward(params, _inputs(cfg, 4)[1], cfg, TL)
+    """The indexed policies (a KeyError while the port had no indexed
+    backend) validate and run: the packed smoke forward equals the port's
+    popcount backend under the same mode bit for bit, and the JAX
+    package's forward under the same policy on the same weights within
+    the packed bound."""
+    assert POLICIES[name].validate() is POLICIES[name]
+    mode = INDEXED_MODE[name]
+    jcfg, tcfg = _configs("tinyllama-1.1b", name)
+    params = jpack_lm_params(jmodel.init_lm(jax.random.PRNGKey(14), jcfg, JL,
+                                            dtype=jnp.float32), jcfg)
+    tparams = interop.lm_params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    jb, tb = _inputs(jcfg, S)
+    got, _ = model.forward(tparams, tb, tcfg, TL)
+    pop, _ = model.forward(tparams, tb, tcfg.with_(quant_policy=mode), TL)
+    assert torch.equal(got, pop)
+    assert_rows_close(got, jmodel.forward(params, jb, jcfg, JL)[0], POLICY_TOL[mode],
+                      f"{name} forward")
 
 
 @pytest.mark.parametrize("arch", LATER)
 def test_unported_archs_raise(arch):
-    cfg = get_smoke(arch)
+    """The MoE, SSM and hybrid archs (NotImplementedError while they had
+    no port) build, and their smoke forward and aux loss equal the JAX
+    package's on the same weights (f32 policy, 1e-5)."""
     assert get_config(arch).name == arch
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_lm(torch.Generator().manual_seed(0), cfg, TL, device="cpu")
+    c = _case(arch, "f32")
+    jl, tl = c["fwd"]
+    assert tl.shape == (B, S, TL.pad_vocab(c["tcfg"].vocab_size))
+    assert_rows_close(tl, jl, POLICY_TOL["f32"], f"{arch} forward")
+    jcfg, tcfg = _configs(arch, "f32")
+    params = jmodel.init_lm(jax.random.PRNGKey(0), jcfg, JL, dtype=jnp.float32)
+    jb, tb = _inputs(jcfg, S)
+    jaux = jmodel.forward(params, jb, jcfg, JL)[1]
+    taux = model.forward(c["tparams"], tb, tcfg, TL)[1]
+    assert taux.dtype == torch.float32 and taux.ndim == 0
+    np.testing.assert_allclose(taux.item(), float(jaux), rtol=1e-5, atol=1e-7)
+    assert (taux.item() > 0) == any(f == "E" for _, f in tcfg.layer_pattern)
 
 
 def test_config_registry_matches_reference():
@@ -498,10 +525,18 @@ def test_cache_formats():
     assert caches[0]["k"].dtype == torch.int8 and caches[0]["k"].shape[2] == 64   # ring
     assert caches[1]["k"].shape[2] == 100
     assert init_caches(cfg, TL, 2, 8, device="cpu")[0]["v"].dtype == torch.bfloat16
-    for fmt in ("tnn2", "tnn2-oracle"):
-        with pytest.raises(NotImplementedError, match="paged"):
-            init_caches(cfg.with_(kv_cache_dtype=fmt), TL, 2, 8, device="cpu")
+    for fmt, keys in (("tnn2", {"k_plus", "k_minus", "v_plus", "v_minus", "k_scale",
+                                "v_scale"}),
+                      ("tnn2-oracle", {"k", "v"})):
+        paged = init_caches(cfg.with_(kv_cache_dtype=fmt), TL, 2, 8, device="cpu",
+                            page_size=4, prefill_chunk=4)
+        assert len(paged) == len(cfg.layer_pattern)
+        for entry in paged:
+            assert set(entry) == keys | {"pos", "page_table"}
+            assert entry["page_table"].shape == (cfg.num_periods, 2, 2)
+            assert (entry["pos"] == INVALID_POS).all()
     with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
         init_caches(cfg.with_(kv_cache_dtype="fp8"), TL, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        attention.paged_attention_step(None, None, cfg, TL, None, 0)
+    with pytest.raises(NotImplementedError, match="SSM"):
+        init_caches(get_smoke("mamba2-1.3b").with_(kv_cache_dtype="tnn2"), TL, 2, 8,
+                    device="cpu")
