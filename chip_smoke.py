@@ -135,7 +135,37 @@ without printing a result:
        ``tnn_mixed``) on TinyLlama at full width and 2 layers, 2 steps:
        logits and tokens ``torch.equal`` to the popcount backend under
        the same mode; ms/token;
-9. the last line: ``{"ok": true, "device": {...}}``.
+9. serving (right after 8d, before any profiler session), on phase 7a's
+   packed TinyLlama-1.1B at full width and depth, ``SERVE_REQUESTS``
+   greedy requests (prompt lengths drawn from ``SERVE_PROMPT`` with
+   numpy seed 0, token ids uniform over the vocabulary,
+   ``SERVE_NEW_TOKENS`` new tokens each) submitted at once, so slots
+   refill while others decode:
+   9a. the bucket ``Engine`` (``SERVE_SLOTS`` slots, ``max_len``
+       ``SERVE_MAX_LEN``, buckets from ``SERVE_BUCKET``): untuned (an
+       empty plan cache), then ``autotune="offline"`` (the sweep over
+       every packed (k, n) at the decode m and every bucket, plans in
+       ``build/chip_smoke/tune_plans.json``), then on the plain versions;
+       every Result "ok" with 1 + ``SERVE_NEW_TOKENS`` tokens; tokens and
+       logit traces ``torch.equal`` across the three; exactly 7 x 22
+       fused TNN launches per forward, forwards = prefill calls + decode
+       ticks from the engine's metrics; a plan for every (k, n) at every
+       m bucket; each plan's tile beside ``gemm_tile``'s and the
+       candidates' times; generated tokens/s, TTFT and inter-token
+       latency (p50, p99) from the engine's metrics;
+   9b. the chunked engine on the paged ``tnn2`` cache (pages of
+       ``PAGED_PAGE``, chunks of ``PAGED_CHUNK``), the same requests:
+       all "ok", ``torch.equal`` to its plain run, no page used after the
+       drain, the allocator balanced after ``close()``; cache bytes
+       against the bf16 slab of the same slots;
+   9c. an armed ``kernel.compile`` fault on a ``qmm`` raises out of
+       ``Engine.step()``; ``run()`` quarantines: the in-flight requests
+       finish as "error" with their pages released and no launch on
+       another backend; disarmed, a fresh engine serves "ok";
+   9d. ``repro_torch.launch.serve.main`` (``--arch tinyllama-1.1b --quant
+       tnn --requests 4 --slots 2 --new-tokens 8``) in-process on the
+       card: four "ok" results, fused TNN launches only;
+10. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,6 +248,12 @@ MOE_ARCH, MOE_STEPS = "qwen2-moe-a2.7b", 3
 SSM_ARCH, SSM_PROMPT, SSM_STEPS = "mamba2-1.3b", 512, 16
 PAGED_CHUNK, PAGED_PAGE = 32, 16
 INDEXED_POLICIES = {"tnn_indexed": "tnn", "bnn_indexed": "bnn", "tnn_mixed": "tnn"}
+# Phase 9, serving: SERVE_REQUESTS greedy requests submitted at once to
+# an Engine of SERVE_SLOTS slots, prompt lengths drawn (numpy seed 0)
+# from SERVE_PROMPT, SERVE_NEW_TOKENS new tokens each.  SERVE_MAX_LEN
+# leaves the largest bucket (512) room for them: 512 + 16.
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW_TOKENS = 8, 4, (16, 400), 16
+SERVE_BUCKET, SERVE_MAX_LEN = 128, 528
 
 
 def log(msg: str) -> None:
@@ -1195,6 +1231,315 @@ def phase8(torch, dev, lm_state):
     return report, launches8
 
 
+def serve_run(torch, engine, prompts, max_new):
+    """Submit every prompt at once and drive ``engine.run()``; returns
+    (results, host s, the TTFT and inter-token latencies the engine's
+    metrics observed, {"prefill": calls of ``prefill`` or
+    ``chunk_step``, "decode": calls of ``serve_step``})."""
+    from repro_torch.serving import Request
+
+    ttft, itl, calls = [], [], {"prefill": 0, "decode": 0}
+    m = engine.obs
+    real_ttft, real_itl = m.ttft.observe, m.itl.observe
+
+    def counted(fn, what):
+        def call(*a, **k):
+            calls[what] += 1
+            return fn(*a, **k)
+        return call
+
+    m.ttft.observe = lambda v, **kw: (ttft.append(v), real_ttft(v, **kw))
+    m.itl.observe = lambda v, **kw: (itl.append(v), real_itl(v, **kw))
+    engine.serve_step = counted(engine.serve_step, "decode")
+    first = "chunk_step" if hasattr(engine, "chunk_step") else "prefill"
+    setattr(engine, first, counted(getattr(engine, first), "prefill"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid=uid, prompt=p, max_new_tokens=max_new))
+    results = engine.run()
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, ttft, itl, calls
+
+
+def serve_equal(got, want, what):
+    """Two engine runs: the same statuses and tokens, and (when both kept
+    them) every logit trace row equal."""
+    import numpy as np
+
+    (res_a, eng_a), (res_b, eng_b) = got, want
+    for uid in res_b:
+        a, b = res_a[uid], res_b[uid]
+        if (a.status, a.tokens) != (b.status, b.tokens):
+            raise AssertionError(f"{what}: uid {uid} differs: {a.status} {a.tokens} vs "
+                                 f"{b.status} {b.tokens}")
+        if eng_a.logit_trace is not None and eng_b.logit_trace is not None:
+            rows_a, rows_b = eng_a.logit_trace[uid], eng_b.logit_trace[uid]
+            if len(rows_a) != len(rows_b) or not all(
+                    np.array_equal(x, y) for x, y in zip(rows_a, rows_b)):
+                raise AssertionError(f"{what}: uid {uid}: logit traces differ")
+
+
+def percentiles(vals):
+    import numpy as np
+
+    return {"p50": float(np.percentile(vals, 50)), "p99": float(np.percentile(vals, 99)),
+            "n": len(vals)} if vals else {"n": 0}
+
+
+def phase9(torch, dev, lm_state, card):
+    """Phase 9a-9d (see the module docstring): the serving engine, its
+    tuner, faults and the launcher on phase 7a's TinyLlama-1.1B.  Nothing
+    here runs under torch.profiler.  Returns (the report, {kernel:
+    launches})."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._matmul_common import gemm_tile, sm_count
+    from repro_torch.kernels.modes import QuantMode
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import ShardLayout
+    from repro_torch.resilience import faults
+    from repro_torch.serving import Engine, Request, ServeConfig
+    from repro_torch.tune import cache as plan_cache
+    from repro_torch.tune import tuner
+
+    t_phase = time.perf_counter()
+    packed, cfg = lm_state[0], lm_state[1]
+    lay = ShardLayout()
+    report, launches9 = {}, {}
+    key = LM_POLICY_KERNELS["tnn"]
+    per_forward = tnn_gemms_per_forward(cfg)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lengths]
+    tune_dir = ROOT / "build" / "chip_smoke"
+    tune_dir.mkdir(parents=True, exist_ok=True)
+    plans_path, off_path = tune_dir / "tune_plans.json", tune_dir / "tune_off.json"
+    for p in (plans_path, off_path):
+        p.unlink(missing_ok=True)
+
+    def engine(c, autotune, **over):
+        kw = dict(num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                  prefill_bucket=SERVE_BUCKET, pack_params=True, autotune=autotune,
+                  trace_logits=True)
+        kw.update(over)
+        t0 = time.perf_counter()
+        eng = Engine(packed, c, lay, ServeConfig(**kw))
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def metrics(eng, res, secs, ttft, itl, calls):
+        toks = sum(len(r.tokens) for r in res.values())
+        return {"requests": len(res), "generated_tokens": toks, "host_s": secs,
+                "generated_tokens_per_s": toks / secs, "decode_ticks": calls["decode"],
+                "prefill_calls": calls["prefill"],
+                "scheduler_steps": eng.obs.steps.total(),
+                "admissions": eng.obs.admissions.total(),
+                "ttft_s": percentiles(ttft), "inter_token_s": percentiles(itl),
+                "ttft_mean_s": eng.obs.ttft.sum() / max(1, eng.obs.ttft.count()),
+                "inter_token_mean_s": eng.obs.itl.sum() / max(1, eng.obs.itl.count())}
+
+    def all_ok(res, n_tokens, what):
+        bad = {u: (r.status, len(r.tokens)) for u, r in res.items()
+               if r.status != "ok" or len(r.tokens) != n_tokens}
+        if len(res) != SERVE_REQUESTS or bad:
+            raise AssertionError(f"{what}: {len(res)} results, not ok or not {n_tokens} "
+                                 f"tokens: {bad}")
+
+    def forwards_of(run, eng, what):
+        """Prefill calls + decode ticks, each counted two ways: the step
+        functions' calls and the engine's own metrics."""
+        calls = run[4]
+        if (calls["prefill"], calls["decode"]) != (eng.obs.admissions.total(),
+                                                   eng.obs.steps.total()):
+            raise AssertionError(f"{what}: {calls} step calls, but {eng.obs.admissions.total()}"
+                                 f" admissions and {eng.obs.steps.total()} ticks")
+        return calls["prefill"] + calls["decode"]
+
+    # -- 9a. bucket engine: untuned and offline-tuned (in turns), plain --------
+    n_tok = 1 + SERVE_NEW_TOKENS           # the prefill's token, then the decoded ones
+    runs = {"untuned": [], "tuned": []}
+    plan_cache.set_cache_path(str(off_path))
+    off, _ = engine(cfg, "off")
+    runs["untuned"].append((serve_run(torch, off, prompts, SERVE_NEW_TOKENS), off))
+    plan_cache.set_cache_path(str(plans_path))
+    tuned, sweep_s = engine(cfg, "offline")
+    _build.reset_launches()
+    run = serve_run(torch, tuned, prompts, SERVE_NEW_TOKENS)
+    launches = _build.launches()
+    runs["tuned"].append((run, tuned))
+    forwards = forwards_of(run, tuned, "9a")
+    want = {key: per_forward * forwards}
+    if launches != want:
+        raise AssertionError(f"9a: launches {launches}, expected {want} ({per_forward} x "
+                             f"(prefill calls + decode ticks))")
+    for k_, v_ in launches.items():
+        launches9[k_] = launches9.get(k_, 0) + v_
+    # the second pair in the other order: tuned, then untuned
+    for name, path, autotune in (("tuned", plans_path, "off"), ("untuned", off_path, "off")):
+        plan_cache.set_cache_path(str(path))
+        eng, _ = engine(cfg, autotune)
+        runs[name].append((serve_run(torch, eng, prompts, SERVE_NEW_TOKENS), eng))
+        eng.close()
+    plan_cache.set_cache_path(str(plans_path))
+    off_run = runs["untuned"][0][0]
+    for name, pair in runs.items():
+        for i, (r, eng) in enumerate(pair):
+            all_ok(r[0], n_tok, f"9a {name} run {i}")
+            serve_equal((r[0], eng), (off_run[0], off), f"9a: {name} run {i} vs untuned")
+    # the plain versions' word_chunk, tuned at the same shapes: the plain
+    # engines below (9a, 9b) run the fastest chunking the sweep found
+    t0 = time.perf_counter()
+    shapes = [(m_, n_, k_) for _, k_, n_, _ in tuner.collect_problems(tuned.params)
+              for m_ in sorted({SERVE_SLOTS, *tuned._buckets()})]
+    plain_plans = tuner.tune_shapes(shapes, [QuantMode.TNN], ["torch"], reps=2, warmup=1,
+                                    device=dev)[0]
+    plain_sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain, _ = engine(cfg.with_(quant_backend="torch"), "off")
+    plain_run = serve_run(torch, plain, prompts, SERVE_NEW_TOKENS)
+    plain_s = time.perf_counter() - t0
+    serve_equal((run[0], tuned), (plain_run[0], plain), "9a: kernels vs plain engine")
+    # a plan for every (k, n) of the projections at every m of the sweep
+    plans = plan_cache.PlanCache(str(plans_path)).load().plans()
+    kind = plan_cache.device_kind(dev)
+    kn = sorted({(k_, n_) for _, n_, k_ in proj_shapes(cfg, 1, 1)})
+    buckets = sorted({plan_cache.bucket_m(m_) for m_ in tuned._buckets() + [SERVE_SLOTS]})
+    table, sms = [], sm_count(dev.index or 0)
+    for k_, n_ in kn:
+        for mb in buckets:
+            pkey = plan_cache.plan_key(QuantMode.TNN, "cuda", True, kind, mb, n_, k_)
+            if pkey not in plans:
+                raise AssertionError(f"9a: no plan {pkey} in {plans_path}")
+            rep = tuned.tune_reports.get(pkey, {})
+            table.append({"k": k_, "n": n_, "m_bucket": mb,
+                          "tile": plans[pkey].tiles.cta_tile,
+                          "gemm_tile_default": gemm_tile(mb, n_, sms),
+                          "candidates_ms": {str(c["tiles"]["cta_tile"]): c["median_s"] * 1e3
+                                            for c in rep.get("candidates", [])}})
+    report["9a"] = {
+        "config": {"arch": cfg.name, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "num_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                   "prefill_bucket": SERVE_BUCKET, "requests": SERVE_REQUESTS,
+                   "prompt_lengths": [int(n) for n in lengths],
+                   "max_new_tokens": SERVE_NEW_TOKENS, "sampler": "greedy",
+                   "weights": "phase 7a's (packed under tnn)"},
+        "sweep_s": sweep_s, "plans": table, "launches": launches, "forwards": forwards,
+        "plain_sweep_s": plain_sweep_s,
+        "plain_word_chunks": {p_.key: p_.tiles.word_chunk for p_ in plain_plans},
+        "runs_in_order": "untuned, tuned, tuned, untuned",
+        **{name: [metrics(eng, *r) for r, eng in pair] for name, pair in runs.items()},
+        "plain_run_s": plain_s, "tuned_equals_untuned": True, "kernel_equals_plain": True}
+    for e in (off, tuned, plain):
+        e.close()
+    del off, plain, runs
+    log("[serve 9a] " + json.dumps(report["9a"]))
+    log(card)
+
+    # -- 9b. chunked engine on the paged tnn2 cache ----------------------------
+    ccfg = cfg.with_(kv_cache_dtype="tnn2")
+    chunked = dict(page_size=PAGED_PAGE, prefill_chunk=PAGED_CHUNK)
+    ceng, _ = engine(ccfg, "offline", **chunked)
+    _build.reset_launches()
+    crun = serve_run(torch, ceng, prompts, SERVE_NEW_TOKENS)
+    claunches = _build.launches()
+    all_ok(crun[0], n_tok, "9b chunked")
+    for k_, v_ in claunches.items():
+        launches9[k_] = launches9.get(k_, 0) + v_
+    cforwards = crun[4]["prefill"] + crun[4]["decode"]
+    if claunches != {key: per_forward * cforwards}:
+        raise AssertionError(f"9b: launches {claunches}, expected {per_forward} x "
+                             f"{cforwards} (chunk calls + decode calls)")
+    cplain, _ = engine(ccfg.with_(quant_backend="torch"), "off", **chunked)
+    cplain_run = serve_run(torch, cplain, prompts, SERVE_NEW_TOKENS)
+    serve_equal((crun[0], ceng), (cplain_run[0], cplain), "9b: kernels vs plain engine")
+    used = [s["used"] for s in ceng.page_stats()]
+    if any(used):
+        raise AssertionError(f"9b: pages still used after the drain: {ceng.page_stats()}")
+    kv = {s["labels"]["kind"]: s["value"]
+          for s in ceng.metrics()["metrics"]["repro_engine_kv_cache_bytes"]["series"]}
+    ceng.close()
+    cplain.close()
+    if any(s["used"] or s["free"] != s["total"] for s in ceng.page_stats()):
+        raise AssertionError(f"9b: allocator unbalanced after close: {ceng.page_stats()}")
+    report["9b"] = {
+        "config": {"kv_cache_dtype": "tnn2", "page_size": PAGED_PAGE,
+                   "prefill_chunk": PAGED_CHUNK, "same requests as 9a": True},
+        "launches": claunches, "forwards": cforwards, "metrics": metrics(ceng, *crun),
+        "pages_high_water": [s["high_water"] for s in ceng.page_stats()],
+        "cache_bytes": {**kv, "ratio": kv.get("dense_equiv", 0) / max(1, kv.get("packed", 1))},
+        "kernel_equals_plain": True, "pages_used_after_drain": used,
+        "allocator_balanced_after_close": True}
+    del ceng, cplain
+    log("[serve 9b] " + json.dumps(report["9b"]))
+    log(card)
+
+    # -- 9c. an injected kernel failure raises; run() quarantines ---------------
+    short = [p[:24] for p in prompts[:2]]
+
+    def fault_engine():
+        e, _ = engine(ccfg, "off", **chunked)
+        for uid, p in enumerate(short):
+            e.submit(Request(uid=uid, prompt=p, max_new_tokens=4))
+        return e
+
+    feng = fault_engine()
+    faults.arm(faults.parse_plan("kernel.compile@5+6?op=qmm"))
+    try:
+        try:
+            feng.step()
+        except faults.InjectedFault as e:
+            raised = str(e)
+        else:
+            raise AssertionError("9c: an armed kernel.compile did not raise out of step()")
+        _build.reset_launches()
+        fres = feng.run()
+        flaunches = _build.launches()
+        report_plan = faults.active().report()
+    finally:
+        faults.disarm()
+    if [fres[u].status for u in sorted(fres)] != ["error", "error"]:
+        raise AssertionError(f"9c: expected both in-flight requests as error, got "
+                             f"{ {u: r.status for u, r in fres.items()} }")
+    if any(s["used"] for s in feng.page_stats()):
+        raise AssertionError(f"9c: pages not released: {feng.page_stats()}")
+    errors = feng.obs.step_errors.total()
+    feng.close()
+    fresh = fault_engine()
+    again = fresh.run()
+    if [again[u].status for u in sorted(again)] != ["ok", "ok"]:
+        raise AssertionError("9c: a fresh engine does not serve after disarming")
+    fresh.close()
+    report["9c"] = {"plan": "kernel.compile@5+6?op=qmm", "step_raised": raised,
+                    "run_statuses": {u: r.status for u, r in fres.items()},
+                    "launches_in_quarantined_run": flaunches, "plan_report": report_plan,
+                    "step_errors": errors, "pages_released": True,
+                    "fresh_engine_statuses": {u: r.status for u, r in again.items()}}
+    log("[serve 9c] " + json.dumps(report["9c"]))
+
+    # -- 9d. the launcher, in-process on the card -------------------------------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    lres = launch_serve.main(["--arch", LM_ARCH, "--quant", "tnn", "--requests", "4",
+                              "--slots", "2", "--new-tokens", "8"])
+    llaunches = _build.launches()
+    if len(lres) != 4 or any(r.status != "ok" or len(r.tokens) != 9 for r in lres.values()):
+        raise AssertionError(f"9d: launch.serve results {lres}")
+    if set(llaunches) != {key}:
+        raise AssertionError(f"9d: launches {llaunches}")
+    for k_, v_ in llaunches.items():
+        launches9[k_] = launches9.get(k_, 0) + v_
+    report["9d"] = {"argv": "--arch tinyllama-1.1b --quant tnn --requests 4 --slots 2 "
+                            "--new-tokens 8", "s": time.perf_counter() - t0,
+                    "launches": llaunches,
+                    "statuses": sorted({r.status for r in lres.values()})}
+    log("[serve 9d] " + json.dumps(report["9d"]))
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, launches9
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -1286,6 +1631,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind, card, max_sm_mhz = device_and_build(torch, _build)
+    # every qmm consults the autotuner's plan cache: keep it in the
+    # checkout's build directory, empty at the start of each run
+    from repro_torch import obs
+    from repro_torch.tune import cache as plan_cache
+
+    main_plans = ROOT / "build" / "chip_smoke" / "tune_main.json"
+    main_plans.unlink(missing_ok=True)
+    plan_cache.set_cache_path(str(main_plans))
+    obs.set_enabled(True)          # phase 9 reads the engines' own metrics
 
     check = Checker()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1570,6 +1924,12 @@ def main(argv=None) -> int:
     for k_, v_ in lm8_launches.items():
         lm_launches[k_] = lm_launches.get(k_, 0) + v_
     log(card)
+    # -- 9. serving: the Engine, its tuner, faults, the launcher (before any
+    # profiler session) ----------------------------------------------------
+    serve_report, serve_launches = phase9(torch, dev, lm_state, card)
+    for k_, v_ in serve_launches.items():
+        lm_launches[k_] = lm_launches.get(k_, 0) + v_
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -1813,6 +2173,21 @@ def main(argv=None) -> int:
         f"{r8c['decode_ms_per_token']:.3f} ms/token (bound {r8c['decode_bound_ms']:.3f}), "
         f"cache bytes bf16 / tnn2 {r8c['cache_bytes']['ratio']:.2f}; indexed == popcount; "
         f"kernels == plain, packed == QAT; phase {lm8_report['phase_s']:.1f} s")
+    s9a, s9b = serve_report["9a"], serve_report["9b"]
+    rates = {name: ", ".join("%.1f" % r["generated_tokens_per_s"] for r in s9a[name])
+             for name in ("tuned", "untuned")}
+    log(f"[serve] {LM_ARCH} Engine, {SERVE_REQUESTS} requests of "
+        f"{SERVE_PROMPT[0]}-{SERVE_PROMPT[1]} prompt tokens, {SERVE_NEW_TOKENS} new each, "
+        f"{SERVE_SLOTS} slots: bucket engine tokens/s tuned {rates['tuned']} (untuned "
+        f"{rates['untuned']}), TTFT "
+        f"p50 {s9a['tuned'][0]['ttft_s']['p50']:.3f} s, inter-token p50 "
+        f"{s9a['tuned'][0]['inter_token_s']['p50'] * 1e3:.1f} ms, {s9a['forwards']} forwards "
+        f"x {tnn_gemms_per_forward(lm_state[1])} fused TNN launches, sweep "
+        f"{s9a['sweep_s']:.1f} s; chunked tnn2 "
+        f"{s9b['metrics']['generated_tokens_per_s']:.1f} tokens/s, cache bytes bf16 / tnn2 "
+        f"{s9b['cache_bytes']['ratio']:.2f}; every run == plain, tuned == untuned; an "
+        f"injected kernel failure raised and was quarantined; launch.serve ran; phase "
+        f"{serve_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,8 +8,8 @@ a sequential ``(m/bm, n/bn, kw/bkw)`` Pallas grid whose output tile stays
 resident in VMEM across the k axis.  On Hopper the blocks run in
 parallel and in no order, so each CTA owns a row block, stages its A
 rows once and loops over its column blocks and the k words itself
-(``lowbit_matmul_call`` below launches it, in the CTA tile
-:func:`gemm_tile` chooses).
+(``lowbit_matmul_call`` below launches it, in the CTA tile of a tuned
+plan or, without one, the tile :func:`gemm_tile` chooses).
 
 The plain version (:func:`chunked_bitwise_matmul`) is the counterpart of
 the reference's k-chunked ``lax.scan`` (``ops._chunked_bitwise_matmul``):
@@ -29,22 +29,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_TILES",
-           "gemm_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
+           "gemm_tile", "cta_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
            "scale_epilogue", "on_cuda", "gemm_dims", "row_stride",
            "check_f32_vec", "check_row_scale", "sm_count",
            "lowbit_matmul_call"]
 
 
-@dataclasses.dataclass(frozen=True, order=True)
+@dataclasses.dataclass(frozen=True)
 class TileConfig:
-    """One blocking choice of the plain versions: ``word_chunk`` is the
-    words per step (for the indexed backend, the segments per step) and
+    """One blocking choice: ``word_chunk`` is the plain versions' words
+    per step (for the indexed backend, the segments per step),
     ``seg_bits`` the indexed backend's segment width in bits (the
-    reference reads it from ``block_kw``).  The CUDA kernels' tiles are
-    not a choice of the caller: :func:`gemm_tile` derives the popcount
-    GeMM's from the shape, and the others are compiled in."""
+    reference reads it from ``block_kw``), and ``cta_tile`` the square
+    CTA tile of a CUDA GeMM kernel (one of ``GEMM_TILES``,
+    ``DENSE_TILES`` or ``AFFINE_TILES``; None: :func:`gemm_tile`'s
+    choice for the shape).  The conv kernels' tiles are compiled in."""
     word_chunk: int = 8
     seg_bits: int = 8
+    cta_tile: Optional[int] = None
+
+    def to_json(self) -> Dict[str, Optional[int]]:
+        return {"word_chunk": self.word_chunk, "seg_bits": self.seg_bits,
+                "cta_tile": self.cta_tile}
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Optional[int]]) -> "TileConfig":
+        tile = d.get("cta_tile")
+        return cls(word_chunk=int(d["word_chunk"]), seg_bits=int(d["seg_bits"]),
+                   cta_tile=None if tile is None else int(tile))
 
 
 DEFAULT_TILES: Dict[str, TileConfig] = {
@@ -63,6 +75,17 @@ DEFAULT_TILES: Dict[str, TileConfig] = {
 GEMM_TILES = (64, 32, 16)
 DENSE_TILES = (64, 32)
 AFFINE_TILES = (64, 32)
+
+
+def cta_tile(tile: Optional[int], m: int, n: int, device: int, tiles=GEMM_TILES) -> int:
+    """The CTA tile a GeMM kernel launches with: ``tile`` (a plan's
+    choice, which must be one of ``tiles``), else :func:`gemm_tile`'s."""
+    if tile is None:
+        return gemm_tile(m, n, sm_count(device), tiles)
+    if tile not in tiles:
+        raise ValueError(f"CTA tile {tile} not compiled into this kernel; "
+                         f"choose one of {tiles}")
+    return tile
 
 
 def gemm_tile(m: int, n: int, sms: int, tiles=GEMM_TILES) -> int:
@@ -279,8 +302,10 @@ def lowbit_matmul_call(mode: QuantMode, a_planes: Sequence[torch.Tensor],
                        b_planes: Sequence[torch.Tensor], k_valid: int, *,
                        row_scale: Optional[torch.Tensor] = None,
                        col_scale: Optional[torch.Tensor] = None,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/lowbit_gemm.cu`` on CUDA planes.
+                       bias: Optional[torch.Tensor] = None,
+                       tile: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/lowbit_gemm.cu`` on CUDA planes, in the CTA tile
+    ``tile`` (:func:`cta_tile`: a tuned plan's, else :func:`gemm_tile`'s).
 
     Without ``row_scale``/``col_scale`` the int32 core runs (BNN already
     finalized to ``k_valid - 2*popcount``); with them, the fused kernel
@@ -308,6 +333,6 @@ def lowbit_matmul_call(mode: QuantMode, a_planes: Sequence[torch.Tensor],
         "lowbit_gemm_launch", _GEMM_KEYS[(mode, fused)], device, _MODE_ID[mode],
         int(fused), a_planes[0].data_ptr(), a_planes[-1].data_ptr(),
         b_planes[0].data_ptr(), b_planes[-1].data_ptr(), m, n, kw, int(k_valid),
-        gemm_tile(m, n, sm_count(device)), _ptr(row_scale), stride,
+        cta_tile(tile, m, n, device), _ptr(row_scale), stride,
         _ptr(col_scale), _ptr(bias), out.data_ptr())
     return out

@@ -64,23 +64,25 @@ def bnn_matmul_fused_torch(a_bits: torch.Tensor, b_bits_t: torch.Tensor,
 
 
 def bnn_matmul_cuda(a_bits: torch.Tensor, b_bits_t: torch.Tensor,
-                    k_valid: int) -> torch.Tensor:
+                    k_valid: int, tile: Optional[int] = None) -> torch.Tensor:
     """int32 core (m, n): the kernel on CUDA planes, the plain version on
-    CPU planes."""
+    CPU planes.  ``tile``: the CTA tile (``_matmul_common.cta_tile``)."""
     if not on_cuda(a_bits, b_bits_t):
         return bnn_matmul_torch(a_bits, b_bits_t, k_valid)
-    return lowbit_matmul_call(_MODE, (a_bits,), (b_bits_t,), k_valid)
+    return lowbit_matmul_call(_MODE, (a_bits,), (b_bits_t,), k_valid, tile=tile)
 
 
 def bnn_matmul_fused_cuda(a_bits: torch.Tensor, b_bits_t: torch.Tensor,
                           k_valid: int, row_scale: torch.Tensor,
                           col_scale: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None,
+                          tile: Optional[int] = None) -> torch.Tensor:
     """Fused form, float32 (m, n): the kernel on CUDA operands, the plain
-    version on CPU operands."""
+    version on CPU operands.  ``tile``: the CTA tile
+    (``_matmul_common.cta_tile``)."""
     if not on_cuda(a_bits, b_bits_t, row_scale, col_scale, bias):
         return bnn_matmul_fused_torch(a_bits, b_bits_t, k_valid,
                                       row_scale, col_scale, bias)
     return lowbit_matmul_call(
         _MODE, (a_bits,), (b_bits_t,), k_valid,
-        row_scale=row_scale, col_scale=col_scale, bias=bias)
+        row_scale=row_scale, col_scale=col_scale, bias=bias, tile=tile)

@@ -42,12 +42,13 @@ import torch
 from repro_torch.core import encoding
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
-    _MODE_ID, _PLANES, DENSE_TILES, _ptr, check_f32_vec, check_row_scale,
-    gemm_dims, gemm_tile, on_cuda, scale_epilogue, sm_count)
+    _MODE_ID, _PLANES, DENSE_TILES, _ptr, check_f32_vec, check_row_scale, cta_tile,
+    gemm_dims, on_cuda, scale_epilogue)
 from repro_torch.kernels.conv_fused import (
     conv_pack_cuda, conv_spatial_pad, gather_patch_tile, packed_conv_args,
     quantize_patch_values)
 from repro_torch.kernels.modes import QuantMode
+from repro_torch.tune.space import DENSE_SPACE
 
 __all__ = ["unpack_values", "dense_matmul_torch", "dense_matmul_fused_torch",
            "dense_matmul_fused_cuda", "dense_conv_fused_torch",
@@ -112,11 +113,13 @@ _CONV_KEYS = {mode: f"dense_conv_{mode.value}" for mode in _MODE_ID}
 def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
                             k_valid: int, row_scale: torch.Tensor,
                             col_scale: torch.Tensor,
-                            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            bias: Optional[torch.Tensor] = None,
+                            tile: Optional[int] = None) -> torch.Tensor:
     """Fused dense GeMM, float32 (m, n): ``csrc/dense_tc.cu`` on CUDA
     operands (raises on anything it does not take), the plain version on
     CPU operands.  ``row_scale`` one per-tensor value or (m, 1) (never
-    copied), ``col_scale`` and ``bias`` n contiguous values."""
+    copied), ``col_scale`` and ``bias`` n contiguous values; ``tile`` the
+    CTA tile (``_matmul_common.cta_tile`` over ``DENSE_TILES``)."""
     if not on_cuda(*a_planes, *b_planes, row_scale, col_scale, bias):
         return dense_matmul_fused_torch(mode, a_planes, b_planes, k_valid,
                                         row_scale, col_scale, bias)
@@ -131,7 +134,7 @@ def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
         "dense_gemm_launch", _GEMM_KEYS[mode], device, _MODE_ID[mode],
         a_planes[0].data_ptr(), a_planes[-1].data_ptr(), b_planes[0].data_ptr(),
         b_planes[-1].data_ptr(), m, n, kw, int(k_valid),
-        gemm_tile(m, n, sm_count(device), DENSE_TILES), row_scale.data_ptr(),
+        cta_tile(tile, m, n, device, DENSE_TILES), row_scale.data_ptr(),
         stride, col_scale.data_ptr(), _ptr(bias), out.data_ptr())
     return out
 
@@ -218,7 +221,8 @@ def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
 def _register_dense_kernels():
     def make_gemm(mode):
         def fn(a, b, k, r, c, bias, *, tiles=None):
-            return dense_matmul_fused_cuda(mode, a, b, k, r, c, bias)
+            return dense_matmul_fused_cuda(mode, a, b, k, r, c, bias,
+                                           tile=tiles and tiles.cta_tile)
         return fn
 
     def make_conv(mode):
@@ -231,7 +235,7 @@ def _register_dense_kernels():
     for mode in (QuantMode.BNN, QuantMode.TNN, QuantMode.TBN):
         registry.register(
             mode, "dense", fused=True, epilogue="in-kernel",
-            compute="cuda-imma",
+            compute="cuda-imma", tunable=DENSE_SPACE,
             description="csrc/dense_tc.cu: planes decoded to +-1/0 int8 in "
                         "shared memory, wmma s8 -> s32, eq. (2) in-kernel",
         )(make_gemm(mode))

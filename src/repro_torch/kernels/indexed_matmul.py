@@ -42,6 +42,9 @@ from repro_torch.kernels import registry
 from repro_torch.kernels._matmul_common import (DEFAULT_TILES, TileConfig,
                                                 scale_epilogue)
 from repro_torch.kernels.modes import QuantMode
+# The tuning axes of these cells: the segment width in bits (the
+# reference's ``block_kw``) and the segments per step (``word_chunk``).
+from repro_torch.tune.space import INDEXED_SPACE
 
 __all__ = ["SEG_BITS_CHOICES", "INDEXED_SPACE", "seg_bits_for",
            "indexed_payload_keys", "segment_indices", "add_indexed_payload",
@@ -50,11 +53,6 @@ __all__ = ["SEG_BITS_CHOICES", "INDEXED_SPACE", "seg_bits_for",
 # Segment widths: divisors of 32, so a segment never straddles a word.
 SEG_BITS_CHOICES = (8, 4, 2)
 
-# The reference's tuning axes for these cells (``tune/space.py``
-# ``INDEXED_SPACE``): the segment width in bits (its ``block_kw``) and
-# the segments per step (its ``word_chunk``).  Kept as data: the port
-# has no tuner yet.
-INDEXED_SPACE = {"kind": "indexed", "seg_bits": (2, 4, 8), "word_chunk": (8, 16, 32)}
 
 
 def seg_bits_for(tiles: Optional[TileConfig]) -> int:

@@ -16,6 +16,8 @@ exact float64 product of ``int8_matmul.exact_int_matmul``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -59,9 +61,10 @@ def int4_matmul_torch(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.T
     return exact_int_matmul(_unpack_rows(a_packed), _unpack_cols(b_packed))
 
 
-def int4_matmul_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
-    """Raw accumulator, int32 (m, n): the kernel on CUDA operands, the
-    plain version on CPU operands."""
+def int4_matmul_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                     tile: Optional[int] = None) -> torch.Tensor:
+    """Raw accumulator, int32 (m, n): the kernel on CUDA operands (in CTA
+    tile ``tile``), the plain version on CPU operands."""
     if not on_cuda(a_packed, b_packed):
         return int4_matmul_torch(a_packed, b_packed)
-    return affine_gemm_call(True, a_packed, b_packed, 2 * a_packed.shape[1])
+    return affine_gemm_call(True, a_packed, b_packed, 2 * a_packed.shape[1], tile)

@@ -19,10 +19,12 @@ wrap modulo 2**32 past the int32 range, as XLA's int32 dot does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._matmul_common import AFFINE_TILES, gemm_tile, on_cuda, sm_count
+from repro_torch.kernels._matmul_common import AFFINE_TILES, cta_tile, on_cuda
 
 __all__ = ["int8_matmul_cuda", "int8_matmul_torch", "exact_int_matmul",
            "affine_gemm_call"]
@@ -45,10 +47,11 @@ _KEYS = {False: "affine_gemm_u8", True: "affine_gemm_u4"}
 
 
 def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
-                     k: int) -> torch.Tensor:
+                     k: int, tile: Optional[int] = None) -> torch.Tensor:
     """Launch ``csrc/affine_gemm.cu`` on CUDA uint8 operands: u8 a (m, k),
     b (k, n), or nibble-packed a (m, k/2), b (k/2, n) with ``k`` even, in
-    the CTA tile :func:`gemm_tile` plans over ``AFFINE_TILES`` (the
+    the CTA tile ``tile`` or, without one, the tile ``gemm_tile`` plans
+    over ``AFFINE_TILES`` (``_matmul_common.cta_tile``; the
     launcher picks the widest copy the operands' addresses and row strides
     allow).  Raises on anything the kernel does not take; never falls
     back."""
@@ -70,13 +73,14 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
         return out.zero_()
     _build.launch("affine_gemm_launch", _KEYS[u4], device, int(u4),
                   a.data_ptr(), b.data_ptr(), m, n, k,
-                  gemm_tile(m, n, sm_count(device), AFFINE_TILES), out.data_ptr())
+                  cta_tile(tile, m, n, device, AFFINE_TILES), out.data_ptr())
     return out
 
 
-def int8_matmul_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
-    """Raw accumulator, int32 (m, n): the kernel on CUDA operands, the
-    plain version on CPU operands."""
+def int8_matmul_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor,
+                     tile: Optional[int] = None) -> torch.Tensor:
+    """Raw accumulator, int32 (m, n): the kernel on CUDA operands (in CTA
+    tile ``tile``), the plain version on CPU operands."""
     if not on_cuda(a_u8, b_u8):
         return int8_matmul_torch(a_u8, b_u8)
-    return affine_gemm_call(False, a_u8, b_u8, a_u8.shape[1])
+    return affine_gemm_call(False, a_u8, b_u8, a_u8.shape[1], tile)

@@ -26,11 +26,26 @@ the plain versions anywhere, ``"dense"`` the tensor-core kernels of
 :mod:`repro_torch.kernels.dense_fused`.  A failing launch raises: there
 is no fallback chain.
 
-The CUDA kernels' tiles come from ``_matmul_common.gemm_tile`` (per
-shape and SM count).  Not ported (see ROADMAP.md): the plan cache and
-tuner, the obs counters and fault-injection points, the fallback chain
-and the mesh branch, and the deprecated ``fused_qmm`` shim (call
-``qmm`` with a QTensor).  The indexed backend (``backend="indexed"``,
+The blocking of a ``qmm`` request comes from the autotuner's plan cache
+(``repro_torch.tune.cache.plan_for``, one dict lookup once resolved):
+a tuned plan's CTA tile for the CUDA GeMMs (popcount, dense, u8/u4) or
+``word_chunk`` / ``seg_bits`` for the plain and indexed cells; without a
+plan, ``_matmul_common.gemm_tile``'s tile for the shape.  Under the
+"on_first_use" policy a new shape is tuned first
+(``tune.tuner.ensure_plan``).  The conv kernels' tiles are compiled in.
+Every ``qmm`` / ``qconv`` request counts in ``repro_qmm_dispatch_total``
+/ ``repro_qconv_dispatch_total`` (obs-gated) and passes the
+``kernel.compile`` fault point before its launch.
+
+Not ported (see ROADMAP.md): the reference's fallback chain
+(``fallback_decisions`` / ``reset_fallbacks``, pallas -> xla -> oracle
+with a cached decision): a failed or injected launch raises to the
+caller (in the serving engine, ``Engine.run`` quarantines the step);
+the retrace counters ``qmm_trace_count`` / ``qconv_trace_count``
+(nothing traces in PyTorch); the mesh branch; and the deprecated
+``fused_qmm`` shim (call ``qmm`` with a QTensor).
+
+The indexed backend (``backend="indexed"``,
 :mod:`repro_torch.kernels.indexed_matmul`) is plain PyTorch on any
 device; its cells read the weight QTensor's payload (``payload_aware``).
 """
@@ -42,6 +57,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import encoding, quantize
 from repro_torch.kernels import conv_fused, dense_fused, registry
 from repro_torch.kernels import indexed_matmul as _indexed_matmul
@@ -61,6 +77,9 @@ from repro_torch.kernels.tbn_matmul import (
 from repro_torch.kernels.tnn_matmul import (
     tnn_matmul_cuda, tnn_matmul_fused_cuda, tnn_matmul_fused_torch,
     tnn_matmul_torch)
+from repro_torch.resilience import faults
+from repro_torch.tune import cache as tune_cache
+from repro_torch.tune.space import AFFINE_SPACE, AFFINE_TORCH_SPACE, GEMM_SPACE, TORCH_SPACE
 
 __all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
            "quantize_activations", "packed_matmul", "has_conv_kernel",
@@ -104,7 +123,7 @@ def _register_all_kernels():
     def make(mode, kernel, fused, plain):
         def extra(tiles):
             if not plain:
-                return {}    # the CUDA tiles are compiled in
+                return {"tile": tiles and tiles.cta_tile}
             return {"word_chunk": (tiles or DEFAULT_TILES[mode.value]).word_chunk}
 
         def unfused_fn(a, b, k, *, tiles: Optional[TileConfig] = None):
@@ -122,6 +141,7 @@ def _register_all_kernels():
             mode, backend, fused=fused,
             epilogue=("post-core" if plain else "in-kernel") if fused else "none",
             compute="torch-popcount" if plain else "cuda-popcount",
+            tunable=TORCH_SPACE if plain else GEMM_SPACE,
             description=("chunked popcount in plain PyTorch" if plain else
                          "csrc/lowbit_gemm.cu, int32 registers")
                         + ("; eq. (2) epilogue" if fused else ""),
@@ -159,22 +179,22 @@ def _int_scalar(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def _affine_core(mode: QuantMode, a_pl, b_pl, k_valid: int, *,
-                 kernel: bool) -> torch.Tensor:
+                 kernel: bool, tile: Optional[int] = None) -> torch.Tensor:
     """int32 c~ per eq. (3).  ``a_pl``/``b_pl`` are the (grid, zero)
     pairs of ``_A_KEYS``/``_b_planes``: a_q (m, k) and b_q (k, n)
     u8/u4-valued, za/zb their zero points.  The raw accumulator comes
     from the u8/u4 kernel (``kernel``) or its plain version; the rank-1
     terms stay in plain PyTorch, as the reference applies them outside
-    Pallas."""
+    Pallas.  ``tile``: the kernel's CTA tile (``_matmul_common.cta_tile``)."""
     a_q, za = a_pl
     b_q, zb = b_pl
     # Unsigned 8-bit operands: widen from uint8 so 128..255 survive.
     a8, b8 = a_q.to(torch.uint8), b_q.to(torch.uint8)
     if mode == QuantMode.INT8:
-        acc = (int8_matmul_cuda if kernel else int8_matmul_torch)(a8, b8)
+        acc = int8_matmul_cuda(a8, b8, tile) if kernel else int8_matmul_torch(a8, b8)
     else:
-        acc = (int4_matmul_cuda if kernel else int4_matmul_torch)(
-            pack_nibbles_rows(a8), pack_nibbles_cols(b8))
+        a4, b4 = pack_nibbles_rows(a8), pack_nibbles_cols(b8)
+        acc = int4_matmul_cuda(a4, b4, tile) if kernel else int4_matmul_torch(a4, b4)
     rows = a_q.to(torch.int32).sum(dim=1, dtype=torch.int32)
     cols = b_q.to(torch.int32).sum(dim=0, dtype=torch.int32)
     za, zb = _int_scalar(za, acc), _int_scalar(zb, acc)
@@ -184,11 +204,11 @@ def _affine_core(mode: QuantMode, a_pl, b_pl, k_valid: int, *,
 def _register_affine_kernels():
     def make(mode, kernel, fused):
         def unfused_fn(a, b, k, *, tiles=None):
-            return _affine_core(mode, a, b, k, kernel=kernel)
+            return _affine_core(mode, a, b, k, kernel=kernel, tile=tiles and tiles.cta_tile)
 
         def fused_fn(a, b, k, r, c, bias, *, tiles=None):
-            return scale_epilogue(_affine_core(mode, a, b, k, kernel=kernel),
-                                  r, c, bias)
+            return scale_epilogue(_affine_core(mode, a, b, k, kernel=kernel,
+                                               tile=tiles and tiles.cta_tile), r, c, bias)
 
         return fused_fn if fused else unfused_fn
 
@@ -202,6 +222,7 @@ def _register_affine_kernels():
                     mode, backend, fused=fused,
                     epilogue="post-core" if fused else "none",
                     compute="cuda-imma" if kernel else "torch-int",
+                    tunable=AFFINE_SPACE if kernel else AFFINE_TORCH_SPACE,
                     description=f"{core}; eq. (3) zero-point terms in torch"
                                 + ("; eq. (2) epilogue" if fused else ""),
                 )(make(mode, kernel, fused))
@@ -362,6 +383,30 @@ def _float_passthrough(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y if qt.bias is None else y + qt.bias
 
 
+_QMM_DISPATCH_CTR = obs.get_registry().counter(
+    "repro_qmm_dispatch_total",
+    "qmm host-side dispatches by (mode, backend, layout)",
+    labels=("mode", "backend", "layout"))
+_QCONV_DISPATCH_CTR = obs.get_registry().counter(
+    "repro_qconv_dispatch_total",
+    "qconv host-side dispatches by (mode, backend, layout)",
+    labels=("mode", "backend", "layout"))
+
+
+def _plan_tiles(spec, mode: QuantMode, backend: str, m: int, n: int, k: int,
+                device: torch.device) -> Optional[TileConfig]:
+    """The blocking of one fused request: the plan cache's (tuned on
+    first use under that policy), or None for a cell with no space."""
+    if spec.tunable is None:
+        return None
+    if tune_cache.get_policy() == "on_first_use":
+        from repro_torch.tune import tuner     # tuner imports ops
+
+        tuner.ensure_plan(mode, backend, fused=True, m=m, n=n, k=k, device=device)
+    return tune_cache.plan_for(mode, backend, fused=True, m=m, n=n, k=k,
+                               device=device).tiles
+
+
 def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
         act_stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Quantized matmul: float ``x`` (m, k) against a :class:`QTensor` ->
@@ -375,7 +420,9 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     affine cell (e.g. "dense") runs the affine cell of
     :data:`DEFAULT_BACKEND`.  f32/bf16: a float32 product (+ bias).
     ``backend`` None -> :data:`DEFAULT_BACKEND` ("cuda"); the device is
-    ``x``'s, and ``qt`` must lie on it.
+    ``x``'s, and ``qt`` must lie on it.  The blocking comes from the plan
+    cache (module docstring); a failing launch, or an armed
+    ``kernel.compile`` fault, raises — there is no fallback.
     """
     _check_qtensor(qt, "qmm", lowbit=False)
     if x.ndim != 2:
@@ -388,18 +435,21 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     m, k = x.shape
     n = qt.out_features
     mode = qt.mode
-    if mode.is_float:
-        return _float_passthrough(x, qt)
     if mode in (QuantMode.INT8, QuantMode.INT4):
         backend = _affine_backend(mode, backend, fused=True)
+    _QMM_DISPATCH_CTR.inc(mode=mode.value, backend=backend, layout=registry.LAYOUT_GEMM)
+    faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
+    if mode.is_float:
+        return _float_passthrough(x, qt)
+    spec = registry.lookup(mode, backend, fused=True)
+    tiles = _plan_tiles(spec, mode, backend, m, n, k, x.device)
     xa = quantize_activations(x.to(torch.float32), mode, stats=act_stats)
     row = _as_row_scale(xa["scale"], m, x)
     col = _as_col_vec(qt.scale, n, x)
     b2 = None if qt.bias is None else _as_col_vec(qt.bias, n, x)
-    spec = registry.lookup(mode, backend, fused=True)
     a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
     extra = {"payload": qt.payload} if spec.payload_aware else {}
-    return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, **extra)
+    return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, tiles=tiles, **extra)
 
 
 def _qmm_oracle(x: torch.Tensor, qt: QTensor,
@@ -438,7 +488,8 @@ def qconv(x: torch.Tensor, qt: QTensor, *, stride: int = 1,
     (``pack_conv_filters``) -> float32 (B, OH, OW, Cout), never
     materializing the im2col matrix.  ``act_stats`` defaults to
     :func:`conv_fused.conv_act_stats` of ``x``; bit-identical to the
-    materializing oracle (im2col + :func:`qmm` with the same stats)."""
+    materializing oracle (im2col + :func:`qmm` with the same stats).  A
+    failing launch, or an armed ``kernel.compile`` fault, raises."""
     _check_qtensor(qt, "qconv", lowbit=True)
     if qt.geometry is None:
         raise ValueError("qconv needs a QTensor packed with "
@@ -451,6 +502,9 @@ def qconv(x: torch.Tensor, qt: QTensor, *, stride: int = 1,
         raise ValueError(f"channel mismatch: x has Cin={x.shape[-1]} but "
                          f"QTensor geometry is {qt.geometry}")
     backend = backend or DEFAULT_BACKEND
+    _QCONV_DISPATCH_CTR.inc(mode=qt.mode.value, backend=backend,
+                            layout=registry.LAYOUT_IM2COL)
+    faults.maybe_raise("kernel.compile", op="qconv", mode=qt.mode.value, backend=backend)
     x = x.to(torch.float32).contiguous()
     if act_stats is None:
         stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, stride, padding)

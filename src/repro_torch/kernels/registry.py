@@ -35,13 +35,16 @@ modes the (integer grid, zero point) pair of each operand):
 * im2col_fused: ``fn(x, b_planes, geometry, stride, padding, stats,
   col_scale, bias, *, tiles=None)`` -> float32 (B, OH, OW, Cout)
 
-``tiles`` (a ``TileConfig``) sets the plain versions' ``word_chunk``
-(and the indexed cells' ``seg_bits``); the CUDA kernels' tiles are
-compiled in (``DEFAULT_TILES``).  ``tunable`` is None but for the
-indexed cells, which carry the reference's candidate axes
-(``indexed_matmul.INDEXED_SPACE``) for a tuner the port does not have
-yet.  A ``payload_aware`` cell also takes ``payload=`` (the weight
-QTensor's payload dict).
+``tiles`` (a ``TileConfig``) sets the CUDA GeMMs' CTA tile
+(``cta_tile``; None: ``gemm_tile``'s choice), the plain versions'
+``word_chunk`` and the indexed cells' ``seg_bits``; the conv kernels'
+tiles are compiled in.  ``tunable`` is the cell's
+``repro_torch.tune.space.TuningSpace`` (the CTA tiles compiled into a
+CUDA GeMM, the plain versions' ``word_chunk``, the indexed axes), or
+None where nothing can be chosen (the conv cells, the materializing
+oracle).  ``ops.qmm`` passes each request the plan cache's blocking
+(``repro_torch.tune.cache.plan_for``).  A ``payload_aware`` cell also
+takes ``payload=`` (the weight QTensor's payload dict).
 """
 
 from __future__ import annotations

@@ -68,25 +68,27 @@ def tbn_matmul_fused_torch(a_plus: torch.Tensor, a_minus: torch.Tensor,
 
 def tbn_matmul_cuda(a_plus: torch.Tensor, a_minus: torch.Tensor,
                     b_bits_t: torch.Tensor,
-                    k_valid: int = 0) -> torch.Tensor:
+                    k_valid: int = 0, tile: Optional[int] = None) -> torch.Tensor:
     """int32 core (m, n): the kernel on CUDA planes, the plain version on
-    CPU planes."""
+    CPU planes.  ``tile``: the CTA tile (``_matmul_common.cta_tile``)."""
     if not on_cuda(a_plus, a_minus, b_bits_t):
         return tbn_matmul_torch(a_plus, a_minus, b_bits_t, k_valid)
-    return lowbit_matmul_call(_MODE, (a_plus, a_minus), (b_bits_t,), k_valid)
+    return lowbit_matmul_call(_MODE, (a_plus, a_minus), (b_bits_t,), k_valid, tile=tile)
 
 
 def tbn_matmul_fused_cuda(a_plus: torch.Tensor, a_minus: torch.Tensor,
                           b_bits_t: torch.Tensor,
                           k_valid: int, row_scale: torch.Tensor,
                           col_scale: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None,
+                          tile: Optional[int] = None) -> torch.Tensor:
     """Fused form, float32 (m, n): the kernel on CUDA operands, the plain
-    version on CPU operands."""
+    version on CPU operands.  ``tile``: the CTA tile
+    (``_matmul_common.cta_tile``)."""
     if not on_cuda(a_plus, a_minus, b_bits_t, row_scale, col_scale,
                    bias):
         return tbn_matmul_fused_torch(a_plus, a_minus, b_bits_t, k_valid,
                                       row_scale, col_scale, bias)
     return lowbit_matmul_call(
         _MODE, (a_plus, a_minus), (b_bits_t,), k_valid,
-        row_scale=row_scale, col_scale=col_scale, bias=bias)
+        row_scale=row_scale, col_scale=col_scale, bias=bias, tile=tile)

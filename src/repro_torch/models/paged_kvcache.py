@@ -31,10 +31,10 @@ Sliding-window ("AL") entries keep a ring of pages: logical position
 write-then-attend chunk never overwrites a key that one of its own
 queries still needs.
 
-Pages are written in place.  Not ported: the reference's fault-injection
-hook in ``PageAllocator.alloc`` (it comes with the serving slice), and
-its mesh axes beyond one card (:func:`paged_logical_axes` keeps the
-names).
+Pages are written in place.  ``PageAllocator.alloc`` passes the
+``pages.exhausted`` fault point (``repro_torch.resilience.faults``), as
+the reference's does.  Not ported: the mesh axes beyond one card
+(:func:`paged_logical_axes` keeps the names).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ import torch
 from repro_torch.core.encoding import pack_ternary, packed_width, unpack_bits
 from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import ModelConfig, ShardLayout
+from repro_torch.resilience import faults
 
 __all__ = [
     "INVALID_POS", "SCRATCH_PAGE", "is_paged", "entry_geometry",
@@ -185,19 +186,45 @@ def append_tokens(entry: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
     lp, off = (slot // page).long(), (slot % page).long()
     pid = torch.gather(entry["page_table"], 1, lp)
     pid = torch.where(live, pid, SCRATCH_PAGE).long()
-    # scratch-page writes may collide; nothing ever reads them back
+    src = _scratch_sources(live, off, page)
+
+    def land(x):
+        """``x`` (B, S, ...) as its writers carry it: a dead token the
+        values of its scratch slot's last dead token."""
+        return x.reshape(-1, *x.shape[2:])[src].reshape(x.shape)
+
     entry["pos"][pid, off] = torch.where(live, pos32, INVALID_POS)
     if "k_plus" in entry:
         for name, val in (("k", k), ("v", v)):
             t, alpha = ternarize_tokens(val)
             plus, minus = pack_ternary(t)
-            entry[f"{name}_plus"][pid, off] = plus
-            entry[f"{name}_minus"][pid, off] = minus
-            entry[f"{name}_scale"][pid, off] = alpha
+            entry[f"{name}_plus"][pid, off] = land(plus)
+            entry[f"{name}_minus"][pid, off] = land(minus)
+            entry[f"{name}_scale"][pid, off] = land(alpha)
     else:
-        entry["k"][pid, off] = k.to(entry["k"].dtype)
-        entry["v"][pid, off] = v.to(entry["v"].dtype)
+        entry["k"][pid, off] = land(k.to(entry["k"].dtype))
+        entry["v"][pid, off] = land(v.to(entry["v"].dtype))
     return entry
+
+
+def _scratch_sources(live: torch.Tensor, off: torch.Tensor, page: int) -> torch.Tensor:
+    """For each of the (B, S) tokens of a write, row-major, the token whose
+    values it writes: itself when live; for a dead token, the last dead
+    token (row-major) of its scratch-page slot.
+
+    Dead tokens share the scratch page, several to a slot, and what a
+    slot holds matters: a row with no live key attends to its whole view,
+    scratch slots included, and its output enters the per-tensor
+    activation statistics of the next projection, live rows and all.  A
+    CUDA scatter lands an arbitrary one of several writers of an
+    element; with every writer carrying the same values the result is
+    the reference's (and the CPU's) sequential last-write-wins, run after
+    run."""
+    flat_live, flat_off = live.reshape(-1), off.reshape(-1)
+    t = torch.arange(flat_live.numel(), device=live.device)
+    last = torch.full((page,), -1, dtype=torch.long, device=live.device).scatter_reduce(
+        0, flat_off, torch.where(flat_live, -1, t), reduce="amax")
+    return torch.where(flat_live, t, last[flat_off])
 
 
 def page_view(entry: Dict[str, Any], dh: int
@@ -247,6 +274,10 @@ class PageAllocator:
         return len(self._used)
 
     def alloc(self, n: int = 1) -> List[int]:
+        if faults.fire("pages.exhausted", want=n):
+            raise PagePoolExhausted(
+                f"page pool exhausted (injected): want {n}, have "
+                f"{len(self._free)} free of {self.n_pages - 1}")
         if n > len(self._free):
             raise PagePoolExhausted(
                 f"page pool exhausted: want {n}, have {len(self._free)} "

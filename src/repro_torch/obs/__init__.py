@@ -1,0 +1,60 @@
+"""Serving & kernel telemetry of the port: metrics registry, JSONL event
+log, profiler trace annotations, and the ``python -m repro_torch.obs``
+CLI.  Counterpart of ``repro/obs``; the names, environment variables,
+snapshot and event schemas are the reference's (``catalog.py`` lists
+the three metrics the port does not register).
+
+Quick tour::
+
+    from repro_torch import obs
+
+    reg = obs.get_registry()                    # process-wide registry
+    hits = reg.counter("my_hits_total", labels=("kind",))
+    hits.inc(kind="warm")
+
+    with obs.annotate("prefill_chunk"):         # torch.profiler region
+        ...
+
+    print(obs.to_prometheus(reg.snapshot()))
+
+``REPRO_OBS=off`` hard-disables everything (record calls are single
+attribute-lookup no-ops, event sinks never open); ``REPRO_OBS_EVENTS``
+points engine event logs at a JSONL file; ``REPRO_OBS_SNAPSHOT`` makes
+``write_snapshot_if_configured()`` dump the process registry on demand.
+"""
+
+from .registry import (ENV_OBS, SNAPSHOT_SCHEMA_VERSION, Counter, Gauge,
+                       Histogram, MetricsRegistry, get_registry, obs_enabled,
+                       set_enabled, to_prometheus)
+from .events import (SCHEMA_VERSION, ENV_EVENTS, EventLog, run_id,
+                     default_events_path, validate_line)
+from .catalog import CATALOG, check_snapshot
+from .trace import annotate
+
+import json as _json
+import os as _os
+
+ENV_SNAPSHOT = "REPRO_OBS_SNAPSHOT"
+
+__all__ = [
+    "ENV_OBS", "ENV_EVENTS", "ENV_SNAPSHOT", "SNAPSHOT_SCHEMA_VERSION",
+    "SCHEMA_VERSION", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "get_registry", "obs_enabled", "set_enabled", "to_prometheus",
+    "EventLog", "run_id", "default_events_path", "validate_line",
+    "CATALOG", "check_snapshot", "annotate",
+    "write_snapshot_if_configured",
+]
+
+
+def write_snapshot_if_configured(registry=None):
+    """Dump ``registry.snapshot()`` (default: process registry) to the
+    path in ``REPRO_OBS_SNAPSHOT``; no-op when unset or obs is off.
+    Returns the path written, or None."""
+    path = _os.environ.get(ENV_SNAPSHOT, "").strip()
+    if not path or not obs_enabled():
+        return None
+    snap = (registry or get_registry()).snapshot()
+    with open(path, "w", encoding="utf-8") as fh:
+        _json.dump(snap, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    return path

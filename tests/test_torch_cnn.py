@@ -12,7 +12,9 @@ port's boundaries.
   through ``qconv(act_stats=)``: every low-bit layer's feature map
   ``array_equal``, the float first layer to 1e-5;
 * no file of the port, nor ``chip_smoke.py``, imports ``jax`` or
-  ``repro``; entry points default to the card and raise without one;
+  ``repro``; entry points — ``PaperCNN``, the interop loaders,
+  ``python -m repro_torch.launch.serve`` and ``python -m
+  repro_torch.tune`` — default to the card and raise without one;
   ``chip_smoke.py`` fails without a card.
 """
 
@@ -37,6 +39,8 @@ from repro_torch.configs import paper_cnn as tcfg
 from repro_torch.core import conv as tconv
 from repro_torch.kernels import ops
 from repro_torch.kernels.modes import QuantMode
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.tune.__main__ import main as tune_main
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = tcfg.PAPER_CNN_SMOKE
@@ -152,13 +156,17 @@ def test_port_imports_neither_jax_nor_reference():
     assert bad == []
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     filters, classifier = paper_cnn_weights(CFG, seed=0)
     planes = {"bits": np.zeros((4, 1), np.uint32)}
     calls = [lambda: PaperCNN(CFG),
              lambda: interop.paper_cnn_from_numpy(filters, classifier, CFG),
              lambda: interop.qtensor_from_numpy(planes, np.ones(4, np.float32), None,
-                                                "bnn", (20, 4))]
+                                                "bnn", (20, 4)),
+             lambda: serve_main(["--smoke", "--requests", "1", "--new-tokens", "1"]),
+             lambda: tune_main(["--shapes", "8x8x32", "--modes", "tnn", "--backends",
+                                "cuda", "--reps", "1", "--warmup", "1",
+                                "--cache", str(tmp_path / "plans.json")])]
     for call in calls:
         if torch.cuda.is_available():
             assert call() is not None

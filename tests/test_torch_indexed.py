@@ -196,8 +196,8 @@ def test_seg_bits_for_and_space_mirror_reference():
     from repro.tune.space import INDEXED_SPACE as JSPACE
 
     assert ixm.SEG_BITS_CHOICES == jixm.SEG_BITS_CHOICES
-    assert ixm.INDEXED_SPACE["seg_bits"] == JSPACE.block_kw
-    assert ixm.INDEXED_SPACE["word_chunk"] == JSPACE.word_chunk
+    assert ixm.INDEXED_SPACE.seg_bits == JSPACE.block_kw
+    assert ixm.INDEXED_SPACE.word_chunk == JSPACE.word_chunk
     assert ixm.seg_bits_for(None) == jixm.seg_bits_for(None) == 8
     assert ixm.seg_bits_for(TileConfig()) == 8
     assert ixm.seg_bits_for(TileConfig(seg_bits=4)) == 4

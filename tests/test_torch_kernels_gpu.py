@@ -532,3 +532,145 @@ def test_quantlinear_backward_on_card(cuda_device):
     gx = (cd @ wd.t()) * (xd.abs() <= 1)
     assert torch.allclose(x.grad.double(), gx, rtol=1e-5, atol=1e-5)
     assert torch.allclose(w.grad.double(), xd.t() @ cd, rtol=1e-5, atol=1e-5)
+
+
+# (m, n, k) of the tuned-plan cases: the decode and prefill shapes of a
+# TinyLlama-like projection, ragged m/n/k, a deep product.
+PLAN_CASES = [(8, 2048, 2048), (128, 256, 2048), (37, 21, 130), (40, 20, 16000)]
+# where each GeMM entry point passes its CTA tile in _build.launch's args
+_TILE_ARG = {"lowbit_gemm_launch": 10, "dense_gemm_launch": 9, "affine_gemm_launch": 6}
+
+
+@pytest.mark.parametrize("mode", MODES + ["int8", "int4"])
+@pytest.mark.parametrize("shape", PLAN_CASES)
+def test_every_planned_tile_matches_plain(cuda_device, monkeypatch, mode, shape):
+    """Every CTA tile of each tunable space, handed to the registry cell
+    as a plan's ``tiles`` (the way ``qmm`` passes it), reaches the launch
+    and gives the plain version's output: fused and int32 popcount
+    GeMM, dense GeMM, u8/u4."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels._matmul_common import TileConfig
+
+    m, n, k = shape
+    qm = QuantMode(mode)
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=g, device=cuda_device)
+    qt = ops.pack_weights(torch.randn((k, n), generator=g, device=cuda_device), qm)
+    xa = ops.quantize_activations(x, qm)
+    a, b = tuple(xa[key] for key in ops._A_KEYS[qm]), ops._b_planes(qt, qm)
+    row, col = ops._as_row_scale(xa["scale"], m, x), ops._as_col_vec(qt.scale, n, x)
+    cells = [("cuda", True)] + ([("cuda", False), ("dense", True)] if qm.is_lowbit else [])
+    seen = []
+    real_launch = _build.launch
+
+    def recording(entry, key, device, *args):
+        seen.append(args[_TILE_ARG[entry]])
+        return real_launch(entry, key, device, *args)
+
+    monkeypatch.setattr(_build, "launch", recording)
+    for backend, fused in cells:
+        spec = registry.lookup(qm, backend, fused=fused)
+        plain = registry.lookup(qm, "torch", fused=fused)
+        args = (a, b, k, row, col, None) if fused else (a, b, k)
+        want = plain.fn(*args)
+        for tile in spec.tunable.cta_tile:
+            seen.clear()
+            got = spec.fn(*args, tiles=TileConfig(cta_tile=tile))
+            assert seen == [tile], (backend, fused, tile)
+            assert torch.equal(got, want), (backend, fused, tile)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "tnn2"])
+def test_engine_on_card_matches_plain(cuda_device, tmp_path, monkeypatch, kv):
+    """A 2-layer smoke TinyLlama packed under tnn, served on the card by
+    the Engine (bucket or chunked scheduler) with an offline-tuned plan
+    cache: tokens and every logit trace row ``torch.equal`` to the same
+    engine on the plain versions; the pages balance."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.serving import Engine, Request, ServeConfig
+    from repro_torch.tune import cache as plan_cache
+
+    monkeypatch.setenv(plan_cache.ENV_CACHE_PATH, str(tmp_path / "plans.json"))
+    cfg = get_smoke("tinyllama-1.1b").with_(dtype=torch.float32, quant_policy="tnn",
+                                            kv_cache_dtype=kv, num_layers=2)
+    lay = ShardLayout()
+    params = model.init_lm(torch.Generator(device=cuda_device).manual_seed(5), cfg, lay,
+                           device=cuda_device)
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (5, 12, 8, 16, 3)]
+    runs = []
+    for c, autotune in ((cfg, "offline"), (cfg.with_(quant_backend="torch"), "off")):
+        eng = Engine(params, c, lay, ServeConfig(num_slots=2, max_len=32, prefill_bucket=8,
+                                                 page_size=8, prefill_chunk=8,
+                                                 pack_params=True, autotune=autotune,
+                                                 trace_logits=True))
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=4))
+        res = eng.run()
+        assert all(r.status == "ok" and len(r.tokens) == 5 for r in res.values())
+        assert all(s["used"] == 0 for s in eng.page_stats())
+        runs.append(({u: r.tokens for u, r in res.items()}, eng.logit_trace))
+        eng.close()
+    assert runs[0][0] == runs[1][0]
+    for uid, rows in runs[0][1].items():
+        for a_, b_ in zip(rows, runs[1][1][uid]):
+            assert (a_ == b_).all()
+    assert len(plan_cache.PlanCache(str(tmp_path / "plans.json")).load()) > 0
+
+
+@pytest.mark.parametrize("oracle", [False, True])
+def test_paged_dead_writes_deterministic_on_card(cuda_device, oracle):
+    """Dead tokens of a paged write share the scratch page, many to a
+    slot.  On the card every leaf, scratch page included, equals the same
+    values written one token at a time in row-major order (sequential
+    last-write-wins), call after call."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.encoding import pack_ternary
+    from repro_torch.models import ShardLayout
+    from repro_torch.models import paged_kvcache as paged
+
+    cfg = get_smoke("tinyllama-1.1b")
+    b, s = 4, 32
+
+    def fresh():
+        e = {k: v[0] for k, v in paged.init_paged_caches(
+            cfg, ShardLayout(), b, 64, page_size=8, oracle=oracle,
+            device=cuda_device)[0].items()}
+        pager = paged.EntryPager.from_entry(e, b)
+        for row in range(b):
+            pager.ensure(row, 40)
+        e["page_table"] = pager.device_table(1, cuda_device)[0]
+        return e
+
+    got, want = fresh(), fresh()
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    kvp = got["k" if oracle else "k_plus"].shape[-2]
+    n_pages, page, npp = paged.entry_geometry(got)
+    for call in range(3):
+        k = torch.randn((b, s, kvp, cfg.head_dim_), generator=g, device=cuda_device)
+        positions = torch.arange(s, dtype=torch.int32, device=cuda_device).expand(b, s) + 8 * call
+        live = torch.zeros((b, s), dtype=torch.bool, device=cuda_device)
+        live[call % b, :5 + call] = True           # the rest: dead, 8 scratch slots
+        paged.append_tokens(got, k, -k, positions, live)
+        vals = {}
+        for name, x in (("k", k), ("v", -k)):
+            if oracle:
+                vals[name] = x.to(want[name].dtype)
+            else:
+                t, alpha = paged.ternarize_tokens(x)
+                vals[name + "_plus"], vals[name + "_minus"] = pack_ternary(t)
+                vals[name + "_scale"] = alpha
+        slot = positions % (npp * page)
+        pid = torch.gather(want["page_table"], 1, (slot // page).long())
+        pid = torch.where(live, pid, paged.SCRATCH_PAGE)
+        for row in range(b):
+            for tok in range(s):
+                p_, o_ = int(pid[row, tok]), int(slot[row, tok] % page)
+                want["pos"][p_, o_] = int(positions[row, tok]) if live[row, tok] \
+                    else paged.INVALID_POS
+                for name, val in vals.items():
+                    want[name][p_, o_] = val[row, tok]
+        for name, leaf in want.items():
+            assert torch.equal(got[name], leaf), (call, name)

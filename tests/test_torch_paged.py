@@ -258,6 +258,37 @@ def test_dead_tokens_route_to_scratch():
     assert (paged.page_view(fresh, dh)[2] == INVALID_POS).all()
 
 
+@pytest.mark.parametrize("oracle", [False, True])
+def test_dead_writes_of_a_scratch_slot_carry_one_token(oracle):
+    """Every writer of a scratch slot carries the values of the slot's
+    last dead token (row-major), so what a slot holds does not depend on
+    which writer a CUDA scatter lands: the reference's sequential
+    last-write-wins, scratch page included; live tokens write
+    themselves."""
+    live = torch.tensor([[True, True, False, False], [False, False, False, True]])
+    off = torch.tensor([[0, 1, 2, 2], [2, 3, 2, 3]])
+    assert paged._scratch_sources(live, off, 4).tolist() == [0, 1, 6, 6, 6, 5, 6, 7]
+    cfg = get_smoke("tinyllama-1.1b")
+    kvp, dh, b, s = _kvp(cfg), cfg.head_dim_, 2, 8
+    entry = _strip(paged.init_paged_caches(cfg, TL, b, 24, page_size=4, oracle=oracle,
+                                           device=CPU)[0])
+    entry, _ = _backed(entry, b, 24)
+    jentry = _j_entry(entry)
+    rng = np.random.default_rng(9)
+    k = (rng.integers(-2047, 2048, (b, s, kvp, dh)) / 256.0).astype(np.float32)
+    positions = np.arange(s, dtype=np.int32)[None].repeat(b, 0)
+    live = np.zeros((b, s), bool)
+    live[0, :3] = True                      # 13 dead tokens on 4 scratch slots
+    jentry = jpaged.append_tokens(jentry, jnp.asarray(k), jnp.asarray(-k),
+                                  jnp.asarray(positions), jnp.asarray(live))
+    paged.append_tokens(entry, torch.from_numpy(k), torch.from_numpy(-k),
+                        torch.from_numpy(positions), torch.from_numpy(live))
+    got = _np_entry(entry)
+    for key, val in jentry.items():
+        want = np.asarray(val, np.float32) if val.dtype == jnp.bfloat16 else np.asarray(val)
+        np.testing.assert_array_equal(got[key], want, key)
+
+
 # ------------------------------------------------------- attention
 
 @pytest.mark.parametrize("kvd", ["tnn2", "tnn2-oracle"])
