@@ -165,14 +165,55 @@ without printing a result:
    9d. ``repro_torch.launch.serve.main`` (``--arch tinyllama-1.1b --quant
        tnn --requests 4 --slots 2 --new-tokens 8``) in-process on the
        card: four "ok" results, fused TNN launches only;
-10. the last line: ``{"ok": true, "device": {...}}``.
+10. training (right after 9d, before any profiler session), launch
+    counters zeroed just before each step and read just after:
+    10a. a ``Trainer`` of QAT under ``tnn`` on TinyLlama-1.1B at its
+        published width and depth (float32 masters, bf16 compute copies,
+        ``cfg.remat``: each period checkpointed), random weights from a
+        generator on the card, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a
+        step from ``SyntheticLM`` seed 0, AdamW (lr 3e-4, warm-up 1,
+        float32 moments): one warm-up step, ``TRAIN_TIMED`` timed ones
+        (host clock around each synchronized step); finite losses,
+        exactly 2 x 7 x 22 = 308 fused TNN GeMM launches per step and
+        nothing else; ms per step and tokens/s beside the float32 bound
+        (``train_flops`` at 67 TFLOP/s), peak memory, moment bytes;
+    10b. one step from the same state and batch with ``quant_backend=
+        "cuda"`` and ``"torch"`` (the plain versions), under
+        ``torch.use_deterministic_algorithms``: the loss, every gradient
+        leaf and every updated parameter ``torch.equal``; twice: at full
+        depth on 1 x ``TRAIN_SEQ`` tokens (308 launches on the kernels),
+        and at 10a's rows, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (m = 4,096 per
+        projection), at ``LM_CUT_LAYERS`` layers (2 x 7 x 2 = 28
+        launches); none on the plain runs;
+    10c. ``moments_dtype="int8"`` with ``ef_compression``, 2 steps: finite
+        losses, 308 launches a step, moment bytes beside 10a's; then
+        ``microbatch=2`` against 1 under the ``bf16`` policy (the
+        reference's own check; under ``tnn`` each microbatch quantizes
+        with its own per-tensor statistics): first-step losses within
+        ``rtol=1e-4``;
+    10d. resume at full width and ``LM_CUT_LAYERS`` layers, deterministic:
+        4 steps with saves at 2 and 4; a fresh ``Trainer`` restores step
+        2 and runs steps 3-4: its losses and its final checkpoint equal
+        to the uninterrupted run's; checkpoint bytes, save and restore
+        seconds, in a directory under ``build/`` removed afterwards;
+    10e. ``repro_torch.launch.train.main`` (``--arch tinyllama-1.1b
+        --smoke --quant tnn --steps 30 --lr 3e-3``) in-process on the card:
+        exactly 14 fused TNN launches a step, the mean of the last five
+        losses below the first five's;
+    10f. (after 7d) torch.profiler over one step of 10a's configuration
+        after a warm-up step: device kernel time (popcount GeMMs, float
+        GeMMs, the rest), kernels launched, busy share against 10a's
+        unprofiled ms per step;
+11. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -254,6 +295,12 @@ INDEXED_POLICIES = {"tnn_indexed": "tnn", "bnn_indexed": "bnn", "tnn_mixed": "tn
 # leaves the largest bucket (512) room for them: 512 + 16.
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW_TOKENS = 8, 4, (16, 400), 16
 SERVE_BUCKET, SERVE_MAX_LEN = 128, 528
+# Phase 10, training: QAT (tnn) on TinyLlama-1.1B at its published width
+# and depth, TRAIN_BATCH x TRAIN_SEQ tokens a step from SyntheticLM seed 0,
+# one warm-up step and TRAIN_TIMED timed ones; the resume check (10d) at
+# LM_CUT_LAYERS layers; launch.train at smoke size for TRAIN_LAUNCH_STEPS.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED, TRAIN_LAUNCH_STEPS = 8, 512, 4, 30
+FP32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -1540,6 +1587,346 @@ def phase9(torch, dev, lm_state, card):
     return report, launches9
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` for a comparison of two
+    runs (the embedding's and ``torch.gather``'s backward scatter-add with
+    atomics otherwise).  That mode refuses cuBLAS calls unless
+    ``CUBLAS_WORKSPACE_CONFIG`` is set, so it is set for the duration.
+    PyTorch reads the variable once, when cuBLAS first picks its workspace
+    size, long before this point: here it only satisfies the check and
+    does not change cuBLAS (set for the whole script, it made every small
+    cuBLAS call several times slower on the host, and with it the library
+    yardsticks of phase 6).  Equal results rest on cuBLAS being
+    reproducible on one stream, which the comparison's ``torch.equal``
+    verifies on every run."""
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+
+
+def train_flops(cfg, batch, seq) -> float:
+    """Float32 operations of one QAT step of ``cfg`` at (batch, seq), from
+    shapes: per projection the STE backward's two products (gx, gw: 4 m n
+    k; the forward is the popcount GeMM), the head's bf16-operand product
+    forward and backward (6 m d V), and per attention layer and sequence
+    QK^T and PV (4 S^2 d) in the forward, the remat recompute and twice in
+    the backward (16 S^2 d)."""
+    m = batch * seq
+    proj = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, 0))
+    head = 6 * m * cfg.d_model * cfg.vocab_size
+    attn = sum(m_ in ("A", "AL") for m_, _ in cfg.layer_pattern) * cfg.num_periods
+    hd = cfg.num_heads * cfg.head_dim_
+    return proj + head + attn * batch * 16 * seq * seq * hd
+
+
+def phase10(torch, dev):
+    """Phase 10a-10e (see the module docstring); nothing here runs under
+    torch.profiler.  Returns (the report, {sub-phase: {kernel: launches}}
+    for 10a and 10c at full width and 10e at the smoke width)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer, save_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataState, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import ShardLayout
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig, init_train_state
+    from repro_torch.train import train_step as tts
+    from repro_torch.tree import flatten_with_paths
+
+    t_phase = time.perf_counter()
+    lay = ShardLayout()
+    report, launches10 = {}, {"10a": {}, "10c": {}, "10e": {}}
+    key = LM_POLICY_KERNELS["tnn"]
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    # remat runs each period's forward a second time in the backward
+    per_step = (2 if cfg.remat else 1) * tnn_gemms_per_forward(cfg)
+    source = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def add(phase, launches):
+        for k, v in launches.items():
+            launches10[phase][k] = launches10[phase].get(k, 0) + v
+
+    def trainer(c, t, steps, **kw):
+        return Trainer(c, lay, t, TrainerConfig(steps=steps, log_every=10**9, **kw), source,
+                       device=dev, log_fn=log)
+
+    def timed(tr):
+        """Instrument ``tr``'s step: host clock around each synchronized
+        step, launch counters zeroed just before it and read just after."""
+        rows, inner = [], tr.step_fn
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = inner(state, batch)
+            float(out[1]["loss"])
+            torch.cuda.synchronize()
+            rows.append((time.perf_counter() - t0, _build.launches()))
+            return out
+
+        tr.step_fn = step
+        return rows
+
+    def check_steps(rows, losses, what, want=None):
+        want = {key: per_step} if want is None else want
+        for i, (_, launches) in enumerate(rows):
+            if launches != want:
+                raise AssertionError(f"{what}: step {i} launched {launches}, expected {want}")
+            add(what.split()[0], launches)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: non-finite loss in {losses}")
+
+    def moment_bytes(state):
+        return sum(t.numel() * t.element_size() for _, t in flatten_with_paths(
+            {"m": state["opt"]["m"], "v": state["opt"]["v"]}))
+
+    def equal_trees(a, b, what):
+        for (k, x), (_, y) in zip(flatten_with_paths(a), flatten_with_paths(b)):
+            if not torch.equal(x, y):
+                err = (x.double() - y.double()).abs().max().item()
+                raise AssertionError(f"{what}: {k} differs (max abs err {err})")
+
+    # -- 10a. QAT at full width: 1 warm-up + TRAIN_TIMED timed steps --------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = trainer(cfg, tcfg, 1 + TRAIN_TIMED)
+    rows = timed(tr)
+    state, ds = tr.restore_or_init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mom_f32 = moment_bytes(state)
+    res = tr.run(state, ds)
+    peak = torch.cuda.max_memory_allocated()
+    check_steps(rows, res.losses, "10a")
+    step_s = [r[0] for r in rows[1:]]
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    report["10a"] = {
+        "arch": cfg.name, "num_layers": cfg.num_layers, "quant_policy": "tnn",
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": res.losses, "step_ms": [s * 1e3 for s in step_s],
+        "warmup_step_ms": rows[0][0] * 1e3, "mean_step_ms": float(np.mean(step_s)) * 1e3,
+        "tokens_per_s": tokens / float(np.mean(step_s)),
+        "fused_tnn_launches_per_step": per_step, "peak_memory_bytes": peak,
+        "moment_bytes_f32": mom_f32, "init_s": init_s, "step_flops_f32": flops,
+        "step_bound_ms": flops / FP32_FLOPS_PER_S * 1e3}
+    log("[train 10a] " + json.dumps(report["10a"]))
+    del state, tr, res
+    torch.cuda.empty_cache()
+
+    # -- 10b. one step on the kernels and on the plain versions --------------
+    def kernels_vs_plain(c, batch):
+        """One step of ``c`` from the same state and batch on the kernels and
+        on the plain versions, deterministic: loss, every gradient leaf and
+        every updated parameter torch.equal.  -> the case's report."""
+        want = {key: (2 if c.remat else 1) * tnn_gemms_per_forward(c)}
+        runs = []
+        with deterministic(torch):
+            for cc in (c.with_(quant_backend="cuda"), c.with_(quant_backend="torch")):
+                st = init_train_state(torch.Generator(device=dev).manual_seed(10), cc, lay,
+                                      tcfg, device=dev)
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t1 = time.perf_counter()
+                (loss, _), grads = tts.value_and_grad(tts.make_loss_fn(cc, lay, tcfg),
+                                                      st["params"], batch)
+                params, _, _ = adamw_update(grads, st["opt"], st["params"], tcfg.optimizer)
+                torch.cuda.synchronize()
+                runs.append((loss, grads, params, _build.launches(), time.perf_counter() - t1))
+                del st, grads, params
+        (lk, gk, pk, nk, sk), (lp, gp, pp, np_, sp) = runs
+        what = f"10b ({c.num_layers} layers, {batch['tokens'].numel()} tokens)"
+        if nk != want or np_:
+            raise AssertionError(f"{what}: kernel run launched {nk} (expected {want}), "
+                                 f"plain run {np_}")
+        if not (torch.isfinite(lk) and torch.equal(lk, lp)):
+            raise AssertionError(f"{what}: loss {lk.item()} (kernels) vs {lp.item()} (plain)")
+        equal_trees(gk, gp, f"{what} gradient")
+        equal_trees(pk, pp, f"{what} updated parameter")
+        out = {"batch": list(batch["tokens"].shape), "num_layers": c.num_layers,
+               "loss": lk.item(), "kernel_launches": nk[key], "kernel_step_s": sk,
+               "plain_step_s": sp, "leaves": len(flatten_with_paths(gk))}
+        del runs, gk, gp, pk, pp
+        torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    report["10b"] = {
+        # full depth on one sequence, then the main path's rows (TRAIN_BATCH x
+        # TRAIN_SEQ: m = 4,096 per projection) at LM_CUT_LAYERS layers
+        "full_depth": kernels_vs_plain(cfg, {k: torch.from_numpy(v).to(dev) for k, v in
+                                             dataclasses.replace(source, global_batch=1)
+                                             .batch_at(DataState(0, 0)).items()}),
+        "main_path_rows": kernels_vs_plain(cfg.with_(num_layers=LM_CUT_LAYERS), {
+            k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(DataState(0, 0)).items()})}
+    report["10b"]["phase_s"] = time.perf_counter() - t0
+    log("[train 10b] " + json.dumps(report["10b"]) + ": in both, loss, every gradient leaf "
+        "and every updated parameter torch.equal (kernels vs plain, deterministic algorithms)")
+
+    # -- 10c. int8 moments + EF compression; microbatch 2 vs 1 ---------------
+    t0 = time.perf_counter()
+    t8 = TrainStepConfig(optimizer=dataclasses.replace(tcfg.optimizer, moments_dtype="int8"),
+                         ef_compression=True)
+    tr = trainer(cfg, t8, 2)
+    rows8 = timed(tr)
+    state, ds = tr.restore_or_init()
+    mom_i8 = moment_bytes(state)
+    res = tr.run(state, ds)
+    check_steps(rows8, res.losses, "10c int8 + EF")
+    del state, tr
+    torch.cuda.empty_cache()
+    # the reference's own check (tests/test_train_e2e.py) runs the bf16 policy:
+    # under tnn each microbatch quantizes with its own per-tensor statistics
+    bcfg = cfg.with_(quant_policy="bf16")
+    first = {}
+    for micro in (1, 2):
+        tr = trainer(bcfg, dataclasses.replace(tcfg, microbatch=micro), 1)
+        rows = timed(tr)
+        first[micro] = tr.run().losses[0]
+        check_steps(rows, [first[micro]], f"10c microbatch {micro}", want={})
+        del tr
+        torch.cuda.empty_cache()
+    if not np.isclose(first[2], first[1], rtol=1e-4, atol=0):
+        raise AssertionError(f"10c: microbatch=2 first loss {first[2]} vs {first[1]}")
+    report["10c"] = {"int8_ef_losses": res.losses, "int8_ef_step_ms": [r[0] * 1e3 for r in rows8],
+                     "moment_bytes_int8": mom_i8, "moment_bytes_f32": mom_f32,
+                     "moment_ratio_f32_over_int8": mom_f32 / mom_i8,
+                     "microbatch_first_loss": {"1": first[1], "2": first[2]},
+                     "phase_s": time.perf_counter() - t0}
+    log("[train 10c] " + json.dumps(report["10c"]))
+
+    # -- 10d. resume on the card at LM_CUT_LAYERS layers ---------------------
+    t0 = time.perf_counter()
+    ccfg = cfg.with_(num_layers=LM_CUT_LAYERS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="train_ck_"))
+    try:
+        with deterministic(torch):
+            d = str(tmp / "ck")
+            kw = dict(checkpoint_every=2, checkpoint_dir=d)
+            full = trainer(ccfg, tcfg, 4, **kw).run()
+            (tmp / "full").mkdir()
+            shutil.move(str(tmp / "ck" / "step_000004"), str(tmp / "full" / "step_000004"))
+            tr = trainer(ccfg, tcfg, 4, **kw)
+            t1 = time.perf_counter()
+            state, ds = tr.restore_or_init()
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            if ds.step != 2 or int(state["opt"]["step"]) != 2:
+                raise AssertionError(f"10d: restored {ds}, opt step {int(state['opt']['step'])}")
+            resumed = tr.run(state, ds)
+            if resumed.losses != full.losses[2:]:
+                raise AssertionError(f"10d: resumed losses {resumed.losses} vs {full.losses[2:]}")
+            del state, tr
+            npz = [tmp / "full" / "step_000004" / "host_0.npz", tmp / "ck" / "step_000004" /
+                   "host_0.npz"]
+            with np.load(npz[0]) as a, np.load(npz[1]) as b:
+                if sorted(a.files) != sorted(b.files):
+                    raise AssertionError("10d: the two final checkpoints hold other leaves")
+                for k in a.files:
+                    if not np.array_equal(a[k], b[k]):
+                        raise AssertionError(f"10d: final {k} differs from the uninterrupted run")
+                n_leaves = len(a.files)
+            # save and restore seconds of one checkpoint, outside the trainer
+            target = trainer(ccfg, tcfg, 4).restore_or_init()[0]
+            t1 = time.perf_counter()
+            restored, _ = Checkpointer(CheckpointConfig(str(tmp / "full"))).restore(4, target)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            save_tree(str(tmp / "again"), 4, restored)
+            save_s = time.perf_counter() - t1
+            ck_bytes = npz[0].stat().st_size
+            del restored, target
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["10d"] = {"num_layers": LM_CUT_LAYERS, "losses": full.losses,
+                     "resumed_losses": resumed.losses, "checkpoint_bytes": ck_bytes,
+                     "leaves": n_leaves, "save_s": save_s, "restore_s": restore_s,
+                     "restore_or_init_s": resume_s, "phase_s": time.perf_counter() - t0}
+    log("[train 10d] " + json.dumps(report["10d"]) + ": resumed losses and final state "
+        "equal to the uninterrupted run's")
+
+    # -- 10e. the entry point ------------------------------------------------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    res = launch_train.main(["--arch", LM_ARCH, "--smoke", "--quant", "tnn", "--steps",
+                             str(TRAIN_LAUNCH_STEPS), "--lr", "3e-3", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    from repro_torch.configs import get_smoke
+    want = {key: TRAIN_LAUNCH_STEPS * tnn_gemms_per_forward(get_smoke(LM_ARCH)) *
+            (2 if get_smoke(LM_ARCH).remat else 1)}
+    if launches != want:
+        raise AssertionError(f"10e: launch.train launched {launches}, expected {want}")
+    add("10e", launches)
+    head, tail = float(np.mean(res.losses[:5])), float(np.mean(res.losses[-5:]))
+    if not (all(np.isfinite(res.losses)) and tail < head):
+        raise AssertionError(f"10e: loss did not fall ({head} -> {tail})")
+    report["10e"] = {"steps": res.final_step, "first5_mean": head, "last5_mean": tail,
+                     "launches": launches, "s": time.perf_counter() - t0}
+    log("[train 10e] " + json.dumps(report["10e"]))
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, launches10
+
+
+def train_profile(torch, dev, step_ms):
+    """Phase 10f: torch.profiler over one QAT step of 10a's configuration,
+    after a warm-up step (run after phase 6, as 7d: a profiler session
+    leaves later launches slower); busy share = device kernel time over
+    10a's unprofiled host ms per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataState, SyntheticLM
+    from repro_torch.models import ShardLayout
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainStepConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    source = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
+    step = make_train_step(cfg, ShardLayout(), tcfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, ShardLayout(),
+                             tcfg, device=dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                source.batch_at(DataState(i, 0)).items()} for i in range(2)]
+    state, met = step(state, batches[0])
+    float(met["loss"])
+    rows, prof_ms = profiled(lambda: float(step(state, batches[1])[1]["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    dev_ms = sum(r[1] for r in rows)
+    popc = sum(ms for n, ms, _ in rows if "lowbit_gemm_kernel" in n)
+    floats = sum(ms for n, ms, _ in rows if "lowbit" not in n
+                 and re.search(r"gemm|sm90_|cutlass|ampere", n, re.I))
+    return {"device_kernel_ms": dev_ms, "host_ms_profiled": prof_ms,
+            "host_ms_unprofiled": step_ms, "device_busy_share": dev_ms / step_ms,
+            "popcount_gemm_ms": popc, "float_gemm_ms": floats,
+            "other_kernels_ms": dev_ms - popc - floats, "kernels": sum(r[2] for r in rows),
+            "top": [[n[:80], ms, calls] for n, ms, calls in rows[:12]]}
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -1930,6 +2317,10 @@ def main(argv=None) -> int:
     for k_, v_ in serve_launches.items():
         lm_launches[k_] = lm_launches.get(k_, 0) + v_
     log(card)
+    # -- 10. training: Trainer, the optimizer variants, resume, launch.train
+    # (before any profiler session) -------------------------------------------
+    train_report, train_launches = phase10(torch, dev)
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -2148,9 +2539,17 @@ def main(argv=None) -> int:
     lm_report["7d"] = lm_profile(torch, *lm_state[:3], a["tnn_prefill_ms"],
                                  a["tnn_decode_ms_per_token"])
     log("[lm 7d] " + json.dumps(lm_report["7d"]))
+    # -- 10f. one training step under torch.profiler -------------------------
+    t0 = time.perf_counter()
+    train_report["10f"] = train_profile(torch, dev, train_report["10a"]["mean_step_ms"])
+    train_report["10f"]["s"] = time.perf_counter() - t0
+    log("[train 10f] " + json.dumps(train_report["10f"]))
     for k in kernels:
         if k["name"] in lm_launches:
             k["launches_lm_path"] = lm_launches[k["name"]]
+        per = {p: n[k["name"]] for p, n in train_launches.items() if k["name"] in n}
+        if per:     # each sub-phase at its own size: 10a and 10c full width, 10e smoke
+            k["launches_train_path"] = per
     log(f"[lm] {LM_ARCH} (22 x 2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch "
         f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_STEPS} greedy steps: tnn packed "
         f"prefill {a['tnn_prefill_tokens_per_s']:.1f} tokens/s, decode "
@@ -2188,6 +2587,16 @@ def main(argv=None) -> int:
         f"{s9b['cache_bytes']['ratio']:.2f}; every run == plain, tuned == untuned; an "
         f"injected kernel failure raised and was quarantined; launch.serve ran; phase "
         f"{serve_report['phase_s']:.1f} s")
+    t10 = train_report["10a"]
+    log(f"[train] {LM_ARCH} QAT (tnn, remat) {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"{t10['mean_step_ms']:.1f} ms/step ({t10['tokens_per_s']:.1f} tokens/s; float32 "
+        f"bound {t10['step_bound_ms']:.1f} ms; busy share "
+        f"{train_report['10f']['device_busy_share']:.3f}), peak memory "
+        f"{t10['peak_memory_bytes'] / 2**30:.2f} GiB, {t10['fused_tnn_launches_per_step']} "
+        f"fused TNN launches per step; moment bytes f32 / int8 "
+        f"{train_report['10c']['moment_ratio_f32_over_int8']:.2f}; kernels == plain, resume "
+        f"== uninterrupted; launch.train loss {train_report['10e']['first5_mean']:.3f} -> "
+        f"{train_report['10e']['last5_mean']:.3f}; phase {train_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

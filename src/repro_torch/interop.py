@@ -12,6 +12,11 @@ reference's ``init_lm`` tree (period-stacked leaves) or its
 ``pack_lm_params`` tree, whose packed projections are stacked containers
 (payload planes and scales with a leading period dim), with every leaf
 a numpy array — ``jax.tree.map(np.asarray, tree)`` makes one.
+
+Train states (:func:`train_state_from_numpy`, :func:`train_state_to_numpy`)
+come across the same way: the reference's ``init_train_state`` or
+restored state — ``params``, ``opt`` {``step``, ``m``, ``v``} with its int8
+moments as ``Q8`` nodes, ``ef`` — as numpy leaves, and back.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ from repro_torch.configs.paper_cnn import PAPER_CNN, CNNConfig
 from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
 from repro_torch.kernels.qtensor import (LAYOUT_AFFINE, LAYOUT_BITPLANE,
                                          LAYOUT_DENSE, QTensor)
+from repro_torch.tree import map_with_paths, tree_map
 
 __all__ = ["qtensor_from_numpy", "qtensor_to_numpy", "paper_cnn_from_numpy",
-           "lm_params_from_numpy"]
+           "lm_params_from_numpy", "train_state_from_numpy", "train_state_to_numpy"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -136,3 +142,31 @@ def lm_params_from_numpy(tree, device=DEFAULT_DEVICE):
         return leaf(node)
 
     return walk(tree)
+
+
+def _is_q8(node) -> bool:
+    return hasattr(node, "q") and hasattr(node, "scale") and not isinstance(node, dict)
+
+
+def train_state_from_numpy(tree, device=DEFAULT_DEVICE):
+    """The port's train state from the reference's, every leaf a numpy
+    array: dicts and lists keep their structure, arrays become tensors of
+    the same dtype on ``device``, and every int8 moment node — any object
+    with ``q`` and ``scale`` attributes, as the reference's ``Q8`` — a
+    port :class:`~repro_torch.optim.adamw.Q8`."""
+    from repro_torch.optim.adamw import Q8
+
+    dev = resolve_device(device)
+
+    def leaf(node):
+        if _is_q8(node):
+            return Q8(_tensor(node.q, dev), _tensor(node.scale, dev))
+        return _tensor(node, dev)
+
+    return tree_map(leaf, tree)
+
+
+def train_state_to_numpy(tree):
+    """The inverse: every tensor as a numpy array of its dtype, every
+    ``Q8`` as a ``Q8`` holding numpy arrays."""
+    return map_with_paths(lambda _, t: t.detach().cpu().numpy(), tree)

@@ -1,3 +1,4 @@
-"""Entry points of the port: ``python -m repro_torch.launch.serve``.
-Counterpart of ``repro/launch``; the mesh, dry-run and training
-launchers belong to the operations slice (ROADMAP.md, slice F)."""
+"""Entry points of the port: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``.  Counterpart of ``repro/launch``;
+the mesh and dry-run launchers belong to the operations slice
+(ROADMAP.md, slice F)."""

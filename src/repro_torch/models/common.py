@@ -132,8 +132,8 @@ class ModelConfig:
     quant_backend: Optional[str] = None
     kv_cache_dtype: str = "bf16"     # KV_CACHE_FORMATS
     dtype: Any = torch.bfloat16
-    # --- training (kept for the reference's configs; the serving path of
-    # the port does not checkpoint) ---
+    # --- training: remat checkpoints each period of the training forward
+    # (models/model.py), remat_block each block of a longer pattern ---
     remat: bool = True
     remat_block: bool = True
 

@@ -2,12 +2,23 @@
 
 Counterpart of ``repro/models/model.py``.  Parameters and caches are
 stacked per pattern *period* (as the reference stacks them for its
-``lax.scan``); the port walks the periods in a Python loop, taking
-period r of every tensor (``t[r]``, a view) and of every stacked packed
-projection (``QTensor.period(r)``).  ``cfg.remat`` is kept in the config
-but means nothing here: this serving path does not checkpoint.
+``lax.scan``); the port walks the periods in a Python loop.
 ``input_kind == "embeddings"`` (musicgen's frame embeddings) bypasses
 the token embedding.
+
+One loop (``_layers``) serves the training forward, ``prefill`` and
+``decode_step``.  It unbinds every stacked parameter once
+(``torch.unbind``: n views, whose backward is one ``stack``) and every
+stacked packed projection into its periods (``QTensor.period``).
+Indexing ``t[r]`` per period would give each period's backward a zero
+tensor the size of the whole stack.  Caches, written in place, are taken
+per period (``take_period``: ``t[r]``, a view).  In ``forward_hidden``
+with ``cfg.remat`` and autograd on, each period runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+scan body in ``jax.checkpoint``; with ``cfg.remat_block`` and a pattern
+of more than one block, each block is checkpointed too.  The backward
+then runs each period's forward a second time, with the same inputs and
+so the same quantization.  Serving never checkpoints.
 
 ``prefill`` fills the caches it is given (KV slabs, pages, SSM states)
 and ``decode_step`` writes one token per row into them, in place; both
@@ -22,6 +33,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.conv import matmul_f32
 from repro_torch.core.quantize import f32_scalar
@@ -53,6 +65,19 @@ def take_period(tree: Any, r: int) -> Any:
     if isinstance(tree, QTensor):
         return tree.period(r)
     return tree[r]
+
+
+def _unbind_periods(tree: Any, n: int) -> List[Any]:
+    """The ``n`` periods of a period-stacked tree, each leaf unbound once."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_periods(v, n) for k, v in tree.items()}
+        return [{k: per[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_unbind_periods(v, n) for v in tree]
+        return [[p[r] for p in per] for r in range(n)]
+    if isinstance(tree, QTensor):
+        return [tree.period(r) for r in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, layout: ShardLayout,
@@ -88,26 +113,42 @@ def _embed(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Te
 
 
 def _layers(params, x, cfg: ModelConfig, layout: ShardLayout, *, decode: bool,
-            caches=None, step=None):
-    """Every block over x, period by period; returns (x, aux)."""
+            caches=None, step=None, remat: bool = False):
+    """Every block over x, period by period; returns (x, aux).  Each
+    stacked parameter is unbound once and each period's cache taken with
+    ``take_period``; with ``remat`` each period, and with ``cfg.remat_block``
+    and a longer pattern each block too, runs under ``checkpoint``."""
     positions = None if decode else torch.arange(x.shape[1], dtype=torch.int32,
                                                   device=x.device)
-    aux = 0.0
-    for r in range(cfg.num_periods):
+    remat_block = remat and cfg.remat_block and cfg.period > 1
+
+    def period(pp, x, r):
+        aux = 0.0
         for i, (mixer, ffn_kind) in enumerate(cfg.layer_pattern):
-            cache = None if caches is None else take_period(caches[i], r)
-            x, _, a = block_forward(take_period(params["blocks"][i], r), x, positions,
-                                    cfg, layout, mixer, ffn_kind, cache=cache,
-                                    step=step, decode=decode)
+            def fwd(p, x, *, m=mixer, f=ffn_kind,
+                    c=None if caches is None else take_period(caches[i], r)):
+                return block_forward(p, x, positions, cfg, layout, m, f, cache=c,
+                                     step=step, decode=decode)[::2]
+            x, a = checkpoint(fwd, pp[i], x, use_reentrant=False) if remat_block \
+                else fwd(pp[i], x)
             aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for r, pp in enumerate(_unbind_periods(params["blocks"], cfg.num_periods)):
+        x, a = checkpoint(period, pp, x, r, use_reentrant=False) if remat else period(pp, x, r)
+        aux = aux + a
     return x, aux
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, layout: ShardLayout
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (hidden (B,S,D) after the final norm, aux loss)."""
+    """-> (hidden (B,S,D) after the final norm, aux loss).  The training
+    forward: periods checkpointed under ``cfg.remat`` when autograd is on
+    (module note)."""
     x = sharding.constrain(_embed(params, batch, cfg), ("batch", "seq", "embed"))
-    x, aux = _layers(params, x, cfg, layout, decode=False)
+    x, aux = _layers(params, x, cfg, layout, decode=False,
+                     remat=cfg.remat and torch.is_grad_enabled())
     x = apply_norm(params["final_norm"], x, cfg)
     return x, aux if isinstance(aux, torch.Tensor) else f32_scalar(aux, x)
 

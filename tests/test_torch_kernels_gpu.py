@@ -674,3 +674,95 @@ def test_paged_dead_writes_deterministic_on_card(cuda_device, oracle):
                     want[name][p_, o_] = val[row, tok]
         for name, leaf in want.items():
             assert torch.equal(got[name], leaf), (call, name)
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """Deterministic algorithms for a comparison of two runs on the card
+    (the embedding's and ``torch.gather``'s backward scatter-add with
+    atomics otherwise).  The mode refuses cuBLAS calls without
+    ``CUBLAS_WORKSPACE_CONFIG``; set once cuBLAS is running, the variable
+    only satisfies that check, and equality rests on cuBLAS being
+    reproducible on one stream, which each test's ``torch.equal``
+    verifies."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_qat_train_step_on_card_matches_plain(cuda_device, deterministic):
+    """One QAT step of a smoke TinyLlama under tnn with remat: the loss,
+    every gradient leaf and every updated parameter ``torch.equal`` on the
+    cuda backend and on the plain versions; 2 x 7 fused TNN GeMMs per
+    layer (remat runs each period's forward again in the backward)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ShardLayout
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import TrainStepConfig, init_train_state
+    from repro_torch.train import train_step as tts
+    from repro_torch.tree import flatten_with_paths
+
+    cfg = get_smoke("tinyllama-1.1b").with_(quant_policy="tnn", remat=True)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(warmup_steps=1), seq_chunk=8)
+    lay = ShardLayout()
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                                     device=cuda_device, dtype=torch.int32)}
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    batch["mask"] = torch.ones((2, 16), device=cuda_device)
+    runs = []
+    for c in (cfg, cfg.with_(quant_backend="torch")):
+        state = init_train_state(torch.Generator(device=cuda_device).manual_seed(9), c, lay,
+                                 tcfg, device=cuda_device)
+        _build.reset_launches()
+        (loss, _), grads = tts.value_and_grad(tts.make_loss_fn(c, lay, tcfg),
+                                               state["params"], batch)
+        launches = _build.launches()
+        params, _, _ = adamw_update(grads, state["opt"], state["params"], tcfg.optimizer)
+        runs.append((loss, grads, params, launches))
+    assert runs[0][3] == {"lowbit_gemm_tnn_fused": 2 * 7 * cfg.num_layers}
+    assert runs[1][3] == {}
+    assert torch.isfinite(runs[0][0]) and torch.equal(runs[0][0], runs[1][0])
+    for i in (1, 2):
+        for (k, a), (_, b) in zip(flatten_with_paths(runs[0][i]),
+                                  flatten_with_paths(runs[1][i])):
+            assert torch.equal(a, b), k
+
+
+def test_resume_on_card_equal(cuda_device, deterministic, tmp_path):
+    """Trainer on the card, tnn: 4 steps with a save at step 2; a fresh
+    Trainer restores step 2 and runs steps 3-4 — its losses and final
+    state ``torch.equal`` to the uninterrupted run's."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import ShardLayout
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    from repro_torch.tree import flatten_with_paths
+
+    cfg = get_smoke("tinyllama-1.1b").with_(quant_policy="tnn", remat=True)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=2e-3, warmup_steps=1), seq_chunk=16)
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    d = str(tmp_path / "ck")
+    tr = TrainerConfig(steps=4, checkpoint_every=2, checkpoint_dir=d, log_every=100)
+
+    def trainer():
+        return Trainer(cfg, ShardLayout(), tcfg, tr, src, device=cuda_device,
+                       log_fn=lambda s: None)
+
+    full = trainer().run()
+    shutil.move(os.path.join(d, "step_000004"), str(tmp_path / "full"))
+    resumed = trainer().run()
+    assert len(resumed.losses) == 2 and resumed.losses == full.losses[2:]
+    os.makedirs(tmp_path / "a")
+    shutil.move(str(tmp_path / "full"), str(tmp_path / "a" / "step_000004"))
+    target = trainer().restore_or_init()[0]
+    want, _ = restore_tree(str(tmp_path / "a"), 4, target)
+    got, _ = restore_tree(d, 4, target)
+    for (k, a), (_, b) in zip(flatten_with_paths(got), flatten_with_paths(want)):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
