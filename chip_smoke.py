@@ -5,11 +5,14 @@ against its plain PyTorch version, drives the main path, times it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times [--src DIR]
+    python3 chip_smoke.py --mesh
 
 The second form runs phases 1, 2 and the GeMM rows of phase 6 only
 (popcount, dense, u8 and u4), for the ``repro_torch`` package under
 ``DIR`` (default this checkout's ``src``): the way to time another
 checkout's GeMM kernels, e.g. the parent commit's, on the same card.
+The third runs phases 1, 2 and 11 only.  Phase 11 starts this script
+again as each of its ranks (``--mesh-rank DIR``, not for direct use).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -204,7 +207,44 @@ without printing a result:
         after a warm-up step: device kernel time (popcount GeMMs, float
         GeMMs, the rest), kernels launched, busy share against 10a's
         unprofiled ms per step;
-11. the last line: ``{"ok": true, "device": {...}}``.
+11. the serving mesh (after 10e, before any profiler session):
+    ``MESH_WORLD`` ranks of this script (``--mesh-rank``) share the card
+    over gloo (one card each over NCCL where the machine has
+    ``MESH_WORLD``; ``launch.mesh.run_ranks``; the parent built the kernels,
+    the ranks only load them; a rank past ``MESH_TIMEOUT_S`` is killed);
+    rank 0 prints the backend, the rank count and each mesh; every rank
+    must exit 0:
+    11a. n-, k- and n+k-sharded ``qmm`` on a (2, 2) and a (1, 4)
+        ("data", "model") mesh, TNN/TBN/BNN, backends ``cuda`` and
+        ``dense``, at the GEMM_GRID diagonal (with a bias) and
+        TinyLlama-1.1B's projection shapes at m = 512
+        (``MESH_LM_SHAPES``): each output ``torch.equal`` to the
+        single-device ``qmm`` on the card, itself equal to the plain
+        versions; the launches and the all-reduces / gathers and their
+        bytes;
+    11b. cout-sharded ``qconv`` at every ``PAPER_CNN`` low-bit layer
+        geometry (batch 8, with a bias), each mode, both backends, both
+        meshes: ``torch.equal`` to the single-device ``qconv``;
+    11c. TinyLlama-1.1B at its published width and depth under ``tnn``
+        (phase 7a's weights) served by the mesh ``Engine`` on (1, 4):
+        ``MESH_REQUESTS`` greedy requests of ``MESH_PROMPT`` tokens,
+        ``MESH_NEW`` new tokens each, after one warm-up request; the
+        tokens equal the single-device engine's on the same card,
+        weights and config (run by the parent first); exactly 5 x 22
+        fused and 2 x 22 int32 TNN GeMMs and 2 x 22 all-reduces per rank
+        per forward (wq/wk/wv/gate/up n-sharded over "model", wo/down
+        k-sharded), nothing else; each rank's packed-plane bytes a
+        quarter of the single-device total; prefill and decode rates of
+        the 4 ranks time-sharing one card (not a scaling figure);
+    11d. the same model on (2, 2), one tick with every request in flight:
+        exactly 2 x 22 fused and 5 x 22 int32 TNN GeMMs and 5 x 22
+        all-reduces per forward (wq/wk/wv n over "model" and k over
+        "data", wo/down k over "model", gate/up n over "model"); a
+        fake-clock watchdog hears from every rank but rank 3, which it
+        flags; ``rebuild_after_loss([3])`` gives (1, 2) on ranks 0 and 1
+        (ranks 2 and 3 leave), the migrated requests finish there with
+        the single-device tokens;
+12. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -301,6 +341,17 @@ SERVE_BUCKET, SERVE_MAX_LEN = 128, 528
 # LM_CUT_LAYERS layers; launch.train at smoke size for TRAIN_LAUNCH_STEPS.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED, TRAIN_LAUNCH_STEPS = 8, 512, 4, 30
 FP32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
+# Phase 11, the serving mesh: MESH_WORLD ranks share the card over gloo
+# (launch.mesh.run_ranks; a rank that overruns MESH_TIMEOUT_S is killed).
+# 11a runs sharded qmm at the GEMM_GRID diagonal and MESH_LM_SHAPES
+# (TinyLlama-1.1B's projections at m = 512, (m, n, k)) on every mesh of
+# MESH_SHAPES; 11c and 11d serve MESH_REQUESTS greedy requests of
+# MESH_PROMPT tokens, MESH_NEW new tokens each, on TinyLlama-1.1B at full
+# width and depth (phase 7a's weights: generator seed 7 on the card).
+MESH_WORLD, MESH_TIMEOUT_S, MESH_SHAPES = 4, 900, ((2, 2), (1, 4))
+MESH_LM_SHAPES = [(512, 2048, 2048), (512, 256, 2048), (512, 5632, 2048), (512, 2048, 5632)]
+MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 4, 128, 16
+MESH_CASES = {"n": ("model", None), "k": (None, "model"), "nk": ("model", "data")}
 
 
 def log(msg: str) -> None:
@@ -1927,6 +1978,403 @@ def train_profile(torch, dev, step_ms):
             "top": [[n[:80], ms, calls] for n, ms, calls in rows[:12]]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving mesh (ranks started by phase11, run by mesh_rank)
+# ---------------------------------------------------------------------------
+
+def mesh_prompts(vocab: int):
+    """Phase 11's requests: MESH_REQUESTS prompts of MESH_PROMPT token ids
+    from numpy seed 11."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, vocab, MESH_PROMPT).astype(np.int64)
+            for _ in range(MESH_REQUESTS)]
+
+
+def mesh_serve_config(mesh=None):
+    """The ServeConfig of 11c/11d and of their single-device reference."""
+    from repro_torch.serving import SamplerConfig, ServeConfig
+
+    return ServeConfig(num_slots=MESH_REQUESTS, max_len=MESH_PROMPT + MESH_NEW,
+                       prefill_bucket=MESH_PROMPT, sampler=SamplerConfig(temperature=0.0),
+                       pack_params=True, mesh=mesh)
+
+
+def mesh_engine(torch, dev, mesh):
+    """TinyLlama-1.1B at full width and depth under ``tnn`` (phase 7a's
+    weights), packed by an Engine on ``mesh`` (None: one device), after a
+    warm-up request."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.serving import Engine
+
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    master = model.init_lm(gen, cfg, ShardLayout(), dtype=cfg.dtype, device=dev)
+    t0 = time.perf_counter()
+    eng = Engine(master, cfg, ShardLayout(), mesh_serve_config(mesh))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    serve_run(torch, eng, mesh_prompts(cfg.vocab_size)[:1], 2)
+    return eng, cfg, build_s
+
+
+def plane_bytes(tree) -> int:
+    """Bytes of the packed bit planes of every QTensor in ``tree``."""
+    from repro_torch.kernels.qtensor import QTensor
+
+    if isinstance(tree, QTensor):
+        return sum(p.numel() * p.element_size() for p in tree.payload.values())
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(plane_bytes(v) for v in tree)
+    return 0
+
+
+def mesh_counts(torch, fn):
+    """(fn(), kernel launches, collectives) with both counters zeroed just
+    before ``fn`` and read just after."""
+    from repro_torch.kernels import _build
+    from repro_torch.parallel import qmm_mesh
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    qmm_mesh.reset_collectives()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _build.launches(), qmm_mesh.collectives()
+
+
+def mesh_qmm_checks(torch, dev, meshes):
+    """11a: n-, k- and n+k-sharded qmm on every mesh, each mode, backends
+    cuda and dense, at the GEMM_GRID diagonal (with a bias) and
+    MESH_LM_SHAPES: ``torch.equal`` to the single-device qmm on the card
+    and to the plain versions."""
+    import collections
+
+    import numpy as np
+    from repro_torch.configs.paper_cnn import GEMM_GRID
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.modes import QuantMode
+    from repro_torch.parallel import qmm_mesh, sharding
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    grid = list(zip(GEMM_GRID["height"], GEMM_GRID["width"], GEMM_GRID["depth"]))
+    launches, coll, checked, plans = collections.Counter(), collections.Counter(), 0, {}
+    for m, n, k in grid + MESH_LM_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dev)
+        bias = (torch.from_numpy(rng.standard_normal((n,), dtype=np.float32)).to(dev)
+                if (m, n, k) in grid else None)
+        for mode in MODES:
+            qt = ops.pack_weights(w, QuantMode(mode)).replace(bias=bias)
+            plain = ops.qmm(x, qt, backend="torch")
+            for backend in ("cuda", "dense"):
+                single = ops.qmm(x, qt, backend=backend)
+                if not torch.equal(single, plain):
+                    raise AssertionError(f"11a {mode} {backend} {m}x{n}x{k}: single-device "
+                                         f"kernel differs from the plain version")
+                for shape, mesh in meshes.items():
+                    for label, pspec in MESH_CASES.items():
+                        with sharding.use_mesh(mesh, sharding.SERVE_RULES_LOWBIT):
+                            sq = qt.replace(pspec=pspec)
+                            plan = qmm_mesh.shard_plan(sq)
+                            if plan is None:
+                                raise AssertionError(f"11a {shape} {label}: no shard plan")
+                            local = qmm_mesh.take_local(sq)
+                            got, ln, cl = mesh_counts(
+                                torch, lambda: ops.qmm(x, local, backend=backend))
+                        launches.update(ln)
+                        coll.update(cl)
+                        plans[f"{shape[0]}x{shape[1]}/{label}"] = [plan.n_axis, plan.k_axis]
+                        if not torch.equal(got, single):
+                            raise AssertionError(
+                                f"11a {mode} {backend} {m}x{n}x{k} mesh {shape} {label}: "
+                                f"sharded qmm differs from single-device (max abs "
+                                f"{(got - single).abs().max().item()})")
+                        checked += 1
+    return {"checked": checked, "shapes": grid + MESH_LM_SHAPES, "plans": plans,
+            "launches": dict(launches), "collectives": dict(coll),
+            "s": time.perf_counter() - t0}
+
+
+def mesh_conv_checks(torch, dev, meshes):
+    """11b: cout-sharded qconv at every PAPER_CNN low-bit layer geometry
+    (batch 8), each mode, backends cuda and dense, on every mesh:
+    ``torch.equal`` to the single-device qconv."""
+    import collections
+
+    from repro_torch.configs.paper_cnn import PAPER_CNN
+    from repro_torch.core.conv import pack_conv_filters
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.modes import QuantMode
+    from repro_torch.parallel import qmm_mesh, sharding
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    geoms, hw, c_in = [], PAPER_CNN.img_size, PAPER_CNN.c_in
+    for spec in PAPER_CNN.convs:
+        if spec.mode != "bf16":
+            geoms.append(((8, hw, hw, c_in), (spec.kernel, spec.kernel, c_in, spec.c_out),
+                          spec.stride))
+        hw = hw // 2 if spec.pool else hw
+        c_in = spec.c_out
+    launches, coll, checked = collections.Counter(), collections.Counter(), 0
+    for xs, fs, stride in geoms:
+        x = torch.randn(xs, generator=gen, device=dev)
+        f = torch.randn(fs, generator=gen, device=dev)
+        bias = torch.randn((fs[-1],), generator=gen, device=dev)
+        for mode in MODES:
+            qt = pack_conv_filters(f, QuantMode(mode), bias=bias)
+            for backend in ("cuda", "dense"):
+                single = ops.qconv(x, qt, stride=stride, backend=backend)
+                for shape, mesh in meshes.items():
+                    with sharding.use_mesh(mesh, sharding.SERVE_RULES_LOWBIT):
+                        local = qmm_mesh.take_local(qt.replace(pspec=("model", None)))
+                        got, ln, cl = mesh_counts(
+                            torch, lambda: ops.qconv(x, local, stride=stride, backend=backend))
+                    launches.update(ln)
+                    coll.update(cl)
+                    if not torch.equal(got, single):
+                        raise AssertionError(f"11b {mode} {backend} x{xs} f{fs} mesh {shape}: "
+                                             f"sharded qconv differs from single-device")
+                    checked += 1
+    return {"checked": checked, "geometries": [[list(a), list(b), c] for a, b, c in geoms],
+            "launches": dict(launches), "collectives": dict(coll),
+            "s": time.perf_counter() - t0}
+
+
+def mesh_expect(cfg, forwards: int, fused: int, i32: int, gathers: int):
+    """The launches and collectives a mesh run of ``forwards`` forwards
+    must show: per layer ``fused`` fused and ``i32`` int32 TNN GeMMs, one
+    all-reduce per int32 GeMM, ``gathers`` gathers."""
+    n = cfg.num_layers * forwards
+    launches = {k: v for k, v in (("lowbit_gemm_tnn_fused", fused * n),
+                                  ("lowbit_gemm_tnn_i32", i32 * n)) if v}
+    return launches, {"all_reduce": i32 * n, "all_gather": gathers * n}
+
+
+def mesh_check_counts(what, launches, coll, want):
+    want_l, want_c = want
+    got_c = {k: coll.get(k, 0) for k in want_c}
+    if launches != want_l or got_c != want_c:
+        raise AssertionError(f"{what}: launches {launches}, collectives {coll}; expected "
+                             f"{want_l} and {want_c}")
+
+
+def mesh_engine_11c(torch, dev, mesh):
+    """11c: the mesh Engine on (1, 4); 5 n-sharded fused and 2 k-sharded
+    int32 TNN GeMMs (and 2 all-reduces) per layer per forward."""
+    t0 = time.perf_counter()
+    eng, cfg, build_s = mesh_engine(torch, dev, mesh)
+    prompts = mesh_prompts(cfg.vocab_size)
+    run, launches, coll = mesh_counts(torch, lambda: serve_run(torch, eng, prompts, MESH_NEW))
+    results, secs, ttft, itl, calls = run
+    forwards = calls["prefill"] + calls["decode"]
+    mesh_check_counts("11c", launches, coll, mesh_expect(cfg, forwards, 5, 2, 5))
+    report = {
+        "mesh": list(mesh.shape), "backend": mesh.backend, "build_and_pack_s": build_s,
+        "tokens": {u: [r.status, r.tokens] for u, r in results.items()},
+        "forwards": forwards, "calls": calls, "launches": launches, "collectives": coll,
+        "per_forward": {"fused": launches["lowbit_gemm_tnn_fused"] // forwards,
+                        "i32": launches["lowbit_gemm_tnn_i32"] // forwards,
+                        "all_reduce": coll["all_reduce"] // forwards},
+        "plane_bytes_local": plane_bytes(eng.params), "run_s": secs,
+        "collective_s": coll.get("all_reduce_s", 0.0) + coll.get("all_gather_s", 0.0),
+        "collective_share": (coll.get("all_reduce_s", 0.0) + coll.get("all_gather_s", 0.0))
+        / secs,
+        "generated_tokens_per_s": sum(len(r.tokens) for r in results.values()) / secs,
+        "prefill_tokens_per_s": MESH_REQUESTS * MESH_PROMPT / max(ttft),
+        "ttft_s": percentiles(ttft), "inter_token_s": percentiles(itl),
+        "s": time.perf_counter() - t0}
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return report
+
+
+def mesh_engine_11d(torch, dev, mesh):
+    """11d: the mesh Engine on (2, 2) for one tick (the requests in
+    flight), a fake-clock watchdog that hears from every rank but the
+    last, ``rebuild_after_loss`` of that rank, and the migrated requests
+    served on the rebuilt (1, 2) mesh."""
+    from repro_torch.runtime.fault_tolerance import WatchdogConfig
+    from repro_torch.serving import Request
+
+    t0 = time.perf_counter()
+    eng, cfg, _ = mesh_engine(torch, dev, mesh)
+    calls = {"prefill": 0, "decode": 0}
+    real_prefill, real_step = eng.prefill, eng.serve_step
+
+    def count(fn, what):
+        def call(*a, **k):
+            calls[what] += 1
+            return fn(*a, **k)
+        return call
+
+    eng.prefill, eng.serve_step = count(real_prefill, "prefill"), count(real_step, "decode")
+    for uid, p in enumerate(mesh_prompts(cfg.vocab_size)):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=MESH_NEW))
+    _, launches, coll = mesh_counts(torch, eng.step)
+    forwards = calls["prefill"] + calls["decode"]
+    # (2, 2) under serve_lowbit: wq/wk/wv n over model + k over data, wo/down
+    # k over model, gate/up n over model (their stacked planes match the
+    # reference's 3-D expert rule first, which has no k axis)
+    mesh_check_counts("11d (2, 2)", launches, coll, mesh_expect(cfg, forwards, 2, 5, 5))
+    in_flight = sorted(r.uid for r in eng._sched.unfinished())
+    if len(in_flight) != MESH_REQUESTS:
+        raise AssertionError(f"11d: {in_flight} in flight after one tick")
+    t = [0.0]
+    wd = eng.make_watchdog(WatchdogConfig(dead_after_s=5.0), clock=lambda: t[0])
+    for h in range(mesh.size - 1):
+        wd.heartbeat(h, 0.1)
+    t[0] = 10.0
+    for h in range(mesh.size - 1):
+        wd.heartbeat(h, 0.1)
+    dead = wd.check().dead
+    if dead != [mesh.size - 1]:
+        raise AssertionError(f"11d: the watchdog flagged {dead}")
+    t1 = time.perf_counter()
+    new = eng.rebuild_after_loss([int(mesh.devices.flat[h]) for h in dead])
+    rebuild_s = time.perf_counter() - t1
+    report = {"mesh": list(mesh.shape), "forwards_before": forwards,
+              "launches_before": launches, "collectives_before": coll,
+              "per_forward_before": {"fused": launches["lowbit_gemm_tnn_fused"] // forwards,
+                                     "i32": launches["lowbit_gemm_tnn_i32"] // forwards,
+                                     "all_reduce": coll["all_reduce"] // forwards},
+              "in_flight": in_flight, "dead": dead, "rebuild_s": rebuild_s,
+              "plane_bytes_local": plane_bytes(eng.params), "rebuilt": None}
+    eng.close()
+    if new is not None:
+        calls = {"prefill": 0, "decode": 0}
+        new.prefill = count(new.prefill, "prefill")
+        new.serve_step = count(new.serve_step, "decode")
+        results, launches, coll = mesh_counts(torch, new.run)
+        forwards = calls["prefill"] + calls["decode"]
+        mesh_check_counts("11d (1, 2)", launches, coll, mesh_expect(cfg, forwards, 5, 2, 5))
+        report["rebuilt"] = {
+            "mesh": list(new.scfg.mesh.shape), "ranks": new.scfg.mesh.devices.ravel().tolist(),
+            "tokens": {u: [r.status, r.tokens] for u, r in results.items()},
+            "forwards": forwards, "launches": launches, "collectives": coll}
+        new.close()
+    del eng, new
+    torch.cuda.empty_cache()
+    report["s"] = time.perf_counter() - t0
+    return report
+
+
+def mesh_rank(torch, out_dir: str) -> int:
+    """One rank of phase 11 (``--mesh-rank``): joins the world, builds the
+    meshes, runs 11a-11d and writes ``rank<r>.json`` into ``out_dir``.
+    Any failure raises (a non-zero exit the parent reports)."""
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.tune import cache as plan_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_mod.init_rank("cuda")
+    rank = dist.get_rank()
+    plan_cache.set_cache_path(os.path.join(out_dir, f"plans_rank{rank}.json"))
+    obs.set_enabled(True)
+    meshes = {shape: mesh_mod.make_serve_mesh(model=shape[1], data=shape[0], device=dev)
+              for shape in MESH_SHAPES}
+    log(f"[mesh] rank {rank}: " + "; ".join(repr(m) for m in meshes.values()))
+    report = {"rank": rank, "backend": meshes[MESH_SHAPES[0]].backend}
+    for name, fn in (("11a", lambda: mesh_qmm_checks(torch, dev, meshes)),
+                     ("11b", lambda: mesh_conv_checks(torch, dev, meshes)),
+                     ("11c", lambda: mesh_engine_11c(torch, dev, meshes[(1, 4)])),
+                     ("11d", lambda: mesh_engine_11d(torch, dev, meshes[(2, 2)]))):
+        report[name] = fn()
+        log(f"[mesh {name}] rank {rank} done in {report[name]['s']:.1f} s")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    mesh_mod.shutdown()
+    return 0
+
+
+def phase11(torch, dev):
+    """Phase 11 (see the module docstring): the single-device reference
+    tokens, then MESH_WORLD ranks of ``--mesh-rank`` sharing the card over
+    gloo; every rank must exit 0 and the parent checks what they report.
+    Returns (the report, {kernel: {sub-phase: rank 0's launches}})."""
+    import shutil
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the single-device reference: the same weights, config and requests
+    eng, cfg, build_s = mesh_engine(torch, dev, None)
+    results, secs, ttft, itl, calls = serve_run(torch, eng, mesh_prompts(cfg.vocab_size),
+                                                MESH_NEW)
+    single = {str(u): [r.status, r.tokens] for u, r in results.items()}
+    if not all(r.status == "ok" and len(r.tokens) == 1 + MESH_NEW for r in results.values()):
+        raise AssertionError(f"phase 11 single-device run: {single}")
+    single_bytes = plane_bytes(eng.params)
+    ref = {"tokens_per_s": sum(len(r.tokens) for r in results.values()) / secs,
+           "prefill_tokens_per_s": MESH_REQUESTS * MESH_PROMPT / max(ttft),
+           "inter_token_s": percentiles(itl), "plane_bytes": single_bytes,
+           "build_and_pack_s": build_s}
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    out_dir = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = mesh_mod.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                              str(out_dir)], MESH_WORLD, timeout_s=MESH_TIMEOUT_S,
+                             log_dir=str(out_dir / "logs"))
+    ranks_s = time.perf_counter() - t0
+    with open(res[0]["log"]) as f:
+        for line in f:
+            if line.startswith("[mesh"):
+                log(line.rstrip())
+    if any(r["returncode"] != 0 for r in res):
+        raise AssertionError("phase 11: a mesh rank failed or overran\n"
+                             + mesh_mod.rank_logs(res))
+    reps = [json.load(open(out_dir / f"rank{r}.json")) for r in range(MESH_WORLD)]
+    for rep in reps:
+        r = rep["rank"]
+        if rep["11c"]["tokens"] != single:
+            raise AssertionError(f"11c rank {r}: mesh tokens differ from single-device")
+        ratio = rep["11c"]["plane_bytes_local"] / single_bytes
+        if abs(ratio - 0.25) > 1e-12:
+            raise AssertionError(f"11c rank {r}: local plane bytes {ratio} of single-device")
+        new = rep["11d"]["rebuilt"]
+        if r < 2:
+            if new is None or new["mesh"] != [1, 2] or new["tokens"] != single:
+                raise AssertionError(f"11d rank {r}: rebuilt run {new}")
+        elif new is not None:
+            raise AssertionError(f"11d rank {r} should have left the mesh: {new}")
+    r0 = reps[0]
+    report = {"single_device": ref, "ranks_s": ranks_s, "world": MESH_WORLD,
+              "backend": r0["backend"], "11a": r0["11a"], "11b": r0["11b"],
+              "11c": r0["11c"], "11d": r0["11d"],
+              "11c_rank_run_s": [rep["11c"]["run_s"] for rep in reps],
+              "11c_rank_collective_share": [rep["11c"]["collective_share"] for rep in reps],
+              "11c_plane_bytes_ratio": r0["11c"]["plane_bytes_local"] / single_bytes,
+              "11d_plane_bytes_ratio": r0["11d"]["plane_bytes_local"] / single_bytes,
+              "phase_s": time.perf_counter() - t_phase}
+    launches = {}
+    for sub, counts in (("11a", r0["11a"]["launches"]), ("11b", r0["11b"]["launches"]),
+                        ("11c", r0["11c"]["launches"]),
+                        ("11d", r0["11d"]["launches_before"])):
+        for k, v in counts.items():
+            launches.setdefault(k, {})[sub] = v
+    for k in ("lowbit_gemm_tnn_fused", "lowbit_gemm_tnn_i32"):
+        if not launches.get(k, {}).get("11c"):
+            raise AssertionError(f"phase 11c launched no {k}")
+    return report, launches
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -1978,6 +2426,29 @@ def gemm_times(torch, src: str) -> int:
     return 0
 
 
+def mesh_only(torch) -> int:
+    """``--mesh``: phases 1, 2 and 11."""
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind, card, _ = device_and_build(torch, _build)
+    from repro_torch import obs
+    from repro_torch.tune import cache as plan_cache
+
+    plan_cache.set_cache_path(str(ROOT / "build" / "chip_smoke" / "tune_mesh.json"))
+    obs.set_enabled(True)
+    report, launches = phase11(torch, dev)
+    log("[mesh] " + json.dumps(report))
+    log("[mesh] launches by kernel and sub-phase (rank 0): " + json.dumps(launches))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gemm-times", action="store_true",
@@ -1986,6 +2457,9 @@ def main(argv=None) -> int:
     parser.add_argument("--src", default=str(ROOT / "src"),
                         help="with --gemm-times: the directory that holds the repro_torch "
                              "package to time (default: this checkout's src)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="run only the device and build phases and phase 11")
+    parser.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     import torch
 
@@ -1997,6 +2471,10 @@ def main(argv=None) -> int:
         sys.path.insert(0, args.src)
         return gemm_times(torch, args.src)
     sys.path.insert(0, str(ROOT / "src"))
+    if args.mesh_rank:
+        return mesh_rank(torch, args.mesh_rank)
+    if args.mesh:
+        return mesh_only(torch)
     try:
         from repro_torch.cnn import PaperCNN
         from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
@@ -2321,6 +2799,11 @@ def main(argv=None) -> int:
     # (before any profiler session) -------------------------------------------
     train_report, train_launches = phase10(torch, dev)
     log(card)
+    # -- 11. the serving mesh: ranks sharing the card (before any profiler
+    # session) ---------------------------------------------------------------
+    mesh_report, mesh_launches = phase11(torch, dev)
+    log("[mesh] " + json.dumps(mesh_report))
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -2550,6 +3033,8 @@ def main(argv=None) -> int:
         per = {p: n[k["name"]] for p, n in train_launches.items() if k["name"] in n}
         if per:     # each sub-phase at its own size: 10a and 10c full width, 10e smoke
             k["launches_train_path"] = per
+        if k["name"] in mesh_launches:     # rank 0's, each sub-phase's own run
+            k["launches_mesh_path"] = mesh_launches[k["name"]]
     log(f"[lm] {LM_ARCH} (22 x 2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch "
         f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_STEPS} greedy steps: tnn packed "
         f"prefill {a['tnn_prefill_tokens_per_s']:.1f} tokens/s, decode "
@@ -2597,6 +3082,19 @@ def main(argv=None) -> int:
         f"{train_report['10c']['moment_ratio_f32_over_int8']:.2f}; kernels == plain, resume "
         f"== uninterrupted; launch.train loss {train_report['10e']['first5_mean']:.3f} -> "
         f"{train_report['10e']['last5_mean']:.3f}; phase {train_report['phase_s']:.1f} s")
+    m11c, m11d = mesh_report["11c"], mesh_report["11d"]
+    log(f"[mesh] {MESH_WORLD} ranks on {torch.cuda.device_count()} card(s) over "
+        f"{mesh_report['backend']}: "
+        f"11a {mesh_report['11a']['checked']} sharded qmm == single-device, 11b "
+        f"{mesh_report['11b']['checked']} sharded qconv == single-device; 11c {LM_ARCH} "
+        f"(1, 4): {m11c['per_forward']} per rank per forward, tokens == single-device, "
+        f"plane bytes x{mesh_report['11c_plane_bytes_ratio']:.3f}, prefill "
+        f"{m11c['prefill_tokens_per_s']:.1f} tokens/s, inter-token p50 "
+        f"{m11c['inter_token_s'].get('p50', 0) * 1e3:.1f} ms (single device "
+        f"{mesh_report['single_device']['inter_token_s'].get('p50', 0) * 1e3:.1f} ms); 11d "
+        f"(2, 2): {m11d['per_forward_before']} per forward, rank 3 flagged, rebuilt on "
+        f"(1, 2) in {m11d['rebuild_s']:.1f} s, tokens == single-device; phase "
+        f"{mesh_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

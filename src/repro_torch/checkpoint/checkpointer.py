@@ -22,7 +22,8 @@ list indices and container fields joined by "/" — ``params/embed``,
   ``wait()`` joins it and raises what it raised.
 * **restore** puts each leaf on ``device`` (default: the target leaf's
   own) with the target's dtype.  ``shardings=`` re-shards onto a new
-  mesh in the reference; the port has no mesh yet and accepts only None.
+  mesh in the reference; it belongs to the port's training mesh, a later
+  slice, and raises until then (the serving mesh re-packs raw weights).
 * retention: the ``keep`` most recent checkpoints are kept; older ones
   are deleted only after the new save commits.
 
@@ -158,8 +159,8 @@ class Checkpointer:
         on ``device``, by default the target leaf's own."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a device mesh, which the port "
-                "does not have yet (the mesh slice of ROADMAP.md)")
+                "restore(shardings=...) re-shards onto a training mesh, which comes with "
+                "the training-mesh slice of the port (ROADMAP.md, queue 1)")
         d = self._step_dir(step)
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)

@@ -32,7 +32,7 @@ __all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_T
            "gemm_tile", "cta_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
            "scale_epilogue", "on_cuda", "gemm_dims", "row_stride",
            "check_f32_vec", "check_row_scale", "sm_count",
-           "lowbit_matmul_call"]
+           "lowbit_matmul_call", "psum_accum_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +99,18 @@ def gemm_tile(m: int, n: int, sms: int, tiles=GEMM_TILES) -> int:
         if -(-m // t) * -(-n // t) >= sms:
             return t
     return tiles[-1]
+
+
+def psum_accum_dtype(k_bits: int) -> torch.dtype:
+    """Narrowest signed integer type that carries a cross-device popcount
+    partial through a sum without overflow (reference
+    ``_matmul_common.psum_accum_dtype``): every per-shard partial and
+    every partial sum is bounded by ``2 * k_bits`` (the BNN ``-2 *
+    popcount`` convention doubles the ternary bound), so int16 when that
+    fits, else int32.  The port's all-reduce moves int32 either way
+    (gloo and NCCL sum no 16-bit integers, ``parallel/qmm_mesh.py``); the
+    type records the bound the reference's wire would use."""
+    return torch.int16 if 2 * k_bits < 2 ** 15 else torch.int32
 
 
 # ---------------------------------------------------------------------------

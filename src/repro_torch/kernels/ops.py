@@ -42,8 +42,16 @@ Not ported (see ROADMAP.md): the reference's fallback chain
 with a cached decision): a failed or injected launch raises to the
 caller (in the serving engine, ``Engine.run`` quarantines the step);
 the retrace counters ``qmm_trace_count`` / ``qconv_trace_count``
-(nothing traces in PyTorch); the mesh branch; and the deprecated
-``fused_qmm`` shim (call ``qmm`` with a QTensor).
+(nothing traces in PyTorch); and the deprecated ``fused_qmm`` shim (call
+``qmm`` with a QTensor).
+
+Inside ``parallel.sharding.use_mesh``, a container whose ``pspec`` names
+live mesh axes dispatches to the mesh path
+(:mod:`repro_torch.parallel.qmm_mesh`) with the requested backend, before
+the ``kernel.compile`` point, as in the reference: n-sharded planes run
+the fused kernel on their output slice, k-sharded planes all-reduce int32
+partial counts and apply eq. (2) after the sum; the outputs are
+``torch.equal`` to the single-device ones.
 
 The indexed backend (``backend="indexed"``,
 :mod:`repro_torch.kernels.indexed_matmul`) is plain PyTorch on any
@@ -394,16 +402,17 @@ _QCONV_DISPATCH_CTR = obs.get_registry().counter(
 
 
 def _plan_tiles(spec, mode: QuantMode, backend: str, m: int, n: int, k: int,
-                device: torch.device) -> Optional[TileConfig]:
-    """The blocking of one fused request: the plan cache's (tuned on
-    first use under that policy), or None for a cell with no space."""
+                device: torch.device, fused: bool = True) -> Optional[TileConfig]:
+    """The blocking of one request (a mesh rank's local one too): the
+    plan cache's (tuned on first use under that policy), or None for a
+    cell with no space."""
     if spec.tunable is None:
         return None
     if tune_cache.get_policy() == "on_first_use":
         from repro_torch.tune import tuner     # tuner imports ops
 
-        tuner.ensure_plan(mode, backend, fused=True, m=m, n=n, k=k, device=device)
-    return tune_cache.plan_for(mode, backend, fused=True, m=m, n=n, k=k,
+        tuner.ensure_plan(mode, backend, fused=fused, m=m, n=n, k=k, device=device)
+    return tune_cache.plan_for(mode, backend, fused=fused, m=m, n=n, k=k,
                                device=device).tiles
 
 
@@ -438,6 +447,16 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     if mode in (QuantMode.INT8, QuantMode.INT4):
         backend = _affine_backend(mode, backend, fused=True)
     _QMM_DISPATCH_CTR.inc(mode=mode.value, backend=backend, layout=registry.LAYOUT_GEMM)
+    if qt.pspec is not None and mode.is_lowbit:
+        from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
+
+        ctx = sharding.active()
+        plan = None if ctx is None else qmm_mesh.shard_plan(qt, ctx)
+        if plan is not None:
+            # the mesh path keeps the requested backend
+            return qmm_mesh.qmm_sharded(x, qt, plan, ctx.mesh, backend=backend,
+                                        act_stats=act_stats)
+        qmm_mesh.check_whole(qt)
     faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
     if mode.is_float:
         return _float_passthrough(x, qt)
@@ -504,12 +523,21 @@ def qconv(x: torch.Tensor, qt: QTensor, *, stride: int = 1,
     backend = backend or DEFAULT_BACKEND
     _QCONV_DISPATCH_CTR.inc(mode=qt.mode.value, backend=backend,
                             layout=registry.LAYOUT_IM2COL)
-    faults.maybe_raise("kernel.compile", op="qconv", mode=qt.mode.value, backend=backend)
     x = x.to(torch.float32).contiguous()
     if act_stats is None:
         stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, stride, padding)
     else:
         stats = {k: _stat(v, x) for k, v in act_stats.items()}
+    if qt.pspec is not None:
+        from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
+
+        ctx = sharding.active()
+        plan = None if ctx is None else qmm_mesh.shard_plan_conv(qt, ctx)
+        if plan is not None:
+            return qmm_mesh.qconv_sharded(x, qt, plan, ctx.mesh, stats, backend=backend,
+                                          stride=stride, padding=padding)
+        qmm_mesh.check_whole(qt)
+    faults.maybe_raise("kernel.compile", op="qconv", mode=qt.mode.value, backend=backend)
     spec = registry.lookup(qt.mode, backend, fused=True,
                            layout=registry.LAYOUT_IM2COL)
     col = _as_col_vec(qt.scale, cout, x)

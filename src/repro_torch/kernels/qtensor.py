@@ -29,8 +29,15 @@ takes entry ``r`` of the leading dim back out (views, no copy): the one
 way the port's model code reads a stacked projection, a period of it
 first, then an expert.
 
-Not ported: the reference's mesh ``pspec`` (sharded serving comes with a
-later slice of the port).
+Sharded containers: on a serving mesh (``parallel/sharding.use_mesh``)
+``models/packing.py`` records the mesh axes of the payload planes'
+trailing (n, k-words) dims in ``pspec``, as the reference does, and
+each rank keeps only its own slice of the planes, scale and bias (the
+reference's QTensor holds global arrays that JAX distributes).  ``shape``
+(and ``geometry``) stay global, so ``parallel/qmm_mesh.shard_plan`` and
+``local_dims`` resolve as in the reference; a stacked container keeps its
+leading period dim whole.  Expert (4-D) containers never carry a
+``pspec``.
 """
 
 from __future__ import annotations
@@ -105,6 +112,9 @@ class QTensor:
     zero: Optional[torch.Tensor] = None      # affine zero point (u8/u4)
     geometry: Optional[Tuple[int, int, int, int]] = None  # (kh,kw,cin,cout)
     layout: str = LAYOUT_BITPLANE
+    # Mesh axis names of the payload planes' (n, k-words) dims, recorded at
+    # pack time under a mesh; None = never sharded (module docstring).
+    pspec: Optional[Tuple[Optional[str], Optional[str]]] = None
 
     @property
     def k_valid(self) -> int:
@@ -181,9 +191,10 @@ class QTensor:
 
     def __repr__(self) -> str:
         geo = f", geometry={self.geometry}" if self.geometry else ""
+        psp = f", pspec={self.pspec}" if self.pspec else ""
         return (f"QTensor({self.mode.value}, shape={self.shape}, "
                 f"layout={self.layout!r}, payload={sorted(self.payload)}"
-                f"{geo})")
+                f"{geo}{psp})")
 
     # -- constructors -------------------------------------------------------
 

@@ -6,8 +6,8 @@
 Counterpart of ``python -m repro.launch.train``, with its flags.
 ``--device`` defaults to ``cuda`` and raises without a card (``--device
 cpu`` runs the plain versions on the CPU).  ``--production`` (the
-reference's multi-host 16 x 16 mesh) belongs to the mesh slice
-(ROADMAP.md) and raises.
+reference's multi-host 16 x 16 mesh) belongs to the training-mesh slice
+(ROADMAP.md, queue 1) and raises.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     if args.production:
         raise NotImplementedError(
             "--production (the multi-host training mesh) is not ported yet: it belongs "
-            "to the mesh slice (ROADMAP.md)")
+            "to the training-mesh slice (ROADMAP.md, queue 1)")
 
     over = {"quant_policy": args.quant} if args.quant else {}
     cfg = (get_smoke(args.arch, **over) if args.smoke

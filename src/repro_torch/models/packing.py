@@ -19,6 +19,16 @@ and the LM head stay as they are.
 At serve time ``attention.project`` sees a QTensor leaf and runs one
 ``ops.qmm`` per projection: decode streams 1/8 (ternary) or 1/16
 (binary) of the bf16 weight bytes per token.
+
+Under an active mesh (``parallel.sharding.use_mesh``) every rank packs
+the same raw tree (packing is deterministic), records on each non-expert
+low-bit container the mesh axes of its payload planes' (n, k-words) dims
+(``QTensor.pspec``, through the payload-plane rules) and keeps only its
+own slice of the planes, scale and bias (``qmm_mesh.take_local``), so
+``ops.qmm`` dispatches the mesh path against planes that already live
+distributed.  Float leaves stay whole on every rank.  MoE expert
+containers (4-D stacked planes) are left unannotated and whole, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ import torch
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.modes import QuantMode
-from repro_torch.kernels.qtensor import QTensor
+from repro_torch.kernels.qtensor import PAYLOAD_KEYS, QTensor
+from repro_torch.parallel import sharding
 
 __all__ = ["pack_lm_params", "packed_matmul_any"]
 
@@ -51,13 +62,30 @@ def _pack_leaf(w: torch.Tensor, mode: QuantMode) -> QTensor:
     return QTensor.stack([_pack_leaf(ww, mode) for ww in w])
 
 
+def _annotate_pspec(packed: QTensor, prefix: str, ctx) -> QTensor:
+    """Record the payload-plane mesh axes on a freshly packed container,
+    through the rule table ``param_spec`` resolves with
+    (``sharding.payload_plane_axes``).  Stacked-period (3-D) planes
+    resolve with a replicated leading dim."""
+    key0 = PAYLOAD_KEYS[packed.mode][0]
+    path = f"{prefix}/payload/{key0}".lstrip("/")
+    axes = sharding.payload_plane_axes(path, packed.payload[key0], ctx)
+    if axes is None:
+        return packed
+    return packed.replace(pspec=axes)
+
+
 def pack_lm_params(params: Dict[str, Any], cfg,
                    policy: QuantPolicy | None = None) -> Dict[str, Any]:
     """Pack a whole LM parameter tree (see the module docstring) under
     ``policy`` (default ``cfg.policy``); leaves that are not low-bit
-    projections are returned as they are (the same tensors).  The
-    reference's mesh switch ``shard`` has no counterpart on one card."""
+    projections are returned as they are (the same tensors).  Under an
+    active mesh non-expert low-bit containers record their ``pspec`` and
+    hold this rank's slice; outside one the packing is unsharded."""
+    from repro_torch.parallel import qmm_mesh      # qmm_mesh imports ops
+
     policy = policy or cfg.policy
+    ctx = sharding.active()
 
     def walk(tree, prefix=""):
         if isinstance(tree, dict) and "w" in tree and tree["w"].ndim >= 2:
@@ -68,6 +96,9 @@ def pack_lm_params(params: Dict[str, Any], cfg,
                         packed = _pack_leaf(tree["w"], mode)
                         if "b" in tree:
                             packed = packed.replace(bias=tree["b"])
+                        if ctx is not None and tree["w"].ndim <= 3:
+                            packed = qmm_mesh.take_local(
+                                _annotate_pspec(packed, prefix, ctx), ctx)
                         return packed
                     break
             return tree

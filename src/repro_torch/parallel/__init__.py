@@ -1,2 +1,4 @@
-"""Distribution of the port: single-device stand-ins for now
-(``sharding``); the mesh comes with a later slice."""
+"""Distribution of the port: the logical-axis sharding rules
+(``sharding``) and the mesh-aware low-bit matmul over ``torch.distributed``
+ranks (``qmm_mesh``).  The serving mesh; the training mesh (sharded float
+leaves and gradients) comes with a later slice."""

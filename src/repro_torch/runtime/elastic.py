@@ -1,9 +1,9 @@
 """Elastic restart planning: re-size the mesh after node loss.
 
-Counterpart of ``repro/runtime/elastic.py`` (pure Python).  The port
-runs on one card until the mesh slice lands, so its Trainer hands
-``plan_restart`` the chips of this process; steps 4-5 below wait for
-that slice.
+Counterpart of ``repro/runtime/elastic.py`` (pure Python).  The serving
+engine's ``rebuild_after_loss`` re-plans its mesh of ranks with it; the
+Trainer hands it the chips of this process, and steps 4-5 below wait for
+the training mesh, a later slice of the port.
 
 Given the surviving chip count, pick the largest (pods, data, model)
 mesh the job can run — model-parallel width is pinned (changing TP

@@ -20,15 +20,38 @@ cancel()) free at once and refill without stopping the others.
 
 The engine runs on the device of the parameters it is given and never
 moves them: caches, token tensors and the sampling generator are made
-there.  Not ported here (operations, ROADMAP slice F): serving on a
-mesh (``ServeConfig.mesh``), ``make_watchdog`` and
-``rebuild_after_loss``; each raises ``NotImplementedError``.
+there.
+
+Serving on a mesh (``ServeConfig.mesh``, a
+:class:`repro_torch.launch.mesh.Mesh`): every rank of the mesh builds the
+same Engine on the same raw parameters and gets the same requests (SPMD).
+Packing then keeps each rank's slice of the bit planes and every
+projection dispatches the mesh qmm (``parallel/qmm_mesh.py``: integer
+partial counts all-reduced, eq. (2) after the sum); float leaves are
+replicated.  The engine enters ``sharding.use_mesh(mesh,
+RULESETS[mesh_rules])`` around packing, autotuning, prefill and decode.
+The ranks' schedulers check every tick that they agree
+(``serving/scheduler.py``), and a mesh engine's ``run()`` lets a step's
+exception through instead of quarantining it, because a rank that
+skipped a step would pair its next collective with another rank's.
+``make_watchdog`` gives a heartbeat watchdog with one "host" per rank and
+``rebuild_after_loss`` re-plans the mesh on the surviving ranks
+(``runtime.elastic.plan_restart``: the model axis pinned, the data axis
+shrunk), re-packs the raw parameters onto it and migrates the unfinished
+requests, which restart from their prompts.  Every rank of the world calls
+it (process groups are created collectively); a rank left out of the new
+mesh gets None and leaves.  This covers the reference's contract, a rank
+falling silent while all ranks can still form groups: a rank that really
+dies takes its ``torch.distributed`` world with it, and recovering from
+that is a ``torchrun`` restart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -37,6 +60,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.common import ModelConfig, ShardLayout, kv_cache_format
 from repro_torch.models.kvcache import init_caches
 from repro_torch.models.paged_kvcache import tree_nbytes
+from repro_torch.parallel import sharding
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import (BucketScheduler, ChunkedScheduler, Request,
@@ -44,9 +68,6 @@ from repro_torch.serving.scheduler import (BucketScheduler, ChunkedScheduler, Re
 
 __all__ = ["ServeConfig", "Request", "Result", "Engine", "make_serve_step",
            "make_serve_step_embeddings", "make_prefill_fn", "make_chunk_step"]
-
-_SLICE_F = ("is not ported yet: it belongs to the operations slice (ROADMAP.md, "
-            "queue 1, slice F)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +104,9 @@ class ServeConfig:
     # Input extents for conv-packed QTensors in an "offline" sweep:
     # (batch, height, width[, stride, padding]).
     tune_conv_inputs: tuple = ()
-    # Serving on a mesh: not ported (slice F); must stay None.
+    # Serve on a mesh of ranks (launch.mesh.Mesh; module docstring): every
+    # rank builds the engine with the same parameters and requests.
+    # None = one device.
     mesh: Optional[Any] = None
     mesh_rules: str = "serve_lowbit"
     # Backpressure: a submit past this bound resolves at once as
@@ -175,14 +198,26 @@ class Engine:
             raise ValueError(
                 f"ServeConfig.autotune must be 'off', 'offline' or "
                 f"'on_first_use', got {scfg.autotune!r}")
-        if scfg.mesh is not None:
-            raise NotImplementedError(f"ServeConfig.mesh {_SLICE_F}")
+        if scfg.mesh is not None and scfg.mesh_rules not in sharding.RULESETS:
+            raise ValueError(
+                f"ServeConfig.mesh_rules must be one of "
+                f"{sorted(sharding.RULESETS)}, got {scfg.mesh_rules!r}")
         self.cfg, self.layout, self.scfg = cfg, layout, scfg
+        self._seed, self._clock = seed, clock
+        self._raw_params = params     # retained for the elastic rebuild
         self._closed = False
         self._paged = kv_cache_format(cfg.kv_cache_dtype).paged
         self.device = _tree_device(params)
         if self.device is None:
             raise ValueError("Engine needs a parameter tree holding tensors")
+        if scfg.mesh is not None:
+            from repro_torch.launch.mesh import Mesh
+            if not isinstance(scfg.mesh, Mesh):
+                raise TypeError(f"ServeConfig.mesh must be a launch.mesh.Mesh, got "
+                                f"{type(scfg.mesh).__name__}")
+            if not scfg.mesh.member or scfg.mesh.device != self.device:
+                raise ValueError(f"this rank serves on {self.device}, which is not a "
+                                 f"member of {scfg.mesh!r}")
         # per-engine telemetry + event sink (REPRO_OBS=off: every hook is
         # a no-op and the sink never opens)
         self.obs = EngineMetrics()
@@ -190,15 +225,16 @@ class Engine:
             raise NotImplementedError(
                 "paged (tnn2) serving covers token models; the embeddings "
                 "frontend has no chunked-prefill token source")
-        if scfg.pack_params:
-            from repro_torch.models.packing import pack_lm_params
-            params = pack_lm_params(params, cfg)
-        self.params = params
         # plan key -> the per-candidate timings of each plan an "offline"
         # sweep measured (tuner.ensure_plan's reports)
         self.tune_reports: Dict[str, Dict] = {}
-        if scfg.pack_params:
-            self._autotune()
+        with self._mesh_scope():
+            if scfg.pack_params:
+                from repro_torch.models.packing import pack_lm_params
+                params = pack_lm_params(params, cfg)
+            self.params = params
+            if scfg.pack_params:
+                self._autotune()
         b, L = scfg.num_slots, scfg.max_len
         self.caches = init_caches(cfg, layout, b, L, page_size=scfg.page_size,
                                   prefill_chunk=scfg.prefill_chunk, device=self.device)
@@ -220,7 +256,8 @@ class Engine:
         self._sched = sched_cls(self, clock=clock)
         self.obs.events.emit(
             "engine_build", kv_cache_dtype=cfg.kv_cache_dtype, num_slots=scfg.num_slots,
-            max_len=scfg.max_len, paged=self._paged, autotune=scfg.autotune, mesh=None)
+            max_len=scfg.max_len, paged=self._paged, autotune=scfg.autotune,
+            mesh=None if scfg.mesh is None else list(scfg.mesh.shape))
 
     @staticmethod
     def _annotated(fn, name: str):
@@ -266,6 +303,18 @@ class Engine:
         """uid -> [logits row per sampled step] (ServeConfig.trace_logits)."""
         return self._sched.logit_trace
 
+    @contextlib.contextmanager
+    def _mesh_scope(self):
+        """The engine's mesh and ruleset for the duration of a call
+        (packing, autotuning, prefill, decode), scoped per call, so two
+        engines on different meshes (the rebuild window) never share an
+        ambient mesh."""
+        if self.scfg.mesh is None:
+            yield
+            return
+        with sharding.use_mesh(self.scfg.mesh, sharding.RULESETS[self.scfg.mesh_rules]):
+            yield
+
     def _buckets(self):
         out, s = [], self.scfg.prefill_bucket
         while s <= self.scfg.max_len:
@@ -282,6 +331,10 @@ class Engine:
         engine's own m extents — decode at m = num_slots, bucket prefill
         at m = each bucket, chunked prefill at m = num_slots x
         prefill_chunk — on the engine's device, then persist the plans.
+        Under a mesh the sharded containers' kernels see their LOCAL
+        problems (``qmm_mesh.local_dims``: the fused kernel at n_local for
+        n-sharded planes, the int32 core at k_local for k-sharded ones),
+        so those are swept too.
         "on_first_use": arm the process-wide policy.  "off"/"offline"
         disarm it, so an "off" engine never measures at dispatch time.
         """
@@ -317,6 +370,24 @@ class Engine:
                     tuner.ensure_plan(mode, DEFAULT_BACKEND, fused=True, conv=prob,
                                       save=False, reports=self.tune_reports,
                                       device=self.device)
+        ctx = sharding.active()
+        if ctx is not None:
+            from repro_torch.parallel import qmm_mesh
+            seen = set()
+            for qt in _lowbit_gemm_containers(self.params):
+                plan = qmm_mesh.shard_plan(qt, ctx)
+                if plan is None:
+                    continue
+                n_l, k_l = qmm_mesh.local_dims(qt, ctx)
+                key = (qt.mode, plan.k_axis is None, n_l, k_l)
+                if key in seen:
+                    continue
+                seen.add(key)
+                for m in ms:
+                    tuner.ensure_plan(qt.mode, DEFAULT_BACKEND, fused=plan.k_axis is None,
+                                      m=m, n=n_l, k=k_l, save=False,
+                                      reports=self.tune_reports, device=self.device)
+            problems = problems or seen
         if problems:
             try:
                 tune_cache.get_cache().save()
@@ -333,7 +404,8 @@ class Engine:
     def step(self) -> bool:
         """One continuous-batching tick (expire -> admit/prefill ->
         decode); True while any request is queued or in flight."""
-        return self._sched.step()
+        with self._mesh_scope():
+            return self._sched.step()
 
     def page_stats(self):
         """Per-pattern-entry page accounting ({total, used, free,
@@ -364,14 +436,18 @@ class Engine:
         ``max_steps``).  A step that raises — a failed CUDA launch, an
         injected fault — is quarantined: every in-flight slot finishes
         as "error" (pages released) and the loop goes on with the
-        queue.  ``Engine.step()`` stays raising."""
+        queue.  ``Engine.step()`` stays raising.  On a mesh a step's
+        exception propagates (module docstring)."""
         steps = 0
-        while (self.queue or any(u != -1 for u in self.slot_uid)) and steps < max_steps:
-            try:
-                self._sched.step()
-            except Exception as e:
-                self._sched.quarantine(e)
-            steps += 1
+        with self._mesh_scope():
+            while (self.queue or any(u != -1 for u in self.slot_uid)) and steps < max_steps:
+                try:
+                    self._sched.step()
+                except Exception as e:
+                    if self.scfg.mesh is not None:
+                        raise
+                    self._sched.quarantine(e)
+                steps += 1
         return self.results
 
     # ------------------------------------------------------------ lifecycle
@@ -389,7 +465,8 @@ class Engine:
             from repro_torch.tune import cache as tune_cache
             tune_cache.set_policy("off")
         in_flight = sum(1 for u in self.slot_uid if u != -1)
-        self._sched.shutdown()
+        with self._mesh_scope():
+            self._sched.shutdown()
         self.obs.events.emit("engine_close", results=len(self.results), in_flight=in_flight)
         self.obs.close()
 
@@ -401,10 +478,98 @@ class Engine:
         return False
 
     def make_watchdog(self, cfg: Optional[Any] = None, clock: Optional[Any] = None):
-        """The mesh engine's heartbeat watchdog: not ported (slice F)."""
-        raise NotImplementedError(f"Engine.make_watchdog {_SLICE_F}")
+        """Heartbeat watchdog sized to this engine's mesh: one "host" per
+        rank, host ``h`` standing for rank ``mesh.devices.flat[h]``."""
+        from repro_torch.runtime.fault_tolerance import Watchdog, WatchdogConfig
 
-    def rebuild_after_loss(self, dead: Sequence[Any]) -> "Engine":
-        """Rebuilding a mesh engine on the surviving devices: not ported
-        (slice F)."""
-        raise NotImplementedError(f"Engine.rebuild_after_loss {_SLICE_F}")
+        if self.scfg.mesh is None:
+            raise RuntimeError("make_watchdog needs a mesh engine")
+        cfg = cfg or WatchdogConfig()
+        n = self.scfg.mesh.size
+        if clock is None:
+            return Watchdog(cfg, n)
+        return Watchdog(cfg, n, clock=clock)
+
+    def rebuild_after_loss(self, dead: Sequence[Any]) -> Optional["Engine"]:
+        """Rebuild this engine on the ranks that survived a loss.
+
+        ``dead`` lists the global ranks (``mesh.devices`` entries) the
+        watchdog declared lost.  ``runtime.elastic.plan_restart`` picks
+        the largest restartable (data, model) topology: the model axis is
+        pinned, the data axis shrinks to the largest surviving divisor.
+        Every rank of the world calls this (the new mesh's process groups
+        are created collectively).  On a rank of the new mesh it returns
+        a new Engine that re-packed the RAW parameter tree onto that mesh
+        (packing is deterministic) and holds every unfinished request of
+        this one, restarted from its prompt; the integer partials sum to
+        the same accumulators on any shard count, so greedy decode gives
+        the same tokens.  On a rank left out (the dead ones among them)
+        it returns None.  Raises RuntimeError when fewer ranks survive
+        than one model-parallel group needs, and on a non-mesh engine.
+        """
+        if self.scfg.mesh is None:
+            raise RuntimeError("rebuild_after_loss needs a mesh engine")
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.runtime.elastic import plan_restart
+
+        mesh = self.scfg.mesh
+        dead_ids = {int(getattr(d, "id", d)) for d in dead}
+        all_ranks = [int(r) for r in mesh.devices.flat]
+        survivors = [r for r in all_ranks if r not in dead_ids]
+        self.obs.events.emit("device_loss", dead=sorted(dead_ids), survivors=len(survivors),
+                             mesh=list(mesh.shape))
+        t0 = time.perf_counter()
+        # the rebuild event records the outcome even when re-planning or
+        # re-packing raises; the sink stays open (this engine owns it)
+        try:
+            sizes = dict(zip(mesh.axis_names, mesh.shape))
+            plan = plan_restart(len(survivors), chips_per_pod=len(all_ranks),
+                                model=sizes.get("model", 1), old_data=sizes.get("data", 1),
+                                old_pods=1)
+            if plan is None:
+                raise RuntimeError(
+                    f"{len(survivors)} surviving ranks cannot host one model-parallel "
+                    f"group of {sizes.get('model', 1)}")
+            new_mesh = make_mesh(plan.mesh_shape(multi_pod=False), mesh.axis_names,
+                                 ranks=survivors, device=mesh.device)
+            new_eng = None
+            if new_mesh.member:
+                new_eng = Engine(self._raw_params, self.cfg, self.layout,
+                                 dataclasses.replace(self.scfg, mesh=new_mesh),
+                                 seed=self._seed, clock=self._clock)
+        except BaseException as e:
+            self.obs.events.emit("rebuild", ok=False, error=f"{type(e).__name__}: {e}",
+                                 latency_s=round(time.perf_counter() - t0, 6))
+            raise
+        self.obs.events.emit(
+            "rebuild", ok=True, new_engine=None if new_eng is None else new_eng.obs.engine_id,
+            mesh=list(new_mesh.shape), member=new_mesh.member,
+            latency_s=round(time.perf_counter() - t0, 6))
+        if new_eng is None:
+            return None
+        # unfinished work restarts from scratch on the new engine: its
+        # partial decode state lived in this mesh's caches; resolved
+        # Results stay with this engine
+        migrated = []
+        for req in self._sched.unfinished():
+            req.retries = 0
+            req.not_before = None
+            new_eng.submit(req)
+            migrated.append(req.uid)
+        if migrated:
+            self.obs.events.emit("migrate", count=len(migrated), uids=sorted(migrated),
+                                 new_engine=new_eng.obs.engine_id)
+        return new_eng
+
+
+def _lowbit_gemm_containers(tree) -> List[Any]:
+    """Every low-bit GeMM (non-conv) QTensor of a parameter tree."""
+    from repro_torch.kernels.qtensor import QTensor
+
+    if isinstance(tree, QTensor):
+        return [tree] if tree.is_lowbit and tree.geometry is None else []
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [qt for v in tree for qt in _lowbit_gemm_containers(v)]
+    return []

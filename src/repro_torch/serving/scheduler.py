@@ -30,6 +30,16 @@ Slot lifecycle (chunked)::
 Every tick runs at most two forwards: one (B, prefill_chunk) chunk and
 one (B, 1) decode.  A decode tick reads the sampled tokens and the
 NaN/Inf guard's verdict back to the host in one transfer.
+
+On a mesh engine every rank runs its own scheduler over the same
+requests, and every projection of a forward is a collective: the ranks
+must take the same decisions tick by tick, or a collective pairs with the
+wrong one.  So each tick starts with one all-reduce of a digest of the
+scheduler's state (queue, slots, positions, last tokens, results) and
+raises ``launch.mesh.MeshDesyncError`` on disagreement, and every clock
+reading (deadlines, backoff) is the first rank's, broadcast.  A rank that
+diverges anyway (a fault plan armed on one rank only) stops at the next
+digest, or at the group's collective timeout, never in a hang.
 """
 
 from __future__ import annotations
@@ -113,7 +123,9 @@ class Scheduler:
 
     def __init__(self, engine, clock=None):
         self.eng = engine
-        self.clock = clock or time.monotonic
+        self.mesh = engine.scfg.mesh
+        clock = clock or time.monotonic
+        self.clock = clock if self.mesh is None else (lambda: self.mesh.from_first(clock()))
         b = engine.scfg.num_slots
         self.queue: deque = deque()
         self.slot_uid: List[int] = [-1] * b            # -1 = free
@@ -143,6 +155,8 @@ class Scheduler:
     def step(self) -> bool:
         """One tick: expire/cancel, admit+prefill, decode.  Returns True
         while any request is queued or in flight."""
+        if self.mesh is not None:
+            self.mesh.agree(self._digest(), "the scheduler state at the start of a tick")
         self.expire()
         faults.maybe_stall("step.stall")
         self.admit_once()
@@ -156,6 +170,12 @@ class Scheduler:
 
     def page_stats(self) -> List:
         return []                 # paged schedulers override
+
+    def _digest(self) -> List[int]:
+        """The state every rank of a mesh must share, as integers."""
+        return ([len(self.queue)] + [r.uid for r in self.queue] + list(self.slot_uid)
+                + self.slot_pos.tolist() + self.last_token.tolist()
+                + [len(self.results)])
 
     def expire(self) -> None:
         """Evict cancelled / past-deadline requests — queued ones before
@@ -295,6 +315,13 @@ class Scheduler:
             if (self.slot_remaining[b] <= 0 or int(nxt_h[b]) == scfg.eos_id
                     or self.slot_pos[b] >= scfg.max_len):
                 self.finish(b)
+
+    def unfinished(self) -> List[Request]:
+        """Queued plus in-flight requests, admission order first: what
+        ``Engine.rebuild_after_loss`` migrates to the replacement."""
+        out = list(self.queue)
+        out.extend(r for r in self.slot_req if r is not None)
+        return out
 
     def admit_once(self) -> None:
         raise NotImplementedError

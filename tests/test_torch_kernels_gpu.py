@@ -766,3 +766,32 @@ def test_resume_on_card_equal(cuda_device, deterministic, tmp_path):
     got, _ = restore_tree(d, 4, target)
     for (k, a), (_, b) in zip(flatten_with_paths(got), flatten_with_paths(want)):
         assert a.device.type == "cuda" and torch.equal(a, b), k
+
+
+def test_k_sharded_qmm_on_two_ranks_equals_single_device(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (``launch.mesh``): a k-sharded
+    TNN ``qmm`` at TinyLlama-1.1B's down projection (88 of its 176 words
+    per rank) runs the int32 kernel on each rank's word range,
+    all-reduces the int32 partials and equals the single-device ``qmm``."""
+    import json
+    import os
+    import sys
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    _build.build()            # the ranks load the libraries, never compile
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(os.path.dirname(here), "src")]
+                                        + [p for p in env.get("PYTHONPATH", "").split(
+                                            os.pathsep) if p])
+    res = mesh_mod.run_ranks([sys.executable, os.path.join(here, "torch_mesh_ranks.py"),
+                              "--gpu", str(tmp_path)], 2, timeout_s=300, env=env,
+                             log_dir=str(tmp_path / "logs"))
+    assert [r["returncode"] for r in res] == [0, 0], mesh_mod.rank_logs(res)
+    for r in range(2):
+        rep = json.loads((tmp_path / f"gpu_rank{r}.json").read_text())
+        assert rep["equal"], rep
+        assert rep["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+        assert rep["local_words"] == 88
+        assert rep["launches"] == {"lowbit_gemm_tnn_i32": 1}, rep["launches"]

@@ -286,12 +286,18 @@ def test_engine_keeps_its_device_and_kv_bytes_match_reference(weights):
 
 
 def test_mesh_watchdog_and_rebuild_not_ported(weights):
+    """The mesh engine is ported (tests/test_torch_mesh.py serves on 4
+    ranks); what remains here are its guards: a mesh must be a
+    ``launch.mesh.Mesh`` with a known ruleset, and a single-device engine
+    has no watchdog or rebuild (the reference's RuntimeErrors)."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="slice F"):
+    with pytest.raises(TypeError, match="Mesh"):
         Engine(weights[1], tcfg, TL, ServeConfig(mesh=object()))
+    with pytest.raises(ValueError, match="mesh_rules"):
+        Engine(weights[1], tcfg, TL, ServeConfig(mesh=object(), mesh_rules="bogus"))
     _, te = _engines(weights)
     for call in (te.make_watchdog, lambda: te.rebuild_after_loss([0])):
-        with pytest.raises(NotImplementedError, match="slice F"):
+        with pytest.raises(RuntimeError, match="mesh"):
             call()
 
 
