@@ -6,13 +6,15 @@ against its plain PyTorch version, drives the main path, times it.
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times [--src DIR]
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --train-mesh
 
 The second form runs phases 1, 2 and the GeMM rows of phase 6 only
 (popcount, dense, u8 and u4), for the ``repro_torch`` package under
 ``DIR`` (default this checkout's ``src``): the way to time another
 checkout's GeMM kernels, e.g. the parent commit's, on the same card.
-The third runs phases 1, 2 and 11 only.  Phase 11 starts this script
-again as each of its ranks (``--mesh-rank DIR``, not for direct use).
+The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12.
+Phases 11 and 12 start this script again as each of their ranks
+(``--mesh-rank DIR``, ``--train-mesh-rank DIR``, not for direct use).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -244,7 +246,40 @@ without printing a result:
         flags; ``rebuild_after_loss([3])`` gives (1, 2) on ranks 0 and 1
         (ranks 2 and 3 leave), the migrated requests finish there with
         the single-device tokens;
-12. the last line: ``{"ok": true, "device": {...}}``.
+12. the training mesh (after 11, before any profiler session): first
+    12a's configuration on one device (the reference), then
+    ``TRAIN_MESH_WORLD`` ranks of this script (``--train-mesh-rank``) on a
+    ``TRAIN_MESH_SHAPE`` ("data", "model") mesh under ``TRAIN_RULES``,
+    sharing the card over gloo (one card each over NCCL where the machine
+    has them); every rank must exit 0:
+    12a. a ``Trainer`` of QAT under ``tnn`` on TinyLlama-1.1B at its
+        published width and depth (remat, AdamW with int8 moments at lr
+        ``TRAIN_MESH_LR``, EF compression, bf16 compute copies gathered
+        over the mesh and bf16 cotangents reduce-scattered),
+        ``ShardLayout(tp=2)``, ``TRAIN_MESH_STEPS`` steps of
+        ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, each rank the rows of its
+        "data" coordinate and the shards of every leaf by ``param_spec``;
+        launch and collective counters zeroed just before each step and
+        read just after: exactly 2 x 7 x 22 fused TNN GeMM launches per
+        rank per step (the remat recompute doubles the forward's) and
+        nothing else; the first forward's planes equal to one device's (a
+        checksum of every projection's, ``torch.equal`` for the first
+        layer's seven); the loss, ``grad_norm`` and each parameter leaf's
+        sum of squares after each step within ``TRAIN_MESH_BOUNDS`` of one
+        device's; ms per step and tokens/s of the ranks time-sharing the
+        card (not a scaling figure) beside one device's, peak memory per
+        rank, master / moment / EF bytes per rank against one device's,
+        collectives per step with their bytes and host seconds; then the
+        same at ``LM_CUT_LAYERS`` layers, every master elementwise against
+        one device's;
+    12b. at ``LM_CUT_LAYERS`` layers: 12a's state saved on the mesh (whole
+        leaves, the reference's format), restored onto (4, 1) equal to the
+        saved state re-sharded in memory, and one more step from each
+        (under ``torch.use_deterministic_algorithms``) ``torch.equal``;
+        save and restore seconds;
+    12c. ``python -m repro_torch.launch.train --smoke --quant tnn`` on
+        ``TRAIN_MESH_WORLD`` ranks (the (1, 4) host mesh): the loss falls;
+13. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -352,6 +387,43 @@ MESH_WORLD, MESH_TIMEOUT_S, MESH_SHAPES = 4, 900, ((2, 2), (1, 4))
 MESH_LM_SHAPES = [(512, 2048, 2048), (512, 256, 2048), (512, 5632, 2048), (512, 2048, 5632)]
 MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 4, 128, 16
 MESH_CASES = {"n": ("model", None), "k": (None, "model"), "nk": ("model", "data")}
+# Phase 12, the training mesh: TRAIN_MESH_WORLD ranks share the card over
+# gloo (one card each over NCCL where the machine has them) as a
+# TRAIN_MESH_SHAPE ("data", "model") mesh under TRAIN_RULES; 12a trains
+# TRAIN_MESH_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens at lr
+# TRAIN_MESH_LR (warm-up 1) and is held to the same steps on one device:
+# TRAIN_MESH_BOUNDS[run][i] bounds the relative differences of step i's
+# loss and grad_norm and, after the first step, of each parameter leaf's
+# sum of squares.  The tnn runs' bounds are wide because the card's float
+# products round differently at the rank's row count than at the whole
+# batch's (cuBLAS picks its kernel by shape), and a ternary threshold turns
+# a last-bit difference of an activation into a different ternary value;
+# at 22 layers the differences compound (one device moves its own first
+# loss by ~9e-4 when only the order of its rows changes).  "12a_f32" runs
+# the same mesh at LM_CUT_LAYERS layers with float32 projections, no
+# threshold, and holds it tight: its remaining differences are the float
+# rounding and the bf16 wire.  At LM_CUT_LAYERS layers every tnn master
+# after the first step is within 2 lr of one device's (a flipped gradient
+# sign moves it by that much), and at most TRAIN_MESH_MOVED_MAX of them by
+# more than 1e-3 lr.  The first step's grad_norm bounds, 12a's second
+# step's and TRAIN_MESH_MOVED_MAX lie between the readings of a sound mesh
+# and of one whose remat recompute quantizes with each rank's own
+# statistics (PERF.md gives both for every bound).  The second update is not bounded
+# elementwise: with int8 moments and EF (the reference's arithmetic, which
+# the JAX package shows too) an element whose EF gradient rounds to 0 while
+# its int8 v rounded to 0 and its m did not takes a step of m / eps.
+TRAIN_MESH_WORLD, TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = 4, (2, 2), 2
+TRAIN_MESH_LR, TRAIN_MESH_TIMEOUT_S, TRAIN_MESH_MOVED_MAX = 3e-4, 900, 0.05
+TRAIN_MESH_RUNS = (("12a", None, "tnn"), ("12a_cut", LM_CUT_LAYERS, "tnn"),
+                   ("12a_f32", LM_CUT_LAYERS, "f32"))
+TRAIN_MESH_BOUNDS = {
+    "12a": ({"loss": 1e-2, "grad_norm": 7e-2, "sumsq": 1e-3},
+            {"loss": 2e-3, "grad_norm": 7.5e-2, "sumsq": None}),
+    "12a_cut": ({"loss": 1e-3, "grad_norm": 1e-3, "sumsq": 1e-3},
+                {"loss": 2e-2, "grad_norm": 1e-1, "sumsq": None}),
+    "12a_f32": ({"loss": 1e-5, "grad_norm": 1e-3, "sumsq": 1e-4},
+                {"loss": 1e-4, "grad_norm": 1e-2, "sumsq": None}),
+}
 
 
 def log(msg: str) -> None:
@@ -2375,6 +2447,547 @@ def phase11(torch, dev):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the training mesh (ranks started by phase12, run by
+# train_mesh_rank)
+# ---------------------------------------------------------------------------
+
+def train_mesh_config(num_layers=None, policy="tnn"):
+    """12a's configuration: TinyLlama-1.1B (or its first ``num_layers``
+    layers) under ``policy`` with remat, AdamW with int8 moments, EF on,
+    the bf16 wire; TRAIN_BATCH x TRAIN_SEQ tokens a step from SyntheticLM
+    seed 0.  -> (cfg, tcfg, source)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainStepConfig
+
+    cfg = get_config(LM_ARCH, quant_policy=policy)
+    if num_layers:
+        cfg = cfg.with_(num_layers=num_layers)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR, warmup_steps=1,
+                                                 moments_dtype="int8"), ef_compression=True)
+    return cfg, tcfg, SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0)
+
+
+def plane_digest(torch, t) -> int:
+    """A checksum of an int32 plane (int64 sums wrap the same way on any
+    order): the first forward's planes are compared by it."""
+    w = torch.arange(t.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+    return int((t.reshape(-1).to(torch.int64) * w).sum().item())
+
+
+@contextlib.contextmanager
+def record_planes(torch, box, n_keep: int, n_forward: int):
+    """While active, the first ``n_forward`` low-bit ``qmm`` calls (the
+    first forward's projections): each call's planes' digests, and the
+    first ``n_keep`` calls' planes themselves (on the host) and operands
+    (``x``, the packed weight, the activation statistics the call was
+    given: a split batch's global ones on the mesh), for
+    :func:`operands_vs_plain`."""
+    from repro_torch.kernels import ops
+
+    real = ops.qmm
+    box.setdefault("digests", [])
+    box.setdefault("planes", [])
+    box.setdefault("operands", [])
+
+    def qmm(x, qt, *, backend=None, act_stats=None):
+        if qt.mode.is_lowbit and len(box["digests"]) < n_forward:
+            box["digests"].append([plane_digest(torch, qt.payload[k])
+                                   for k in sorted(qt.payload)])
+            if len(box["planes"]) < n_keep:
+                box["planes"].append({k: v.cpu() for k, v in qt.payload.items()})
+                box["operands"].append((x.detach().clone(), qt, act_stats))
+        return real(x, qt, backend=backend, act_stats=act_stats)
+
+    ops.qmm = qmm
+    try:
+        yield box
+    finally:
+        ops.qmm = real
+
+
+def operands_vs_plain(torch, operands) -> dict:
+    """Row 1 against its plain version at the main path's own operands:
+    each kept projection's ``qmm`` on the card's kernel and with
+    ``backend="torch"``, ``torch.equal``, with the (m, n, k) it ran at.
+    Called outside the counted window."""
+    from repro_torch.kernels import ops
+
+    out = {"shapes": [], "equal": [], "max_abs_err": 0.0}
+    with deterministic(torch):
+        for x, qt, stats in operands:
+            got = ops.qmm(x, qt, act_stats=stats)
+            want = ops.qmm(x, qt, backend="torch", act_stats=stats)
+            out["shapes"].append([int(x.shape[0]), int(qt.shape[1]), int(qt.shape[0])])
+            out["equal"].append(bool(torch.equal(got, want)))
+            out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
+    return out
+
+
+def leaf_sumsq(torch, state, shardings=None, mesh=None):
+    """{path: sum of squares} of every float leaf of ``state["params"]``:
+    on a mesh each shard counted once (``sharding.holds_first_copy``; one
+    all-reduce)."""
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten_with_paths
+
+    flat = flatten_with_paths(state["params"])
+    vals = torch.stack([torch.sum(torch.square(t.to(torch.float64))) for _, t in flat])
+    if mesh is not None:
+        sh = dict(flatten_with_paths(shardings["params"]))
+        keep = [sharding.holds_first_copy(sh[path].spec, mesh) for path, _ in flat]
+        vals = mesh.all_reduce_(vals * torch.tensor(keep, dtype=vals.dtype, device=vals.device))
+    return {path: float(v) for (path, _), v in zip(flat, vals.tolist())}
+
+
+def train_mesh_collectives(cfg, tcfg, sh, mesh, policy) -> dict:
+    """The training mesh's collectives per rank per step, predicted from
+    the state's shardings ``sh`` and the rules (each counted once per mesh
+    axis of size > 1 it runs over, as ``launch.mesh.collectives`` counts
+    them): a gather per sharded axis of every sharded leaf and a
+    reduce-scatter per batch axis among them; all-reduces: the batch axes
+    a sharded leaf's spec does not use, every replicated leaf's gradient,
+    each low-bit projection's statistics (2 sums for tnn/tbn, 1 for bnn)
+    in the forward and in the remat recompute, the loss's token count and
+    the loss shares, the global norm and EF's absmax (one each over the
+    whole mesh), and an int8 moment whose shard cuts a 256-block: its
+    block maxima (all-reduce) and its scales (gather), for m and v."""
+    from repro_torch.optim.adamw import Q8Layout
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten_with_paths
+
+    def n(axes):
+        return sum(1 for a in axes if mesh.axis_size(a) > 1)
+
+    batch = [a for a in sharding.batch_axes() if mesh.axis_size(a) > 1]
+    micro = tcfg.microbatch
+    gathers = scatters = reduces = 0
+    opt_m = dict(flatten_with_paths(sh["opt"]["m"]))
+    for path, p in flatten_with_paths(sh["params"]):
+        used = {a for e in p.spec for a in sharding.spec_axes(e)}
+        if p.sharded:
+            gathers += micro * n(used)
+            scatters += micro * n([a for a in batch if a in used])
+            reduces += micro * n([a for a in batch if a not in used])
+        else:
+            reduces += n(batch)
+        if tcfg.optimizer.moments_dtype == "int8" and Q8Layout.cuts(p, mesh):
+            reduces += 2 * n(sharding.spec_axes(p.spec[-1]))
+            gathers += 2 * n(sharding.spec_axes(opt_m[f"{path}/scale"].spec[-1]))
+    stats = {"tnn": 2, "tbn": 2, "bnn": 1}.get(policy, 0)
+    forwards = 2 if cfg.remat else 1
+    reduces += micro * n(batch) * (stats * forwards * tnn_gemms_per_forward(cfg) + 1)
+    reduces += n(batch) + (1 if mesh.size > 1 else 0) * (1 + int(tcfg.ef_compression))
+    return {"all_gather": gathers, "reduce_scatter": scatters, "all_reduce": reduces}
+
+
+def state_bytes(state) -> dict:
+    """Bytes of masters, moments and EF buffers."""
+    from repro_torch.tree import flatten_with_paths
+
+    out = {}
+    for path, t in flatten_with_paths(state):
+        group = "moments" if path.startswith("opt/") else path.split("/")[0]
+        out[group] = out.get(group, 0) + t.numel() * t.element_size()
+    return out
+
+
+def train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept, mesh=None):
+    """A Trainer of 12a's configuration whose step is instrumented: host
+    clock around each synchronized step, the launch and collective
+    counters zeroed just before it and read just after, then (outside the
+    window) the metrics and every leaf's sum of squares into ``rows`` and
+    the state into ``kept["state"]``; the first step's forward recorded
+    into ``box``."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_paths
+
+    tr = Trainer(cfg, layout, tcfg, TrainerConfig(steps=TRAIN_MESH_STEPS, log_every=10**9),
+                 source, device=dev, log_fn=log)
+    inner = tr.step_fn
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        mesh_mod.reset_collectives()
+        t0 = time.perf_counter()
+        if not rows:
+            with record_planes(torch, box, 7, tnn_gemms_per_forward(cfg)):
+                out = inner(state, batch)
+        else:
+            out = inner(state, batch)
+        float(out[1]["loss"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, coll = _build.launches(), mesh_mod.collectives()
+        kept["state"] = out[0]
+        if not rows and kept.get("snapshot"):
+            kept["params_after_first"] = {p: t.clone() for p, t in
+                                          flatten_with_paths(out[0]["params"])}
+        rows.append({"s": secs, "launches": launches, "collectives": coll,
+                     "metrics": {k: float(v) for k, v in out[1].items()},
+                     "sumsq": leaf_sumsq(torch, out[0], tr.shardings, mesh)})
+        return out
+
+    tr.step_fn = step
+    return tr
+
+
+def train_mesh_rank(torch, out_dir: str) -> int:
+    """One rank of phase 12 (``--train-mesh-rank``): 12a on (2, 2) at full
+    depth and at LM_CUT_LAYERS, 12b at LM_CUT_LAYERS; writes
+    ``rank<r>.json`` into ``out_dir``.  Any failure raises."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.data import DataState, make_pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import ShardLayout
+    from repro_torch.parallel import sharding
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten_with_paths, map_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_mod.init_rank("cuda")
+    rank = dist.get_rank()
+    mesh = mesh_mod.make_mesh(TRAIN_MESH_SHAPE, ("data", "model"), device=dev)
+    mesh41 = mesh_mod.make_mesh((mesh.size, 1), ("data", "model"), device=dev)
+    log(f"[train mesh] rank {rank}: {mesh!r}")
+    report = {"rank": rank, "backend": mesh.backend}
+    single = torch.load(os.path.join(out_dir, "single.pt"), weights_only=False)
+    tp = dict(zip(mesh.axis_names, mesh.shape))["model"]
+
+    # -- 12a: full width and depth, then LM_CUT_LAYERS layers -------------------
+    for name, layers, policy in TRAIN_MESH_RUNS:
+        cfg, tcfg, source = train_mesh_config(layers, policy)
+        state = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
+        t0 = time.perf_counter()
+        with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+            tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, ShardLayout(tp=tp), rows,
+                                    box, kept, mesh)
+            expect = train_mesh_collectives(cfg, tcfg, tr.shardings, mesh, policy)
+            state, ds = tr.restore_or_init()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            nbytes = state_bytes(state)
+            res = tr.run(state, ds)
+        del state
+        peak = torch.cuda.max_memory_allocated()
+        ref = single[name]
+        report[name] = {
+            "rows": rows, "losses": res.losses, "init_s": init_s, "peak_memory_bytes": peak,
+            "collectives_expected": expect, "vs_plain": operands_vs_plain(torch, box["operands"]),
+            "bytes": nbytes, "coords": mesh.coords, "n_digests": len(box["digests"]),
+            "digests": box["digests"],
+            "digests_equal": box["digests"] == ref["digests"],
+            "planes_equal": len(box["planes"]) == len(ref["planes"]) and all(
+                torch.equal(a[k], b[k]) for a, b in zip(box["planes"], ref["planes"])
+                for k in a)}
+        del box
+        if name == "12a_cut":
+            cut = kept, tr.shardings, cfg, tcfg, source
+        log(f"[train mesh {name}] rank {rank}: steps {[round(r['s'], 3) for r in rows]} s, "
+            f"losses {res.losses}, peak {peak / 2**30:.2f} GiB")
+    kept, sh, cfg, tcfg, source = cut
+    state = kept["state"]
+    by = dict(flatten_with_paths(sh))
+    # 12a_cut: every master after the first step elementwise against one
+    # device's (its whole leaves, mapped, one at a time)
+    whole = torch.load(os.path.join(out_dir, "single_cut_params.pt"), mmap=True,
+                       weights_only=False)
+    worst, moved, count = 0.0, 0, 0
+    for path, t in kept["params_after_first"].items():
+        want = sharding.shard_leaf(whole[path], by["params/" + path].spec, mesh).to(dev)
+        d = (t - want).abs()
+        worst = max(worst, float(d.max()))
+        moved += int((d > 1e-3 * TRAIN_MESH_LR).sum())
+        count += t.numel()
+    del whole, kept["params_after_first"]
+    report["12a_cut"]["elementwise"] = {"max_abs_diff": worst, "bound": 2 * TRAIN_MESH_LR,
+                                        "moved_more_than_1e-3_lr": moved, "elements": count}
+    # -- 12b: save on (2, 2), restore onto (4, 1) -----------------------------------
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.train_step import state_shardings
+
+    ck_dir = os.path.join(out_dir, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        Checkpointer(CheckpointConfig(ck_dir, async_save=False)).save(
+            TRAIN_MESH_STEPS, state, extra={"data_state": {"step": TRAIN_MESH_STEPS, "seed": 0}},
+            shardings=sh)
+    save_s = time.perf_counter() - t0
+    with sharding.use_mesh(mesh41, sharding.TRAIN_RULES):
+        sh41 = state_shardings(cfg, ShardLayout(tp=1), tcfg)
+        by41 = dict(flatten_with_paths(sh41))
+        target = Trainer(cfg, ShardLayout(tp=1), tcfg, TrainerConfig(steps=1), source,
+                         device=dev, log_fn=log).restore_or_init()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, extra = Checkpointer(CheckpointConfig(ck_dir)).restore(
+            TRAIN_MESH_STEPS, target, shardings=sh41)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # the saved state re-sharded in memory, leaf by leaf
+        live = dict(flatten_with_paths(state))
+        direct = map_with_paths(lambda p, _: sharding.shard_leaf(
+            by[p].gather(live[p], mesh), by41[p].spec, mesh41), target)
+        del live, state, target
+        equal = all(torch.equal(x, y) for (_, x), (_, y) in
+                    zip(flatten_with_paths(restored), flatten_with_paths(direct)))
+        step = make_train_step(cfg, ShardLayout(tp=1), tcfg)
+        coord, shards = sharding.mesh_coord(mesh41, sharding.batch_axes())
+        _, batch = next(make_pipeline(source, DataState(TRAIN_MESH_STEPS, 0), host_id=coord,
+                                      num_hosts=shards))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        with deterministic(torch):
+            a, ma = step(restored, batch)
+            b, mb = step(direct, batch)
+            resume_equal = float(ma["loss"]) == float(mb["loss"]) and all(
+                torch.equal(x, y) for (_, x), (_, y) in
+                zip(flatten_with_paths(a), flatten_with_paths(b)))
+    report["12b"] = {"save_s": save_s, "restore_s": restore_s, "restored_equal": equal,
+                     "resume_equal": resume_equal, "extra": extra,
+                     "loss_after_restore": float(ma["loss"])}
+    log(f"[train mesh 12b] rank {rank}: save {save_s:.2f} s, restore {restore_s:.2f} s, "
+        f"restored == saved {equal}, resumed == uninterrupted {resume_equal}")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    mesh.barrier()
+    mesh_mod.shutdown()
+    return 0
+
+
+def train_mesh_single(torch, dev, name, layers, policy, out_dir):
+    """A run of TRAIN_MESH_RUNS on one device (the reference of the mesh
+    run): the instrumented rows, the first forward's planes, peak memory,
+    bytes; for "12a_cut" the masters after the first step too."""
+    from repro_torch.models import ShardLayout
+
+    cfg, tcfg, source = train_mesh_config(layers, policy)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
+    tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, ShardLayout(), rows, box, kept)
+    state, ds = tr.restore_or_init()
+    nbytes = state_bytes(state)
+    # the loss and gradient norm (before EF) of one device on the first
+    # batch, its rows in order and reversed: how far the device's own float
+    # sums move the QAT step
+    from repro_torch.data import DataState
+    from repro_torch.train.train_step import make_loss_fn
+
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.train_step import value_and_grad
+
+    loss_fn = make_loss_fn(cfg, ShardLayout(), tcfg)
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(DataState(0, 0)).items()}
+    probe = []
+    for b in (b0, {k: v.flip(0) for k, v in b0.items()}):
+        (loss, _), grads = value_and_grad(loss_fn, state["params"], b)
+        probe.append((float(loss), float(global_norm(grads))))
+        del grads
+    torch.cuda.empty_cache()
+    noise = {"loss": probe[0][0], "loss_rows_reversed": probe[1][0],
+             "rel": abs(probe[1][0] / probe[0][0] - 1), "grad_norm": probe[0][1],
+             "grad_norm_rows_reversed": probe[1][1],
+             "grad_norm_rel": abs(probe[1][1] / probe[0][1] - 1)}
+    res = tr.run(state, ds)
+    out = {"rows": rows, "losses": res.losses, "peak_memory_bytes":
+           torch.cuda.max_memory_allocated(), "bytes": nbytes, "digests": box["digests"],
+           "planes": box["planes"], "order_noise": noise,
+           "vs_plain": operands_vs_plain(torch, box.pop("operands"))}
+    if name == "12a_cut":
+        torch.save({p: t.cpu() for p, t in kept["params_after_first"].items()},
+                   os.path.join(out_dir, "single_cut_params.pt"))
+    del state, kept, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12(torch, dev):
+    """Phase 12 (see the module docstring): the single-device reference
+    runs, then TRAIN_MESH_WORLD ranks of ``--train-mesh-rank`` sharing the
+    card over gloo (one card each over NCCL where the machine has them),
+    then ``launch.train`` on 4 ranks.  Returns (the report, {kernel:
+    {sub-phase: rank 0's launches per step}})."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "train_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    key = LM_POLICY_KERNELS["tnn"]
+    single = {name: train_mesh_single(torch, dev, name, layers, policy, str(out_dir))
+              for name, layers, policy in TRAIN_MESH_RUNS}
+    torch.save(single, out_dir / "single.pt")
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
+        p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    env.setdefault("OMP_NUM_THREADS", "2")      # 4 ranks on the host's 8 cores
+    res = mesh_mod.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
+                              str(out_dir)], TRAIN_MESH_WORLD, timeout_s=TRAIN_MESH_TIMEOUT_S,
+                             env=env, log_dir=str(out_dir / "logs"))
+    ranks_s = time.perf_counter() - t0
+    with open(res[0]["log"]) as f:
+        for line in f:
+            if line.startswith("[train mesh") or line.startswith("[mesh]"):
+                log(line.rstrip())
+    if any(r["returncode"] != 0 for r in res):
+        raise AssertionError("phase 12: a training-mesh rank failed or overran\n"
+                             + mesh_mod.rank_logs(res))
+    reps = [json.load(open(out_dir / f"rank{r}.json")) for r in range(TRAIN_MESH_WORLD)]
+    failures, diag = [], []
+    for rep in reps:
+        r = rep["rank"]
+        for name, layers, policy in TRAIN_MESH_RUNS:
+            # the remat recompute doubles the forward's launches
+            n_fwd = tnn_gemms_per_forward(train_mesh_config(layers)[0]) if policy == "tnn" \
+                else 0
+            want = {key: 2 * n_fwd} if n_fwd else {}
+            got, ref = rep[name], single[name]
+            for i, (row, srow) in enumerate(zip(got["rows"], ref["rows"])):
+                m, sm = row["metrics"], srow["metrics"]
+                tol = TRAIN_MESH_BOUNDS[name][i]
+                d_loss = abs(m["loss"] / sm["loss"] - 1)
+                d_gn = abs(m["grad_norm"] / sm["grad_norm"] - 1)
+                d_sq = max(abs(row["sumsq"][p] / v - 1) for p, v in srow["sumsq"].items())
+                diag.append(f"{name} rank {r} step {i}: loss {m['loss']} vs {sm['loss']} "
+                            f"({d_loss:.2e}), grad_norm ({d_gn:.2e}), sums of squares "
+                            f"(max {d_sq:.2e})")
+                if row["launches"] != want:
+                    failures.append(f"{name} rank {r} step {i}: launched {row['launches']}, "
+                                    f"expected {want}")
+                coll = {k: row["collectives"].get(k, 0) for k in got["collectives_expected"]}
+                if coll != got["collectives_expected"]:
+                    failures.append(f"{name} rank {r} step {i}: collectives {coll}, expected "
+                                    f"{got['collectives_expected']}")
+                if d_loss > tol["loss"] or d_gn > tol["grad_norm"] or (
+                        tol["sumsq"] is not None and d_sq > tol["sumsq"]):
+                    failures.append(f"{name} rank {r} step {i}: outside {tol}")
+            first = next((k for k, (x, y) in enumerate(zip(got["digests"], ref["digests"]))
+                          if x != y), None)
+            diag.append(f"{name} rank {r}: {got['n_digests']} projections, first differing "
+                        f"planes at {first}; first layer's planes equal {got['planes_equal']}")
+            if not (got["digests_equal"] and got["planes_equal"]):
+                failures.append(f"{name} rank {r}: the first forward's planes differ from one "
+                                f"device's (first at projection {first})")
+            if got["n_digests"] != n_fwd:
+                failures.append(f"{name} rank {r}: {got['n_digests']} projections in the "
+                                f"first forward")
+            vp = got["vs_plain"]
+            diag.append(f"{name} rank {r}: row 1 vs plain at the first forward's operands "
+                        f"{vp['shapes']}: {vp['equal']}")
+            if len(vp["equal"]) != min(n_fwd, 7) or not all(vp["equal"]):
+                failures.append(f"{name} rank {r}: row 1 differs from its plain version at the "
+                                f"mesh's operands: {vp}")
+        el = rep["12a_cut"]["elementwise"]
+        diag.append(f"12a_cut rank {r} masters after step 1: {el}")
+        if el["max_abs_diff"] > el["bound"] + 1e-6:
+            failures.append(f"12a_cut rank {r}: a master after the first step differs from "
+                            f"one device's by more than 2 lr: {el}")
+        if el["moved_more_than_1e-3_lr"] > TRAIN_MESH_MOVED_MAX * el["elements"]:
+            failures.append(f"12a_cut rank {r}: more than {TRAIN_MESH_MOVED_MAX} of the "
+                            f"masters moved by more than 1e-3 lr from one device's: {el}")
+        b = rep["12b"]
+        if not (b["restored_equal"] and b["resume_equal"]):
+            failures.append(f"12b rank {r}: {b}")
+    for name, layers, policy in TRAIN_MESH_RUNS:
+        diag.append(f"{name} one device, the loss and grad norm with the rows reversed: "
+                    f"{single[name]['order_noise']}")
+        vp = single[name]["vs_plain"]
+        if policy == "tnn" and (len(vp["equal"]) != 7 or not all(vp["equal"])):
+            failures.append(f"{name} one device: row 1 differs from its plain version: {vp}")
+    for line in diag:
+        log("[train mesh check] " + line)
+    if failures:
+        raise AssertionError("phase 12:\n" + "\n".join(failures))
+    r0 = reps[0]
+    a, sa = r0["12a"], single["12a"]
+    step_s = a["rows"][-1]["s"]
+    coll = a["rows"][-1]["collectives"]
+    coll_s = sum(v for k, v in coll.items() if k.endswith("_s"))
+    f32_gather = sum(v * (2 if k.endswith("bfloat16") else 1) for k, v in coll.items()
+                     if k.startswith("all_gather_bytes_"))
+    report = {
+        "world": TRAIN_MESH_WORLD, "backend": r0["backend"], "mesh": list(TRAIN_MESH_SHAPE),
+        "ranks_s": ranks_s,
+        "12a": {"losses": a["losses"], "single_losses": sa["losses"],
+                "grad_norms": [row["metrics"]["grad_norm"] for row in a["rows"]],
+                "single_grad_norms": [row["metrics"]["grad_norm"] for row in sa["rows"]],
+                "step_s": [row["s"] for row in a["rows"]],
+                "rank_step_s": [[row["s"] for row in rep["12a"]["rows"]] for rep in reps],
+                "single_step_s": [row["s"] for row in sa["rows"]],
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                "single_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / sa["rows"][-1]["s"],
+                "launches_per_step": a["rows"][-1]["launches"],
+                "peak_memory_bytes": [rep["12a"]["peak_memory_bytes"] for rep in reps],
+                "single_peak_memory_bytes": sa["peak_memory_bytes"],
+                "single_bytes": sa["bytes"], "rank_bytes": [rep["12a"]["bytes"] for rep in reps],
+                "collectives_per_step": coll, "collective_s_share": coll_s / step_s,
+                "gather_bytes_over_f32": coll.get("all_gather_bytes", 0) / max(f32_gather, 1),
+                "init_s": a["init_s"],
+                "max_sumsq_rel_diff": [max(abs(row["sumsq"][p] / v - 1)
+                                           for p, v in srow["sumsq"].items())
+                                       for row, srow in zip(a["rows"], sa["rows"])]},
+        "12a_cut": {"elementwise": [rep["12a_cut"]["elementwise"] for rep in reps],
+                    "losses": r0["12a_cut"]["losses"],
+                    "single_losses": single["12a_cut"]["losses"]},
+        "12a_f32": {"losses": r0["12a_f32"]["losses"],
+                    "single_losses": single["12a_f32"]["losses"]},
+        "rel_diff_vs_one_device": {
+            name: [{"loss": abs(row["metrics"]["loss"] / srow["metrics"]["loss"] - 1),
+                    "grad_norm": abs(row["metrics"]["grad_norm"]
+                                     / srow["metrics"]["grad_norm"] - 1),
+                    "max_sumsq": max(abs(row["sumsq"][p] / v - 1)
+                                     for p, v in srow["sumsq"].items())}
+                   for row, srow in zip(r0[name]["rows"], single[name]["rows"])]
+            for name, _, _ in TRAIN_MESH_RUNS},
+        "order_noise": {name: single[name]["order_noise"] for name, _, _ in TRAIN_MESH_RUNS},
+        "12b": {k: r0["12b"][k] for k in ("save_s", "restore_s", "loss_after_restore")},
+    }
+    for rep, rb in zip(reps, report["12a"]["rank_bytes"]):
+        ratio = {k: v / sa["bytes"][k] for k, v in rb.items()}
+        report["12a"].setdefault("bytes_ratio", []).append(ratio)
+    # -- 12c. launch.train on 4 ranks ------------------------------------------
+    t0 = time.perf_counter()
+    res = mesh_mod.run_ranks([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                              LM_ARCH, "--smoke", "--quant", "tnn", "--steps",
+                              str(TRAIN_LAUNCH_STEPS), "--lr", "3e-3"], TRAIN_MESH_WORLD,
+                             timeout_s=TRAIN_MESH_TIMEOUT_S, env=env, cwd=str(ROOT),
+                             log_dir=str(out_dir / "logs_launch"))
+    if any(r["returncode"] != 0 for r in res):
+        raise AssertionError("12c: launch.train failed on a rank\n" + mesh_mod.rank_logs(res))
+    text = open(res[0]["log"]).read()
+    found = re.findall(r"\[launch\.train\] done at step (\d+); loss ([\d.]+) -> ([\d.]+) on "
+                       r"(.*)", text)
+    if not found or int(found[-1][0]) != TRAIN_LAUNCH_STEPS \
+            or not float(found[-1][2]) < float(found[-1][1]):
+        raise AssertionError(f"12c: the loss did not fall on the mesh\n{text[-3000:]}")
+    report["12c"] = {"steps": int(found[-1][0]), "first_loss": float(found[-1][1]),
+                     "last_loss": float(found[-1][2]), "where": found[-1][3],
+                     "s": time.perf_counter() - t0}
+    report["phase_s"] = time.perf_counter() - t_phase
+    launches = {key: {"12a": a["rows"][-1]["launches"].get(key, 0),
+                      "12a_cut": r0["12a_cut"]["rows"][-1]["launches"].get(key, 0)}}
+    return report, launches
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -2449,6 +3062,24 @@ def mesh_only(torch) -> int:
     return 0
 
 
+def train_mesh_only(torch) -> int:
+    """``--train-mesh``: phases 1, 2 and 12."""
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind, card, _ = device_and_build(torch, _build)
+    report, launches = phase12(torch, dev)
+    log("[train mesh] " + json.dumps(report))
+    log("[train mesh] launches per rank per step (rank 0): " + json.dumps(launches))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gemm-times", action="store_true",
@@ -2460,6 +3091,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", action="store_true",
                         help="run only the device and build phases and phase 11")
     parser.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--train-mesh", action="store_true",
+                        help="run only the device and build phases and phase 12")
+    parser.add_argument("--train-mesh-rank", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     import torch
 
@@ -2475,6 +3109,10 @@ def main(argv=None) -> int:
         return mesh_rank(torch, args.mesh_rank)
     if args.mesh:
         return mesh_only(torch)
+    if args.train_mesh_rank:
+        return train_mesh_rank(torch, args.train_mesh_rank)
+    if args.train_mesh:
+        return train_mesh_only(torch)
     try:
         from repro_torch.cnn import PaperCNN
         from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
@@ -2804,6 +3442,11 @@ def main(argv=None) -> int:
     mesh_report, mesh_launches = phase11(torch, dev)
     log("[mesh] " + json.dumps(mesh_report))
     log(card)
+    # -- 12. the training mesh: ranks sharing the card (before any profiler
+    # session) ---------------------------------------------------------------
+    tmesh_report, tmesh_launches = phase12(torch, dev)
+    log("[train mesh] " + json.dumps(tmesh_report))
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -3035,6 +3678,8 @@ def main(argv=None) -> int:
             k["launches_train_path"] = per
         if k["name"] in mesh_launches:     # rank 0's, each sub-phase's own run
             k["launches_mesh_path"] = mesh_launches[k["name"]]
+        if k["name"] in tmesh_launches:    # rank 0's, per step of each sub-phase
+            k["launches_train_mesh_path"] = tmesh_launches[k["name"]]
     log(f"[lm] {LM_ARCH} (22 x 2048, GQA 32/4, d_ff 5632, vocab 32000, bf16), batch "
         f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_STEPS} greedy steps: tnn packed "
         f"prefill {a['tnn_prefill_tokens_per_s']:.1f} tokens/s, decode "
@@ -3095,6 +3740,20 @@ def main(argv=None) -> int:
         f"(2, 2): {m11d['per_forward_before']} per forward, rank 3 flagged, rebuilt on "
         f"(1, 2) in {m11d['rebuild_s']:.1f} s, tokens == single-device; phase "
         f"{mesh_report['phase_s']:.1f} s")
+    t12 = tmesh_report["12a"]
+    log(f"[train mesh] {TRAIN_MESH_WORLD} ranks on {torch.cuda.device_count()} card(s) over "
+        f"{tmesh_report['backend']}, mesh {TRAIN_MESH_SHAPE} TRAIN_RULES: 12a {LM_ARCH} QAT "
+        f"(tnn, remat, int8 moments, EF, bf16 wire) {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"{t12['step_s'][-1] * 1e3:.1f} ms/step ({t12['tokens_per_s']:.1f} tokens/s; one "
+        f"device {t12['single_step_s'][-1] * 1e3:.1f} ms), losses {t12['losses']} (one device "
+        f"{t12['single_losses']}), {t12['launches_per_step']} per rank per step, collectives "
+        f"{t12['collective_s_share']:.2f} of a step, gathers at "
+        f"{t12['gather_bytes_over_f32']:.3f} of float32 bytes, master/moment/EF bytes per rank "
+        f"{t12['bytes_ratio'][0]} of one device; first-forward planes == one device; 12b "
+        f"save {tmesh_report['12b']['save_s']:.1f} s, restore onto (4, 1) "
+        f"{tmesh_report['12b']['restore_s']:.1f} s, == saved, resumed == uninterrupted; 12c "
+        f"launch.train loss {tmesh_report['12c']['first_loss']} -> "
+        f"{tmesh_report['12c']['last_loss']}; phase {tmesh_report['phase_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

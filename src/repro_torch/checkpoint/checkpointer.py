@@ -21,9 +21,17 @@ list indices and container fields joined by "/" — ``params/embed``,
   its tensors in place) and hands the arrays to a writer thread;
   ``wait()`` joins it and raises what it raised.
 * **restore** puts each leaf on ``device`` (default: the target leaf's
-  own) with the target's dtype.  ``shardings=`` re-shards onto a new
-  mesh in the reference; it belongs to the port's training mesh, a later
-  slice, and raises until then (the serving mesh re-packs raw weights).
+  own) with the target's dtype, reading one leaf at a time.
+* **the training mesh**: ``save(..., shardings=)`` (the state's
+  ``sharding.train_state_shardings``, inside ``use_mesh``) gathers each leaf
+  whole from its shards, one leaf at a time, and the mesh's first rank
+  writes them all into ``host_0.npz`` with the manifest: the reference's
+  format, so either package restores a mesh checkpoint on one device.
+  Every rank passes a barrier before a synchronous ``save`` and before
+  ``wait()`` return.  ``restore(..., shardings=)`` reads each whole leaf
+  and keeps this rank's shard: the mesh may differ from the one that
+  saved (the elastic path), and a one-device checkpoint restores onto
+  a mesh.
 * retention: the ``keep`` most recent checkpoints are kept; older ones
   are deleted only after the new save commits.
 
@@ -73,6 +81,19 @@ def _from_host(arr: np.ndarray, ref: torch.Tensor, device) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np_dtype, order="C")).to(device)
 
 
+def _active_mesh():
+    from repro_torch.parallel import sharding
+
+    ctx = sharding.active()
+    if ctx is None:
+        raise RuntimeError("shardings= needs the training mesh active (sharding.use_mesh)")
+    return ctx.mesh
+
+
+def _is_first(mesh) -> bool:
+    return mesh.rank == int(mesh.devices.reshape(-1)[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
     directory: str
@@ -88,41 +109,66 @@ class Checkpointer:
         self.num_hosts = num_hosts
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None
         os.makedirs(cfg.directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None):
+    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None, *,
+             shardings=None):
         """Snapshot + async write.  ``extra`` is JSON metadata (e.g. the
-        data-pipeline DataState)."""
+        data-pipeline DataState).  ``shardings``: ``tree`` holds this
+        rank's shards on the active training mesh (module docstring);
+        every rank of the mesh calls ``save``."""
         self.wait()
-        # Snapshot to host memory *now*: the train step updates in place.
-        arrays = {k: _to_host(k, v) for k, v in flatten_with_paths(tree)}
+        mesh = None
+        if shardings is not None:
+            mesh = _active_mesh()
+            by_path = dict(flatten_with_paths(shardings))
+            writer = _is_first(mesh)
+            # one leaf gathered at a time; only the first rank keeps it
+            arrays = {}
+            for k, v in flatten_with_paths(tree):
+                full = by_path[k].gather(v, mesh)
+                if writer:
+                    arrays[k] = _to_host(k, full)
+                del full
+        else:
+            # Snapshot to host memory *now*: the train step updates in place.
+            arrays = {k: _to_host(k, v) for k, v in flatten_with_paths(tree)}
+        self._mesh = mesh
+        if mesh is not None and not _is_first(mesh):
+            if not self.cfg.async_save:
+                mesh.barrier()
+            return
         manifest = {
             "step": int(step),
-            "num_hosts": self.num_hosts,
+            "num_hosts": 1 if mesh is not None else self.num_hosts,
             "leaves": sorted(arrays),
             "extra": extra or {},
             "format": 1,
         }
+        host = 0 if mesh is not None else self.host_id
         if self.cfg.async_save:
             self._thread = threading.Thread(
-                target=self._write, args=(step, arrays, manifest), daemon=True)
+                target=self._write, args=(step, arrays, manifest, host), daemon=True)
             self._thread.start()
         else:
-            self._write(step, arrays, manifest)
+            self._write(step, arrays, manifest, host)
+            if mesh is not None:
+                mesh.barrier()
 
     def _write(self, step: int, arrays: Dict[str, np.ndarray],
-               manifest: Dict[str, Any]):
+               manifest: Dict[str, Any], host: int):
         try:
             final = self._step_dir(step)
             tmp = final + ".tmp"
             os.makedirs(tmp, exist_ok=True)
-            with open(os.path.join(tmp, f"host_{self.host_id}.npz"), "wb") as f:
+            with open(os.path.join(tmp, f"host_{host}.npz"), "wb") as f:
                 np.savez(f, **arrays)
                 f.flush()
                 os.fsync(f.fileno())
-            if self.host_id == 0:
+            if host == 0:
                 with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
                     json.dump(manifest, f, indent=1)
                     f.flush()
@@ -134,9 +180,14 @@ class Checkpointer:
             self._error = e
 
     def wait(self):
+        """Join the writer (and, after a mesh save, meet every rank of the
+        mesh); raise what the writer raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        mesh, self._mesh = self._mesh, None
+        if mesh is not None and self.cfg.async_save:
+            mesh.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("async checkpoint save failed") from err
@@ -156,38 +207,46 @@ class Checkpointer:
                 ) -> Tuple[Any, Dict[str, Any]]:
         """-> (tree, extra).  ``target_tree`` supplies structure, shapes and
         dtypes (tensors, e.g. a freshly initialized state); each leaf lands
-        on ``device``, by default the target leaf's own."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a training mesh, which comes with "
-                "the training-mesh slice of the port (ROADMAP.md, queue 1)")
+        on ``device``, by default the target leaf's own.  ``shardings``
+        (the whole state's ``sharding.train_state_shardings``, inside
+        ``use_mesh``): ``target_tree`` holds this rank's shards and each
+        whole leaf is sliced to its shard (module docstring)."""
         d = self._step_dir(step)
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
-        data: Dict[str, np.ndarray] = {}
-        for name in sorted(os.listdir(d)):
-            if name.startswith("host_") and name.endswith(".npz"):
-                with np.load(os.path.join(d, name)) as z:
-                    data.update({k: z[k] for k in z.files})
+        files = [np.load(os.path.join(d, name)) for name in sorted(os.listdir(d))
+                 if name.startswith("host_") and name.endswith(".npz")]
+        where = {k: z for z in files for k in z.files}
+        mesh = _active_mesh() if shardings is not None else None
+        by_path = dict(flatten_with_paths(shardings)) if shardings is not None else {}
 
         # Older checkpoints named container fields with a leading dot
         # ("w/.q"); current naming is dotless ("w/q").  Restore both.
         legacy = {"/".join(seg.lstrip(".") for seg in k.split("/")): k
-                  for k in data if "/." in k}
+                  for k in where if "/." in k}
 
         def leaf(key, ref):
-            if key not in data and key in legacy:
+            path = key
+            if key not in where and key in legacy:
                 key = legacy[key]
-            if key not in data:
+            if key not in where:
                 raise KeyError(f"checkpoint {d} is missing leaf {key!r}")
-            arr = data[key]
-            if tuple(arr.shape) != tuple(ref.shape):
+            arr = where[key][key]
+            want = by_path[path].shape if mesh is not None else tuple(ref.shape)
+            if tuple(arr.shape) != tuple(want):
                 raise ValueError(
                     f"leaf {key!r}: checkpoint shape {arr.shape} != "
-                    f"target {tuple(ref.shape)}")
+                    f"target {tuple(want)}")
+            if mesh is not None:
+                from repro_torch.parallel.sharding import shard_leaf
+                arr = shard_leaf(torch.from_numpy(arr), by_path[path].spec, mesh).numpy()
             return _from_host(arr, ref, ref.device if device is None else device)
 
-        return map_with_paths(leaf, target_tree), manifest.get("extra", {})
+        try:
+            return map_with_paths(leaf, target_tree), manifest.get("extra", {})
+        finally:
+            for z in files:
+                z.close()
 
     # ------------------------------------------------------------- misc
 

@@ -26,6 +26,7 @@ __all__ = [
     "f32_scalar",
     "AffineQuant",
     "affine_calibrate",
+    "affine_from_range",
     "affine_quantize",
     "affine_dequantize",
     "binarize",
@@ -71,10 +72,17 @@ class AffineQuant:
 def affine_calibrate(x: torch.Tensor, bits: int, *, axis=None) -> AffineQuant:
     """Min/max calibration: choose (s, z) so [min(x), max(x)] maps onto
     [0, 2^bits - 1], always covering 0 (gemmlowp convention)."""
-    qmax = (1 << bits) - 1
     x = x.float()
     mn = x.amin() if axis is None else x.amin(dim=axis)
     mx = x.amax() if axis is None else x.amax(dim=axis)
+    return affine_from_range(mn, mx, bits)
+
+
+def affine_from_range(mn: torch.Tensor, mx: torch.Tensor, bits: int) -> AffineQuant:
+    """The (s, z) of :func:`affine_calibrate` from the range's float32
+    ``mn`` and ``mx`` (a split batch reduces them over its ranks first)."""
+    qmax = (1 << bits) - 1
+    x = mn
     lo = mn.clamp(max=0.0)
     hi = mx.clamp(min=0.0)
     scale = (hi - lo).clamp(min=1e-8) / f32_scalar(qmax, x)

@@ -33,7 +33,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["DataState", "SyntheticLM", "make_pipeline"]
+__all__ = ["DataState", "SyntheticLM", "make_pipeline", "host_rows", "mesh_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,11 +120,31 @@ def host_rows(global_batch: int, host_id: int, num_hosts: int) -> np.ndarray:
     return np.arange(start, start + per + (1 if host_id < rem else 0))
 
 
+def mesh_rows(global_batch: int, coord: int, shards: int, microbatch: int = 1) -> np.ndarray:
+    """The rows batch coordinate ``coord`` of ``shards`` owns on the
+    training mesh: :func:`host_rows` of the global batch, or, with
+    ``microbatch`` > 1, its :func:`host_rows` of each of the global batch's
+    ``microbatch`` chunks in turn, so that the rank's ``i``-th microbatch
+    holds its share of the global ``i``-th one (the rows the one-device
+    step's ``i``-th microbatch holds).  Uneven shares are allowed for one
+    microbatch only."""
+    if microbatch == 1:
+        return host_rows(global_batch, coord, shards)
+    chunk = global_batch // microbatch
+    if global_batch % microbatch or chunk % shards:
+        raise ValueError(f"a global batch of {global_batch} does not split into "
+                         f"{microbatch} microbatches of equal shares on {shards} shards")
+    return np.concatenate([i * chunk + host_rows(chunk, coord, shards)
+                           for i in range(microbatch)])
+
+
 def make_pipeline(source: SyntheticLM, state: DataState, *,
-                  host_id: int = 0, num_hosts: int = 1
+                  host_id: int = 0, num_hosts: int = 1, microbatch: int = 1
                   ) -> Iterator[Tuple[DataState, Dict[str, np.ndarray]]]:
-    """Yields (state_after, host_local_batch) forever, resumably."""
-    rows = host_rows(source.global_batch, host_id, num_hosts)
+    """Yields (state_after, host_local_batch) forever, resumably: the rows
+    of :func:`mesh_rows` (``host_id`` the batch coordinate, ``num_hosts``
+    the batch shards)."""
+    rows = mesh_rows(source.global_batch, host_id, num_hosts, microbatch)
     while True:
         batch = source.batch_at(state, rows)
         state = state.next()

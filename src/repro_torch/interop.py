@@ -16,7 +16,9 @@ a numpy array — ``jax.tree.map(np.asarray, tree)`` makes one.
 Train states (:func:`train_state_from_numpy`, :func:`train_state_to_numpy`)
 come across the same way: the reference's ``init_train_state`` or
 restored state — ``params``, ``opt`` {``step``, ``m``, ``v``} with its int8
-moments as ``Q8`` nodes, ``ef`` — as numpy leaves, and back.
+moments as ``Q8`` nodes, ``ef`` — as numpy leaves, and back.  A state
+on the training mesh comes across with ``shardings=``: each rank keeps
+its shard of every whole array, and gathers them whole on the way back.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.configs.paper_cnn import PAPER_CNN, CNNConfig
 from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
 from repro_torch.kernels.qtensor import (LAYOUT_AFFINE, LAYOUT_BITPLANE,
                                          LAYOUT_DENSE, QTensor)
-from repro_torch.tree import map_with_paths, tree_map
+from repro_torch.tree import flatten_with_paths, map_with_paths, tree_map
 
 __all__ = ["qtensor_from_numpy", "qtensor_to_numpy", "paper_cnn_from_numpy",
            "lm_params_from_numpy", "train_state_from_numpy", "train_state_to_numpy"]
@@ -148,12 +150,14 @@ def _is_q8(node) -> bool:
     return hasattr(node, "q") and hasattr(node, "scale") and not isinstance(node, dict)
 
 
-def train_state_from_numpy(tree, device=DEFAULT_DEVICE):
+def train_state_from_numpy(tree, device=DEFAULT_DEVICE, shardings=None):
     """The port's train state from the reference's, every leaf a numpy
     array: dicts and lists keep their structure, arrays become tensors of
     the same dtype on ``device``, and every int8 moment node — any object
     with ``q`` and ``scale`` attributes, as the reference's ``Q8`` — a
-    port :class:`~repro_torch.optim.adamw.Q8`."""
+    port :class:`~repro_torch.optim.adamw.Q8`.  With ``shardings`` (the
+    state's ``sharding.train_state_shardings``, inside ``use_mesh`` on the
+    training mesh) each leaf is this rank's shard of the whole array."""
     from repro_torch.optim.adamw import Q8
 
     dev = resolve_device(device)
@@ -163,10 +167,26 @@ def train_state_from_numpy(tree, device=DEFAULT_DEVICE):
             return Q8(_tensor(node.q, dev), _tensor(node.scale, dev))
         return _tensor(node, dev)
 
-    return tree_map(leaf, tree)
+    state = tree_map(leaf, tree)
+    if shardings is None:
+        return state
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.active().mesh
+    by_path = dict(flatten_with_paths(shardings))
+    return map_with_paths(lambda path, t: by_path[path].shard(t, mesh), state)
 
 
-def train_state_to_numpy(tree):
+def train_state_to_numpy(tree, shardings=None):
     """The inverse: every tensor as a numpy array of its dtype, every
-    ``Q8`` as a ``Q8`` holding numpy arrays."""
-    return map_with_paths(lambda _, t: t.detach().cpu().numpy(), tree)
+    ``Q8`` as a ``Q8`` holding numpy arrays.  With ``shardings`` (a mesh
+    state, as above; every rank of the mesh calls it) each leaf is
+    gathered whole first, one leaf at a time."""
+    if shardings is None:
+        return map_with_paths(lambda _, t: t.detach().cpu().numpy(), tree)
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.active().mesh
+    by_path = dict(flatten_with_paths(shardings))
+    return map_with_paths(
+        lambda path, t: by_path[path].gather(t.detach(), mesh).cpu().numpy(), tree)

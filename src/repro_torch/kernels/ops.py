@@ -299,13 +299,17 @@ def quantize_activations(x: torch.Tensor, mode: QuantMode, *,
     ``q`` with its ``scale`` and ``zero``; for f32/bf16 ``{"x": x}``.
 
     ``stats`` optionally supplies the per-tensor statistics ({"thr",
-    "scale"} for ternary modes, {"scale"} for BNN) instead of deriving
-    them from ``x`` — the conv oracle passes ``conv_act_stats`` here.
+    "scale"} for ternary modes, {"scale"} for BNN, {"scale", "zero"} for
+    u8/u4) instead of deriving them from ``x`` — the conv oracle passes
+    ``conv_act_stats`` here, a split batch :func:`split_batch_stats`.
     """
     if mode.is_float:
         return {"x": x}
     if mode in (QuantMode.INT8, QuantMode.INT4):
-        q = quantize.affine_calibrate(x, 8 if mode == QuantMode.INT8 else 4)
+        bits = 8 if mode == QuantMode.INT8 else 4
+        q = (quantize.affine_calibrate(x, bits) if stats is None else
+             quantize.AffineQuant(scale=_stat(stats["scale"], x),
+                                  zero_point=stats["zero"].to(x.device), bits=bits))
         return {"q": quantize.affine_quantize(x, q), "scale": q.scale,
                 "zero": q.zero_point}
     if mode in (QuantMode.TNN, QuantMode.TBN):
@@ -563,19 +567,51 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
 # Float-facing quantized matmul with STE gradients (QAT)
 # ---------------------------------------------------------------------------
 
+def split_batch_stats(x: torch.Tensor, mode: QuantMode, split) -> Dict[str, Any]:
+    """The per-tensor activation statistics of the global batch whose rows
+    ``x`` (m, k) holds this rank's share of (``sharding.split_batch``):
+    the same formulas as :func:`quantize_activations` derives from a whole
+    ``x``, with every sum and count summed over the batch axes (float64
+    partial sums, so the result is the exact sum rounded once to float32,
+    a few ULPs from one device's float32 sum) and the affine range's
+    min / max reduced exactly."""
+    x = x.to(torch.float32)
+    f64 = torch.float64
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        r = split.reduce(torch.stack([x.amax(), -x.amin()]), "max")
+        q = quantize.affine_from_range(-r[1], r[0], 8 if mode == QuantMode.INT8 else 4)
+        return {"scale": q.scale, "zero": q.zero_point}
+    a = x.abs()
+    tot = split.reduce(torch.stack([a.sum(dtype=f64),
+                                    torch.full((), a.numel(), dtype=f64, device=a.device)]))
+    mean = tot[0].to(torch.float32) / tot[1].to(torch.float32)
+    if mode == QuantMode.BNN:
+        return {"scale": mean}
+    thr = 0.7 * mean
+    mask = a > thr
+    kept = split.reduce(torch.stack([(a * mask).sum(dtype=f64), mask.sum().to(f64)]))
+    return {"thr": thr,
+            "scale": kept[0].to(torch.float32) / kept[1].to(torch.float32).clamp(min=1)}
+
+
 def _qmm_fwd_value(x: torch.Tensor, w: torch.Tensor, mode: QuantMode,
                    backend: str) -> torch.Tensor:
     """F32: a float32 product; BF16: bf16 operands, exact float32
     products and sums (never a bf16 ``torch.matmul``, which rounds its
     output to bf16); every quantized mode: ``qmm`` against ``w`` packed
-    here (QAT re-packs per call; inference packs once and calls ``qmm``)."""
+    here (QAT re-packs per call; inference packs once and calls ``qmm``).
+    When the batch is split over ranks (the training mesh), the
+    activation statistics are the global batch's (:func:`split_batch_stats`)."""
     from repro_torch.core.conv import matmul_f32   # core.conv imports ops
+    from repro_torch.parallel import sharding
 
     if mode == QuantMode.F32:
         return matmul_f32(x, w)
     if mode == QuantMode.BF16:
         return matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
-    return qmm(x, QTensor.from_dense(w, mode), backend=backend)
+    split = sharding.batch_split()
+    stats = None if split is None or not split.axes else split_batch_stats(x, mode, split)
+    return qmm(x, QTensor.from_dense(w, mode), backend=backend, act_stats=stats)
 
 
 class _QuantizedMatmul(torch.autograd.Function):

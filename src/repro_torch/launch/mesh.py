@@ -20,6 +20,14 @@ collective, so every rank of the world calls :func:`make_mesh` with the
 same arguments, members of the new mesh or not (after an elastic rebuild
 the ranks left out take part in the group creation, then leave).
 
+The training mesh (``train/train_step.py``) adds collectives over one or
+several axes: :meth:`Mesh.all_gather_axes` (a leaf's shards, whole, in a
+spec entry's order), :meth:`Mesh.reduce_scatter_sum` (one
+``reduce_scatter_tensor`` per axis, in the operand's dtype: bf16 stays
+bf16; gloo runs it on the host), :meth:`Mesh.all_reduce_axes_` and
+:meth:`Mesh.all_reduce_`; :func:`collectives` counts them with their bytes
+and host seconds.
+
 Transport: NCCL when every rank has a card of its own, gloo otherwise
 (several ranks sharing one card, or the CPU).  Gloo moves CPU tensors:
 on a card the mesh stages each collective's operand through host memory
@@ -38,6 +46,8 @@ rendezvous, waits with a hard timeout and kills what overruns;
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import datetime
 import os
 import shutil
@@ -52,7 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "MeshDesyncError", "POD_SHAPE", "make_mesh", "make_host_mesh",
+__all__ = ["Mesh", "MeshDesyncError", "collectives", "reset_collectives", "POD_SHAPE", "make_mesh", "make_host_mesh",
            "make_serve_mesh", "make_production_mesh", "pick_backend", "init_rank",
            "shutdown", "run_ranks", "rank_logs", "STORE_ENV", "DEFAULT_TIMEOUT_S"]
 
@@ -61,6 +71,39 @@ POD_SHAPE = (16, 16)   # 256 chips per pod
 # The file-store rendezvous path run_ranks hands each rank.
 STORE_ENV = "REPRO_MESH_STORE"
 DEFAULT_TIMEOUT_S = 60.0
+
+
+# The training mesh's collectives (Mesh.all_gather_axes, reduce_scatter_sum,
+# all_reduce_axes_, all_reduce_): count, operand bytes and host seconds per
+# kind, and bytes per kind and dtype.
+_COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def collectives() -> Dict[str, float]:
+    """The training mesh's collectives since :func:`reset_collectives`:
+    ``<kind>`` (one per axis a collective runs over), ``<kind>_bytes`` (the
+    operand this rank sends: its shard for a gather, the whole tensor for a
+    reduce-scatter or an all-reduce), ``<kind>_bytes_<dtype>`` and
+    ``<kind>_s`` (host seconds, staging included), for the kinds
+    ``all_gather``, ``reduce_scatter`` and ``all_reduce``."""
+    return dict(_COLLECTIVES)
+
+
+def reset_collectives() -> None:
+    _COLLECTIVES.clear()
+
+
+@contextlib.contextmanager
+def _counted(kind: str, t: torch.Tensor):
+    nbytes = t.numel() * t.element_size()
+    _COLLECTIVES[kind] += 1
+    _COLLECTIVES[f"{kind}_bytes"] += nbytes
+    _COLLECTIVES[f"{kind}_bytes_{str(t.dtype).replace('torch.', '')}"] += nbytes
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _COLLECTIVES[f"{kind}_s"] += time.perf_counter() - t0
 
 
 class MeshDesyncError(RuntimeError):
@@ -150,6 +193,78 @@ class Mesh:
         dist.all_gather(parts, src, group=self._group(axis))
         return torch.cat(parts, dim=dim).to(t.device)
 
+    def all_gather_axes(self, t: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+        """The slices of ``t`` over the sub-grid of ``axes`` concatenated on
+        ``dim`` in a spec entry's order: chunk ``i`` of ``dim`` is the rank
+        whose coordinates on ``axes`` (first axis major) number ``i``.  An
+        exact copy; the innermost axis is gathered first."""
+        for ax in reversed(tuple(axes)):
+            if self.axis_size(ax) > 1:
+                with _counted("all_gather", t):
+                    t = self.all_gather_cat(t, ax, dim=dim)
+        return t
+
+    def reduce_scatter_sum(self, t: torch.Tensor, axes: Sequence[str],
+                           dim: int) -> torch.Tensor:
+        """Sum ``t`` over the sub-grid of ``axes`` and keep this rank's chunk
+        of ``dim`` (the inverse layout of :meth:`all_gather_axes`): one
+        ``reduce_scatter_tensor`` per axis, outermost first, in ``t``'s
+        dtype (bf16 sums in bf16, as the wire carries it)."""
+        for ax in tuple(axes):
+            n = self.axis_size(ax)
+            if n == 1:
+                continue
+            with _counted("reduce_scatter", t):
+                src = t.movedim(dim, 0).contiguous().to(self.comm_device)
+                out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                                  dtype=src.dtype, device=src.device)
+                dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                           group=self._group(ax))
+                t = out.movedim(0, dim).to(t.device)
+        return t
+
+    def all_reduce_axes_(self, t: torch.Tensor, axes: Sequence[str],
+                         op: str = "sum") -> torch.Tensor:
+        """All-reduce ``t`` ("sum", "max" or "min") over the sub-grid of
+        ``axes``, one axis after the other; the result on ``t``'s device."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}[op]
+        axes = [ax for ax in axes if self.axis_size(ax) > 1]
+        if not axes:
+            return t
+        buf = t.to(self.comm_device)
+        for ax in axes:
+            with _counted("all_reduce", t):
+                dist.all_reduce(buf, op=red, group=self._group(ax))
+        return buf.to(t.device)
+
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """All-reduce ``t`` over every member of the mesh (one collective)."""
+        if self.group is None or self.size == 1:
+            return t
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        with _counted("all_reduce", t):
+            buf = t.to(self.comm_device)
+            dist.all_reduce(buf, op=red, group=self.group)
+        return buf.to(t.device)
+
+    def barrier(self) -> None:
+        """Every member waits for the others (an all-reduce of one
+        integer, which NCCL and gloo both run on ``comm_device``)."""
+        if self.group is None or self.size == 1:
+            return
+        dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=self.comm_device),
+                        group=self.group)
+
+    def gather_values(self, value: float) -> List[float]:
+        """Every member's ``value``, in mesh order (one all-gather)."""
+        if self.group is None or self.size == 1:
+            return [float(value)]
+        t = torch.tensor([value], dtype=torch.float64, device=self.comm_device)
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return [float(p.item()) for p in parts]
+
     def agree(self, values: Sequence[int], what: str) -> None:
         """Raise :class:`MeshDesyncError` unless every member holds the
         same integer ``values`` (one all-reduce of a CRC of them)."""
@@ -180,8 +295,15 @@ def _default_device() -> torch.device:
     raise RuntimeError("no CUDA device: pass device='cpu' to run the mesh on the CPU")
 
 
+# The collective timeout of the world init_rank joined, which every group
+# of a mesh shares (``new_group`` would otherwise take the backend's
+# default of many minutes).
+_TIMEOUT_S = DEFAULT_TIMEOUT_S
+
+
 def _new_group(ranks: List[int], backend: Optional[str]):
-    return dist.new_group(sorted(ranks), backend=backend)
+    return dist.new_group(sorted(ranks), backend=backend,
+                          timeout=datetime.timedelta(seconds=_TIMEOUT_S))
 
 
 def make_mesh(shape, axes, ranks: Optional[Sequence[int]] = None,
@@ -270,8 +392,10 @@ def init_rank(device: Optional[str] = None,
     None (the card ``LOCAL_RANK % device_count``).  Picks the backend
     (:func:`pick_backend`), prints it with the rank count, and returns
     the device this rank computes on (pass it to :func:`make_mesh`)."""
+    global _TIMEOUT_S
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
+    _TIMEOUT_S = timeout_s
     if device is None or device == "cuda":
         dev = _default_device()
         torch.cuda.set_device(dev)

@@ -30,7 +30,7 @@ are summed.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,6 +43,7 @@ from repro_torch.models.blocks import apply_norm, block_forward, init_block, nor
 from repro_torch.models.common import ModelConfig, ShardLayout, softcap
 from repro_torch.models.kvcache import init_caches
 from repro_torch.parallel import sharding
+from repro_torch.tree import map_with_paths
 
 __all__ = ["init_lm", "forward_hidden", "logits_from_hidden", "forward",
            "prefill", "decode_step", "init_caches", "take_period"]
@@ -81,26 +82,42 @@ def _unbind_periods(tree: Any, n: int) -> List[Any]:
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, layout: ShardLayout,
-            dtype=torch.float32, device=DEFAULT_DEVICE) -> Dict[str, Any]:
+            dtype=torch.float32, device=DEFAULT_DEVICE,
+            keep: Optional[Callable[[str, torch.Tensor, bool], torch.Tensor]] = None
+            ) -> Dict[str, Any]:
     """Random LM parameters on ``device``, drawn from ``generator`` (which
     must live there); the reference's tree: "embed", "blocks" (one
     period-stacked tree per pattern entry), "final_norm" and, unless the
-    embeddings are tied, "lm_head"."""
+    embeddings are tied, "lm_head".
+
+    ``keep(path, leaf, stacked)`` maps each leaf as it is drawn to what
+    the tree holds: for a period-stacked leaf it gets one period's slice
+    (``stacked`` True) and the stack is made of what it returns.  The
+    training mesh keeps each rank's shard this way, one leaf at a time."""
     dev = resolve_device(device)
     vp = layout.pad_vocab(cfg.vocab_size)
     d = cfg.d_model
-    blocks = [_stack([init_block(generator, cfg, layout, mixer, ffn_kind, dtype, dev)
+
+    def kept(tree, prefix, stacked=False):
+        if keep is None:
+            return tree
+        if isinstance(tree, torch.Tensor):
+            return keep(prefix, tree, stacked)
+        return map_with_paths(lambda path, t: keep(path, t, stacked), tree, prefix)
+
+    blocks = [_stack([kept(init_block(generator, cfg, layout, mixer, ffn_kind, dtype, dev),
+                           f"blocks/{i}", stacked=True)
                       for _ in range(cfg.num_periods)])
-              for mixer, ffn_kind in cfg.layer_pattern]
+              for i, (mixer, ffn_kind) in enumerate(cfg.layer_pattern)]
     params: Dict[str, Any] = {
-        "embed": (torch.randn((vp, d), generator=generator, device=dev)
-                  * d ** -0.5).to(dtype),
+        "embed": kept((torch.randn((vp, d), generator=generator, device=dev)
+                       * d ** -0.5).to(dtype), "embed"),
         "blocks": blocks,
-        "final_norm": norm_params(cfg, d, dtype, dev),
+        "final_norm": kept(norm_params(cfg, d, dtype, dev), "final_norm"),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": (torch.randn((d, vp), generator=generator, device=dev)
-                                   * d ** -0.5).to(dtype)}
+        params["lm_head"] = {"w": kept((torch.randn((d, vp), generator=generator, device=dev)
+                                        * d ** -0.5).to(dtype), "lm_head/w")}
     return params
 
 

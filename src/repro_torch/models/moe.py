@@ -12,7 +12,10 @@ Counterpart of ``repro/models/moe.py``:
   expert quantizes its activations with its own statistics, as the
   reference's ``vmap`` over the expert axis does;
 * the combine and the Switch load-balancing aux loss; an optional
-  shared expert (a dense gated FFN) added to every token.
+  shared expert (a dense gated FFN) added to every token.  On a split
+  batch (the training mesh, ``sharding.split_batch``) the aux loss takes
+  the global batch's token and probability fractions: the expert counts
+  and probability sums are summed over the batch axes before the product.
 
 Determinism: a dispatch slot receives at most one kept token, so the
 dispatch is an index assignment (dropped tokens go to a scratch slot
@@ -36,6 +39,7 @@ from repro_torch.kernels.qtensor import QTensor
 from repro_torch.models.common import ModelConfig, einsum_f32
 from repro_torch.models.ffn import ffn, init_ffn
 from repro_torch.models.packing import packed_matmul_any
+from repro_torch.parallel import sharding
 
 __all__ = ["init_moe", "moe_ffn", "moe_capacity"]
 
@@ -140,7 +144,15 @@ def moe_ffn(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         y = y + ffn(params["shared"], x, policy)
 
     # ---- load-balancing aux loss (Switch eq. 4) ----
-    frac_tokens = counts.sum(dim=0).to(torch.float32) / (b * sk)     # mean of the one-hots
-    frac_probs = probs.mean(dim=(0, 1))
+    split = sharding.batch_split()
+    if split is None or not split.axes:
+        frac_tokens = counts.sum(dim=0).to(torch.float32) / (b * sk)  # mean of the one-hots
+        frac_probs = probs.mean(dim=(0, 1))
+    else:
+        # a split batch: the global batch's fractions, from the counts and
+        # the probability sums of every rank's rows (not linear in the rows)
+        n = split.reduce(torch.tensor([b * sk, b * s], dtype=torch.int64, device=dev))
+        frac_tokens = split.reduce(counts.sum(dim=0)).to(torch.float32) / n[0].to(torch.float32)
+        frac_probs = sharding.sum_over_batch(probs.sum(dim=(0, 1))) / n[1].to(torch.float32)
     aux = e * (frac_tokens * frac_probs).sum() * cfg.router_aux_loss
     return y, aux

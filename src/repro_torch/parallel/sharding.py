@@ -18,29 +18,39 @@ reference equals the port's spec).  Parameters resolve by *path*
 :func:`payload_plane_axes` gives the (n, k-words) axes a packed QTensor
 records as its ``pspec`` (models/packing.py), through the same table.
 
-The serving mesh only.  Each rank of a mesh holds its own slice of the
-packed bit planes (``parallel/qmm_mesh.py``); every float leaf (the
-embedding, the LM head, the norms, the MoE router) is replicated on every
-rank, and activations are replicated between projections.  So
-:func:`constrain` and :func:`constrain_spec` are the identity here, and
-:func:`param_shardings` returns the per-leaf specs without placing
-anything.  Sharded float leaves and gradients belong to the training
-mesh, a later slice of the port.
+Two meshes use the rules.  The serving mesh: each rank holds its own
+slice of the packed bit planes (``parallel/qmm_mesh.py``), every float
+leaf is replicated, activations too.  The training mesh: each rank
+holds the shard of every float32 master, moment and EF buffer that its
+coordinates name (:class:`LeafSharding`, from :func:`train_state_shardings` of a
+whole-shape state), and its share of the batch rows, split over
+:func:`batch_axes`.  :func:`constrain_spec` gathers a compute copy whole
+(:func:`gather_leaf`; its backward sums the cotangent over the batch axes
+and keeps the shard, the reference's ZeRO-3 reduce-scatter), and
+:func:`split_batch` tells the forward that its batch reductions span the
+ranks (:func:`sum_over_batch`).  Activations stay whole on every rank, so
+:func:`constrain` is the identity on both meshes: tensor-parallel
+activations are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import math
 import re
-from typing import Dict, Optional, Sequence, Tuple, Union
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 __all__ = ["Rules", "TRAIN_RULES", "SERVE_RULES", "SERVE_RULES_MOE", "SERVE_RULES_LOWBIT",
            "PREFILL_RULES", "TRAIN_RULES_FSDP", "TRAIN_RULES_HYBRID", "SERVE_RULES_EP",
            "RULESETS", "use_mesh", "active", "spec_for", "constrain", "constrain_spec",
-           "param_spec", "param_shardings", "payload_plane_axes"]
+           "param_spec", "param_shardings", "payload_plane_axes", "spec_axes",
+           "batch_axes", "mesh_coord", "holds_first_copy", "LeafSharding", "shard_leaf",
+           "gather_leaf", "split_batch", "batch_split", "sum_over_batch", "train_state_shardings"]
 
 AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
@@ -188,14 +198,280 @@ def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],
 
 
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.Tensor:
-    """Sharding constraint by logical axes: the identity (activations are
-    replicated on the serving mesh; module docstring)."""
+    """Sharding constraint on an activation by logical axes: the identity.
+    Activations stay whole on each rank: the serving mesh replicates them,
+    and the training mesh splits only the batch rows, which each rank holds
+    as its own batch (module docstring); tensor-parallel activations are
+    not ported."""
     return x
 
 
 def constrain_spec(x: torch.Tensor, spec: Spec) -> torch.Tensor:
-    """Sharding constraint by an explicit spec: the identity."""
+    """A parameter's compute copy constrained to its ``spec``: ``x`` is
+    this rank's shard and the result the whole leaf, gathered from the
+    shards (:func:`gather_leaf`, whose backward sums the cotangent over the
+    batch axes and keeps this rank's shard: the ZeRO-3 reduce-scatter).
+    Outside a training mesh (:func:`split_batch`), the identity."""
+    split = batch_split()
+    if split is None:
+        return x
+    return gather_leaf(x, spec, split.mesh, split.axes)
+
+
+# ---------------------------------------------------------------------------
+# The training mesh: batch axes, leaf shards, gathers and reduce-scatters
+# ---------------------------------------------------------------------------
+
+def spec_axes(entry: AxisRule) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, in order (major first)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def batch_axes(ctx: Optional[_Active] = None) -> Tuple[str, ...]:
+    """The mesh axes the active rules split the batch over: the "batch"
+    entry of :func:`spec_for` on a length that every axis divides (the
+    mesh's size), so no axis drops out for divisibility.  ``TRAIN_RULES``:
+    ("pod", "data") as the mesh has them; ``TRAIN_RULES_FSDP``: all three.
+    A global batch the batch shards do not divide is dealt unevenly by the
+    data pipeline (``data.pipeline.host_rows``)."""
+    ctx = ctx or active()
+    if ctx is None:
+        return ()
+    n = 1
+    for size in ctx.axis_sizes.values():
+        n *= size
+    return spec_axes(spec_for((n,), ("batch",), ctx)[0])
+
+
+def mesh_coord(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's chunk index, chunk count) over ``axes``, first major:
+    over a spec entry's axes, the chunk of the dim this rank holds; over
+    :func:`batch_axes`, its batch coordinate and the batch shard count
+    (the arguments of ``data.pipeline.host_rows``)."""
+    idx, count = 0, 1
+    for ax in axes:
+        idx = idx * mesh.axis_size(ax) + mesh.axis_index(ax)
+        count *= mesh.axis_size(ax)
+    return idx, count
+
+
+def holds_first_copy(spec: Spec, mesh) -> bool:
+    """True on the one rank per shard of a leaf of ``spec`` whose
+    coordinates are 0 on every mesh axis the spec does not use: the rank
+    that counts the shard where each shard must count once (a global
+    norm)."""
+    used = {a for e in spec for a in spec_axes(e)}
+    return all(mesh.axis_index(ax) == 0 for ax in mesh.axis_names if ax not in used)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LeafSharding:
+    """Where one leaf of a train state lives on the training mesh: its
+    ``spec`` and its whole (logical) ``shape``.  Each rank holds the chunk
+    of every sharded dim its coordinates name (:meth:`shard`).  It equals
+    another of the same spec and shape, and its spec tuple (the
+    reference's ``NamedSharding`` compares by spec), so a tree of them
+    compares with a tree of :func:`param_spec` results."""
+    spec: Spec
+    shape: Tuple[int, ...]
+
+    def __eq__(self, other):
+        if isinstance(other, LeafSharding):
+            return (self.spec, self.shape) == (other.spec, other.shape)
+        if isinstance(other, tuple):
+            return self.spec == other
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self.spec)
+
+    @property
+    def sharded(self) -> bool:
+        return any(e is not None for e in self.spec)
+
+    def counts(self, mesh) -> Tuple[int, ...]:
+        return tuple(mesh_coord(mesh, spec_axes(e))[1] if e is not None else 1
+                     for e in self.spec)
+
+    def local_shape(self, mesh) -> Tuple[int, ...]:
+        return tuple(d // c for d, c in zip(self.shape, self.counts(mesh)))
+
+    def start(self, mesh, dim: int) -> int:
+        """The index of this rank's first element along ``dim``."""
+        idx, count = mesh_coord(mesh, spec_axes(self.spec[dim]))
+        return idx * (self.shape[dim] // count)
+
+    def shard(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's chunk of the whole leaf ``x`` (a copy)."""
+        return shard_leaf(x, self.spec, mesh)
+
+    def gather(self, local: torch.Tensor, mesh) -> torch.Tensor:
+        """The whole leaf from every rank's ``local`` chunk (collective;
+        no autograd)."""
+        return _gather(local, self.spec, mesh)
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's slice of the whole leaf ``x`` along the spec's axes, as
+    a contiguous copy."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, count = mesh_coord(mesh, spec_axes(entry))
+        chunk = x.shape[dim] // count
+        x = x.narrow(dim, idx * chunk, chunk)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    x = local
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            x = mesh.all_gather_axes(x, spec_axes(entry), dim)
     return x
+
+
+def _reduce_to_shard(g: torch.Tensor, spec: Spec, mesh,
+                     axes: Sequence[str]) -> torch.Tensor:
+    """``shard_leaf(sum over the batch axes of g)``: each dim's chunks along
+    axes that are not batch axes are picked locally first, then the batch
+    axes of the spec reduce-scatter, then the batch axes the spec does not
+    use all-reduce."""
+    axes = tuple(axes)
+    scatter = []
+    for dim, entry in enumerate(spec):
+        ax = spec_axes(entry)
+        if not ax:
+            continue
+        sizes = [mesh.axis_size(a) for a in ax]
+        chunk = g.shape[dim] // math.prod(sizes)
+        # view the dim as (s_1, ..., s_j, chunk); pick non-batch axes' coords
+        sub = g.reshape(g.shape[:dim] + tuple(sizes) + (chunk,) + g.shape[dim + 1:])
+        keep = []
+        for j in reversed(range(len(ax))):
+            if ax[j] in axes:
+                keep.append(ax[j])
+            else:
+                sub = sub.narrow(dim + j, mesh.axis_index(ax[j]), 1)
+        keep.reverse()
+        sub = sub.reshape(g.shape[:dim] + (-1,) + g.shape[dim + 1:])
+        g = sub
+        if keep:
+            scatter.append((dim, tuple(keep)))
+    for dim, ax in scatter:
+        g = mesh.reduce_scatter_sum(g, ax, dim)
+    used = {a for e in spec for a in spec_axes(e)}
+    rest = [a for a in axes if a not in used]
+    if rest:
+        g = mesh.all_reduce_axes_(g.contiguous(), rest, "sum")
+    return g.contiguous()
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, spec, mesh, axes):
+        ctx.spec, ctx.mesh, ctx.axes = spec, mesh, axes
+        return _gather(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_to_shard(g, ctx.spec, ctx.mesh, ctx.axes), None, None, None
+
+
+def gather_leaf(local: torch.Tensor, spec: Spec, mesh,
+                axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The whole leaf gathered from every rank's ``local`` shard, in
+    ``local``'s dtype (bf16 shards make a bf16 wire).  Backward: the
+    cotangent summed over the batch ``axes`` only (default: the active
+    rules' :func:`batch_axes`) and this rank's slice kept.  Ranks along an
+    axis that is not a batch axis see the same rows and compute the same
+    cotangent, so summing over it would count it twice."""
+    if axes is None:
+        axes = batch_axes()
+    if not any(e is not None for e in spec) and not axes:
+        return local
+    return _GatherLeaf.apply(local, tuple(spec), mesh, tuple(axes))
+
+
+class _BatchSplit:
+    """The batch rows of the running forward are split over ``axes`` of
+    ``mesh``: reductions over the batch (activation statistics, the MoE
+    load balance, the loss's token count) sum over them.  ``thread``: the
+    one that declared it."""
+
+    def __init__(self, mesh, axes: Tuple[str, ...]):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.thread = threading.get_ident()
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return self.mesh.all_reduce_axes_(t, self.axes, op)
+
+
+# Process-wide, not a context variable: autograd runs a CUDA backward, and
+# with it remat's recompute of the forward, on a thread of its own, where
+# a context variable set by the step would read as unset.  So while a step
+# runs, every thread of the process sees its split (split_batch's
+# docstring says what that asks of the process).
+_SPLIT: List[Optional[_BatchSplit]] = [None]
+
+
+@contextlib.contextmanager
+def split_batch(mesh, axes: Sequence[str]):
+    """Declare, for the block, that each rank's batch is its share of the
+    global batch along the batch ``axes`` of ``mesh`` (the train step's
+    forward and backward on the training mesh, the backward's threads
+    included).  Axes of size 1 split nothing and are dropped: a batch no
+    axis splits reduces as on one device.  ``mesh=None`` (one device) is a
+    no-op context.
+
+    One caller at a time: the split is the process's, so any other thread
+    that quantizes a projection or gathers a leaf while the block runs
+    (an ``Engine`` in the same process) would join the step's collectives.
+    A process that trains on the mesh runs nothing else that does; a
+    second split declared from another thread while one is active
+    raises."""
+    if mesh is None:
+        yield
+        return
+    prev = _SPLIT[0]
+    if prev is not None and prev.thread != threading.get_ident():
+        raise RuntimeError("split_batch: another thread's training step is running")
+    _SPLIT[0] = _BatchSplit(mesh, tuple(ax for ax in axes if mesh.axis_size(ax) > 1))
+    try:
+        yield
+    finally:
+        _SPLIT[0] = prev
+
+
+def batch_split() -> Optional[_BatchSplit]:
+    """The active :func:`split_batch`, or None (one device, or serving)."""
+    return _SPLIT[0]
+
+
+class _SumOverBatch(torch.autograd.Function):
+    """Forward: the sum over the batch axes.  Backward: the identity: each
+    rank's rows reach their parameters through its own forward, and the
+    parameter gradients are summed over the batch axes afterwards."""
+
+    @staticmethod
+    def forward(ctx, t, split):
+        return split.reduce(t, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_batch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the batch axes of the active :func:`split_batch`
+    (autograd: the identity backward of :class:`_SumOverBatch`); ``t``
+    itself outside one."""
+    split = batch_split()
+    if split is None or not split.axes:
+        return t
+    return _SumOverBatch.apply(t, split)
 
 
 # ---------------------------------------------------------------------------
@@ -330,12 +606,51 @@ def payload_plane_axes(path: str, plane, ctx: Optional[_Active] = None
 
 
 def param_shardings(params, ctx: Optional[_Active] = None):
-    """The tree of per-leaf specs matching ``params`` (containers opened,
-    paths as ``tree.map_with_paths`` writes them).  Nothing is placed:
-    on the serving mesh the packed planes are sliced when packed and the
-    float leaves are replicated (module docstring)."""
+    """The tree of :class:`LeafSharding` matching ``params``, whose leaves
+    have their whole shapes (tensors, ``meta`` tensors): each leaf's
+    :func:`param_spec` and shape.  A train state's is
+    :func:`train_state_shardings`."""
     from repro_torch import tree
 
     ctx = ctx or active()
     assert ctx is not None, "param_shardings requires use_mesh()"
-    return tree.map_with_paths(lambda path, leaf: param_spec(path, leaf, ctx), params)
+    return tree.map_with_paths(
+        lambda path, leaf: LeafSharding(param_spec(path, leaf, ctx), _shape(leaf)), params)
+
+
+def train_state_shardings(state, ctx: Optional[_Active] = None):
+    """:func:`param_shardings` of a whole-shape train state: ``params`` by
+    path; every moment and EF buffer as its parameter (the reference's
+    moment paths resolve to their parameter's rule; here the parameter's
+    path is used, so a norm scale's moment shards with it); an int8 moment
+    (``Q8``) keeps its ``q`` on the parameter's spec and resolves its
+    ``scale`` by the parameter's rule on the scale's own shape, which
+    replicates a block count the axes do not divide; the step replicated.
+    This is what ``Checkpointer.save`` / ``restore(shardings=)`` gather
+    and slice each leaf by and what the trainer keeps each rank's shard
+    by."""
+    from repro_torch import tree
+    from repro_torch.optim.adamw import Q8
+
+    ctx = ctx or active()
+    p_sh = param_shardings(state["params"], ctx)
+    paths = [p for p, _ in tree.flatten_with_paths(state["params"])]
+
+    def like_params(sub):
+        it = iter(paths)
+
+        def leaf(_sh, node):
+            path = next(it)
+            if isinstance(node, Q8):
+                return Q8(LeafSharding(_sh.spec, _shape(node.q)),
+                          LeafSharding(param_spec(path, node.scale, ctx), _shape(node.scale)))
+            return LeafSharding(_sh.spec, _shape(node))
+        return tree.tree_map(leaf, p_sh, sub)
+
+    out = {"params": p_sh,
+           "opt": {"step": LeafSharding((), ()),
+                   "m": like_params(state["opt"]["m"]),
+                   "v": like_params(state["opt"]["v"])}}
+    if "ef" in state:
+        out["ef"] = like_params(state["ef"])
+    return out

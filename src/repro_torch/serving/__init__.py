@@ -1,7 +1,8 @@
 """Continuous-batching LM serving over packed low-bit weights: the
 slot-scheduled Engine (bucket prefill on dense caches, chunked prefill
 on paged ternary caches) and its samplers.  Counterpart of
-``repro/serving``; serving on a mesh is not ported (slice F)."""
+``repro/serving``; ``ServeConfig.mesh`` serves on a mesh of ranks, each
+holding its slice of the packed planes (``serving/engine.py``)."""
 
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.engine import (ServeConfig, Engine, Request, Result,

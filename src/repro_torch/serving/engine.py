@@ -31,9 +31,14 @@ partial counts all-reduced, eq. (2) after the sum); float leaves are
 replicated.  The engine enters ``sharding.use_mesh(mesh,
 RULESETS[mesh_rules])`` around packing, autotuning, prefill and decode.
 The ranks' schedulers check every tick that they agree
-(``serving/scheduler.py``), and a mesh engine's ``run()`` lets a step's
-exception through instead of quarantining it, because a rank that
-skipped a step would pair its next collective with another rank's.
+(``serving/scheduler.py``).  A mesh engine's ``run()`` quarantines a
+failed tick as one engine does, once the ranks agree that it failed on
+every rank (one all-reduce after each tick): an injected fault or a
+failed launch that every rank meets in the same tick finishes the same
+slots as "error" everywhere.  A tick that failed on some ranks only
+raises ``MeshDesyncError`` on every rank, and a rank that fails before
+a collective the others wait in leaves them the group's timeout error,
+never a hang.
 ``make_watchdog`` gives a heartbeat watchdog with one "host" per rank and
 ``rebuild_after_loss`` re-plans the mesh on the surviving ranks
 (``runtime.elastic.plan_restart``: the model axis pinned, the data axis
@@ -56,6 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch import obs
+from repro_torch.launch.mesh import MeshDesyncError
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import ModelConfig, ShardLayout, kv_cache_format
 from repro_torch.models.kvcache import init_caches
@@ -436,17 +442,24 @@ class Engine:
         ``max_steps``).  A step that raises — a failed CUDA launch, an
         injected fault — is quarantined: every in-flight slot finishes
         as "error" (pages released) and the loop goes on with the
-        queue.  ``Engine.step()`` stays raising.  On a mesh a step's
-        exception propagates (module docstring)."""
+        queue.  ``Engine.step()`` stays raising.  On a mesh the ranks
+        first agree that the tick failed on all of them, else every rank
+        raises ``MeshDesyncError`` (module docstring)."""
+        mesh = self.scfg.mesh
         steps = 0
         with self._mesh_scope():
             while (self.queue or any(u != -1 for u in self.slot_uid)) and steps < max_steps:
+                err = None
                 try:
                     self._sched.step()
+                except MeshDesyncError:
+                    raise
                 except Exception as e:
-                    if self.scfg.mesh is not None:
-                        raise
-                    self._sched.quarantine(e)
+                    err = e
+                if mesh is not None:
+                    mesh.agree([err is not None], "whether the tick failed")
+                if err is not None:
+                    self._sched.quarantine(err)
                 steps += 1
         return self.results
 

@@ -9,6 +9,11 @@ the max under ``detach()`` (``stop_gradient``); the correct-class logit
 by ``torch.gather``.  Padded vocab columns (``ShardLayout.pad_vocab``)
 are masked to -1e30 before the lse.  Optional z-loss (PaLM) regularizes
 the partition function.
+
+The mean is over the global batch's tokens: on the training mesh
+(``sharding.split_batch``) the mask's sum is summed over the batch axes,
+so each rank returns its rows' share of the global loss (z-loss too) and
+the shares add up to it, however unevenly the rows or masks fall.
 """
 
 from __future__ import annotations
@@ -62,7 +67,9 @@ def xent_loss(params, hidden: torch.Tensor, batch: Dict[str, torch.Tensor],
         total = total + torch.sum(nll)
         zsum = zsum + torch.sum(torch.square(lse) * m)
 
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    # the global batch's token count: on a split batch each rank's share of
+    # the mean is its own sum over the global count
+    denom = torch.clamp(sharding.sum_over_batch(torch.sum(mask)), min=1.0)
     loss = total / denom
     if z_loss:
         loss = loss + z_loss * zsum / denom

@@ -3,8 +3,10 @@ reference's single-device cases, run on the port, and the on-disk format
 across packages — a train state written by the JAX package restores
 into the port ``array_equal``, and one written by the port restores into
 the JAX package ``array_equal`` (same leaf keys, same arrays).  The
-reference's ``test_elastic_restore_new_shardings`` needs a device mesh
-and waits for the port's mesh slice; ``shardings=`` raises until then.
+reference's ``test_elastic_restore_new_shardings`` restores here onto
+each position of a mesh (``shardings=``, no ranks needed: restoring
+only slices); saving on a mesh of ranks is tested in
+``test_torch_train_mesh.py``.
 """
 
 import os
@@ -133,10 +135,52 @@ def test_restore_onto_device(tmp_path):
     _assert_trees_equal(got, tree)
 
 
-def test_shardings_not_ported(tmp_path):
-    save_tree(str(tmp_path), 1, {"w": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        restore_tree(str(tmp_path), 1, {"w": torch.zeros(3)}, shardings={"w": None})
+class _Position:
+    """One position of a (data, model) mesh, without ranks: what
+    ``restore(shardings=)`` reads (axis sizes and this rank's
+    coordinates)."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, shape, coords):
+        self.shape, self.coords = tuple(shape), dict(zip(self.axis_names, coords))
+
+    def axis_size(self, ax):
+        return self.shape[self.axis_names.index(ax)]
+
+    def axis_index(self, ax):
+        return self.coords[ax]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_restore_onto_mesh_shardings(tmp_path, shape):
+    """The reference's ``test_elastic_restore_new_shardings``: a whole-leaf
+    checkpoint restores onto a mesh, each position holding its shard of
+    every leaf (``sharding.train_state_shardings`` of the state) with the
+    target's dtype, equal to the saved leaf's slice."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train.train_step import state_shardings
+
+    cfg = get_smoke("tinyllama-1.1b").with_(dtype=torch.float32)
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(moments_dtype="int8"), ef_compression=True)
+    tree = init_train_state(torch.Generator().manual_seed(0), cfg, ShardLayout(tp=1), tcfg,
+                            device="cpu")
+    save_tree(str(tmp_path), 1, tree)
+    whole = dict(flatten_with_paths(tree))
+    for coords in [(i, j) for i in range(shape[0]) for j in range(shape[1])]:
+        mesh = _Position(shape, coords)
+        with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+            sh = state_shardings(cfg, ShardLayout(tp=1), tcfg)
+            assert flatten_with_paths(sh) == flatten_with_paths(sharding.train_state_shardings(
+                init_train_state(None, cfg, ShardLayout(tp=1), tcfg, device="meta")))
+            target = init_train_state(None, cfg, ShardLayout(tp=1), tcfg, device="cpu",
+                                      shardings=sh)
+            got, _ = restore_tree(str(tmp_path), 1, target, shardings=sh)
+        by = dict(flatten_with_paths(sh))
+        for k, v in flatten_with_paths(got):
+            assert v.dtype == whole[k].dtype, k
+            assert torch.equal(v, sharding.shard_leaf(whole[k], by[k].spec, mesh)), k
+        assert by["params/blocks/0/mixer/wq/w"].sharded
 
 
 def test_legacy_dotted_keys(tmp_path):

@@ -26,6 +26,10 @@ its single-device oracle; these do the same, across the two packages:
   (1, 2) mesh and the same tokens;
 * ``Mesh.agree`` raises ``MeshDesyncError`` on every rank when one rank
   differs, and ``Mesh.from_first`` gives rank 0's value everywhere;
+* on 2 ranks (``--quarantine``): one fault plan on both ranks gives the
+  single-device engine's results, a failed tick quarantined on every
+  rank; a fault on one rank only ends both ranks' ``run()`` in an error
+  within the group's timeout;
 * ``launch.serve`` on 2 ranks serves the single-device tokens, and
   ``--production`` raises the reference's error below 256 ranks;
 * ``pick_backend`` takes NCCL exactly when the ranks on this host each
@@ -153,6 +157,20 @@ def ranks(reference, tmp_path_factory):
         if os.path.exists(path):
             reports[r] = torch.load(path, weights_only=False)
     return {"results": res, "logs": logs, "reports": reports}
+
+
+@pytest.fixture(scope="module")
+def quarantine(reference, tmp_path_factory):
+    """``torch_mesh_ranks.py --quarantine`` on 2 ranks; each rank's report."""
+    d = str(tmp_path_factory.mktemp("quarantine"))
+    with open(os.path.join(d, "inputs.pkl"), "wb") as f:
+        pickle.dump(reference[0], f)
+    res = mesh_mod.run_ranks([sys.executable, os.path.join(HERE, "torch_mesh_ranks.py"),
+                              "--quarantine", d], 2, timeout_s=RANK_TIMEOUT_S, env=_rank_env(),
+                             log_dir=os.path.join(d, "logs"))
+    assert [r["returncode"] for r in res] == [0, 0], mesh_mod.rank_logs(res)
+    return [torch.load(os.path.join(d, f"quarantine{r}.pt"), weights_only=False)
+            for r in range(2)]
 
 
 def _rank_env():
@@ -342,3 +360,30 @@ def test_offline_sweep_plans_local_problems(reference, ranks):
             for k in want:
                 assert k.format(m=m) in keys, (r, k.format(m=m), sorted(keys))
         assert rep["tuned"] == reference[1]["single"]
+
+
+def test_mesh_engine_quarantines_like_single_device(quarantine):
+    """One fault plan armed on both ranks of a (1, 2) mesh engine
+    (``device.loss`` raises in tick 2, ``logits.nan`` poisons a row in the
+    4th decode; each point is hit once per tick on any engine): every rank
+    agrees the tick failed and quarantines it, and the results (statuses
+    and tokens) are the single-device engine's under the same plan."""
+    for rep in quarantine:
+        assert rep["mesh"] == rep["single"]
+        assert rep["mesh_report"] == rep["single_report"]
+        statuses = {s for s, _ in rep["mesh"].values()}
+        assert "error" in statuses and "numeric_error" in statuses, rep["mesh"]
+    assert quarantine[0]["mesh"] == quarantine[1]["mesh"]
+
+
+def test_mesh_engine_one_rank_failure_raises_within_timeout(quarantine):
+    """``device.loss`` armed on rank 1 only: rank 1 fails the tick, rank 0
+    waits in a collective rank 1 never joins.  Both ranks' ``run()`` raise
+    (``MeshDesyncError`` or the collective's timeout error) within a few
+    of the group's 5 s timeouts, never hang."""
+    from torch_mesh_ranks import QUARANTINE_TIMEOUT_S
+
+    for rep in quarantine:
+        kind, msg, secs = rep["one_rank"]
+        assert kind in ("MeshDesyncError", "RuntimeError", "DistBackendError"), (kind, msg)
+        assert secs < 4 * QUARANTINE_TIMEOUT_S, (kind, msg, secs)

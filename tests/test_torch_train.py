@@ -362,5 +362,5 @@ def test_launch_train_main_cpu(capsys):
     assert res.final_step == 6 and len(res.losses) == 6
     assert all(np.isfinite(res.losses))
     assert "[launch.train] done at step 6" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="need 256 devices for mesh"):
         launch_train.main(["--smoke", "--device", "cpu", "--production"])

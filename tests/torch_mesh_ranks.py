@@ -23,6 +23,12 @@ On a (2, 2) ("data", "model") mesh each rank runs
 * the agreement helpers: ``Mesh.agree`` on equal and on differing
   values, ``Mesh.from_first``.
 
+``--quarantine`` (2 ranks, a 5 s collective timeout): the single-device
+and the (1, 2) mesh ``Engine`` under one fault plan armed on both ranks
+(a ``device.loss`` raise and a ``logits.nan`` row, each hit once per tick
+on any engine), then ``device.loss`` armed on rank 1 only: the error each
+rank's ``run()`` raises and after how long.
+
 ``--gpu`` (``tests/test_torch_kernels_gpu.py``, 2 ranks sharing the card
 over gloo): a k-sharded TNN ``qmm`` at TinyLlama-1.1B's down projection
 (k 5632, n 2048) against the single-device ``qmm`` on the card, and the
@@ -227,6 +233,48 @@ def main(d: str) -> int:
     return 0
 
 
+QUARANTINE_TIMEOUT_S = 5.0
+QUARANTINE_PLAN = "device.loss@2;logits.nan@4"
+
+
+def quarantine_main(d: str) -> int:
+    import time
+
+    from repro_torch.resilience import faults
+
+    mesh_mod.init_rank("cpu", timeout_s=QUARANTINE_TIMEOUT_S)
+    rank = dist.get_rank()
+    with open(os.path.join(d, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    cfg = get_smoke("tinyllama-1.1b").with_(dtype=torch.float32, quant_policy="tnn",
+                                            d_model=128, d_ff=256)
+    layout = ShardLayout(tp=1)
+    params = interop.lm_params_from_numpy(inp["params"], device="cpu")
+    prompts = [torch.tensor(p).numpy() for p in inp["inflight_prompts"]]
+    mesh = mesh_mod.make_serve_mesh(model=2, data=1, device=torch.device("cpu"))
+    out = {"rank": rank}
+    for name, scfg in (("single", ServeConfig(**BASE)), ("mesh", ServeConfig(**BASE, mesh=mesh))):
+        faults.arm(faults.parse_plan(QUARANTINE_PLAN))
+        out[name] = _decode(Engine(params, cfg, layout, scfg), prompts)
+        out[name + "_report"] = faults.active().report()
+        faults.disarm()
+    eng = Engine(params, cfg, layout, ServeConfig(**BASE, mesh=mesh))
+    if rank == 1:
+        faults.arm(faults.parse_plan("device.loss@1"))
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=4))
+    t0 = time.monotonic()
+    try:
+        eng.run()
+        out["one_rank"] = (None, "", time.monotonic() - t0)
+    except Exception as e:      # the error a one-rank failure ends in
+        out["one_rank"] = (type(e).__name__, str(e)[:300], time.monotonic() - t0)
+    torch.save(out, os.path.join(d, f"quarantine{rank}.pt"))
+    # the group may be broken by the timeout: leave without its teardown
+    sys.stdout.flush()
+    os._exit(0)
+
+
 def gpu_main(d: str) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.modes import QuantMode
@@ -258,4 +306,6 @@ def gpu_main(d: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1] == "--gpu":
         sys.exit(gpu_main(sys.argv[2]))
+    if sys.argv[1] == "--quarantine":
+        sys.exit(quarantine_main(sys.argv[2]))
     sys.exit(main(sys.argv[1]))
