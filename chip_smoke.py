@@ -7,12 +7,15 @@ against its plain PyTorch version, drives the main path, times it.
     python3 chip_smoke.py --gemm-times [--src DIR]
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --train-mesh
+    python3 chip_smoke.py --dryrun
 
 The second form runs phases 1, 2 and the GeMM rows of phase 6 only
 (popcount, dense, u8 and u4), for the ``repro_torch`` package under
 ``DIR`` (default this checkout's ``src``): the way to time another
 checkout's GeMM kernels, e.g. the parent commit's, on the same card.
-The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12.
+The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12,
+the fifth phases 1, 2, 7a, 10a and 13 (13b and 13c then hold the
+placeholder meshes to the formulas, not to 11c and 12a).
 Phases 11 and 12 start this script again as each of their ranks
 (``--mesh-rank DIR``, ``--train-mesh-rank DIR``, not for direct use).
 
@@ -279,7 +282,34 @@ without printing a result:
         save and restore seconds;
     12c. ``python -m repro_torch.launch.train --smoke --quant tnn`` on
         ``TRAIN_MESH_WORLD`` ranks (the (1, 4) host mesh): the loss falls;
-13. the last line: ``{"ok": true, "device": {...}}``.
+13. the dry-run against the card (after 12, before any profiler
+    session): TinyLlama-1.1B as published, on ``meta`` tensors through
+    ``repro_torch.roofline.op_stats.counting`` (the kernel wrappers record
+    their problems, nothing runs):
+    13a. 7a's packed ``tnn`` prefill (LM_BATCH x LM_PROMPT) and one decode
+        step, 10a's QAT step: the kernel records per key equal to the
+        launches 7a and 10a counted on the card (154 per forward, 308 per
+        step), the step's float operations equal to ``train_flops``;
+    13b. 12a's configuration on a ``PlaceholderMesh`` (2, 2) under
+        ``TRAIN_RULES``: the collectives per rank per step equal to
+        ``train_mesh_collectives`` and to 12a's rank 0, key by key (count
+        and bytes per kind and dtype); 11c's serving forward on a
+        placeholder (1, 4): 110 fused and 44 int32 records and 44
+        all-reduces, equal to 11c's counts;
+    13c. the train state's bytes per rank equal to 12a's rank 0; the peak of
+        live tensor bytes against ``max_memory_allocated`` of 10a and of
+        12a's rank 0, each ratio within DRYRUN_PEAK_BAND;
+    13d. the roofline (``roofline.analysis``, popcounts at the card's
+        maximum SM clock) of 10a's step and 7a's decode step; measured /
+        roofline must be at least 1, and the step's measured / float32
+        bound is reported;
+    13e. ``launch.dryrun.run_cell`` for DRYRUN_CELLS on both placeholder
+        DRYRUN_MESHES: every cell PASS, seconds per cell;
+    13f. the three examples on the card (``repro_torch.examples``):
+        quickstart's exact TBN core, serve_batch ``EXAMPLE_SERVE_ARGS``
+        all "ok", train_tinylm ``EXAMPLE_TRAIN_ARGS`` below ln(V); the
+        phase within DRYRUN_PHASE_S;
+14. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -297,11 +327,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-SMS = 132                    # H100 SXM
-POPC_PER_CLK_PER_SM = 16     # CUDA programming guide, compute capability 9.0
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+# The card's rates and every bound formula live in repro_torch.roofline.analysis
+# (roofline() returns this checkout's copy).
 MODES = ("tnn", "tbn", "bnn")
-NPOPC = {"tnn": 2, "tbn": 2, "bnn": 1}       # POPC per output per word
 GEMM_REPLACES = {
     ("tnn", True): "src/repro/kernels/tnn_matmul.py:93",
     ("tnn", False): "src/repro/kernels/tnn_matmul.py:58",
@@ -321,7 +349,6 @@ DENSE_GEMM_REPLACES = "src/repro/kernels/dense_fused.py:104"
 DENSE_CONV_REPLACES = "src/repro/kernels/dense_fused.py:181"
 AFFINE_REPLACES = {"u8": "src/repro/kernels/int8_matmul.py:28",
                    "u4": "src/repro/kernels/int4_matmul.py:66"}
-INT8_OPS_PER_S = 1.979e15    # H100 SXM data sheet, dense int8 tensor cores
 TABLE3 = ("f32", "u8", "u4", "tnn", "tbn", "bnn")
 # The paper's Cortex-A73 speed-ups (time of the second / time of the
 # first), as benchmarks/bench_matmul.py prints them.
@@ -375,7 +402,6 @@ SERVE_BUCKET, SERVE_MAX_LEN = 128, 528
 # one warm-up step and TRAIN_TIMED timed ones; the resume check (10d) at
 # LM_CUT_LAYERS layers; launch.train at smoke size for TRAIN_LAUNCH_STEPS.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED, TRAIN_LAUNCH_STEPS = 8, 512, 4, 30
-FP32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 # Phase 11, the serving mesh: MESH_WORLD ranks share the card over gloo
 # (launch.mesh.run_ranks; a rank that overruns MESH_TIMEOUT_S is killed).
 # 11a runs sharded qmm at the GEMM_GRID diagonal and MESH_LM_SHAPES
@@ -424,6 +450,16 @@ TRAIN_MESH_BOUNDS = {
     "12a_f32": ({"loss": 1e-5, "grad_norm": 1e-3, "sumsq": 1e-4},
                 {"loss": 1e-4, "grad_norm": 1e-2, "sumsq": None}),
 }
+# Phase 13, the dry-run against the card: TinyLlama-1.1B's production cells
+# DRYRUN_CELLS on the placeholder DRYRUN_MESHES (one subprocess each, at most
+# DRYRUN_CELL_TIMEOUT_S); a peak estimate within DRYRUN_PEAK_BAND of the
+# card's; the phase within DRYRUN_PHASE_S; the examples with short arguments.
+DRYRUN_CELLS, DRYRUN_MESHES = ("train_4k", "prefill_32k", "decode_32k"), ("pod", "multipod")
+DRYRUN_CELL_TIMEOUT_S, DRYRUN_PEAK_BAND, DRYRUN_PHASE_S = 300, (0.5, 2.0), 240
+EXAMPLE_SERVE_ARGS = ["--quant", "tnn", "--packed", "--requests", "6", "--slots", "2",
+                      "--new-tokens", "8"]
+EXAMPLE_TRAIN_ARGS = ["--quant", "tnn", "--steps", "60", "--d-model", "128", "--layers", "2",
+                      "--vocab", "512", "--batch", "8", "--seq", "64", "--lr", "3e-3"]
 
 
 def log(msg: str) -> None:
@@ -499,11 +535,40 @@ def kernel_launches(fn) -> int:
     return n
 
 
-def tc_bound(ops: float, nbytes: float):
-    """(ms, "operations" | "bytes"): the least time for ``ops`` int8
-    tensor-core operations and ``nbytes`` of device memory traffic."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+_ROOFLINE = []
+
+
+def roofline():
+    """This checkout's ``repro_torch.roofline.analysis``: the imported one,
+    or, when the ``repro_torch`` on ``sys.path`` is another checkout's
+    (``--gemm-times --src DIR``), this checkout's file loaded on its own
+    (it imports nothing at load time), so that checkout's kernels are
+    bounded with this checkout's formulas."""
+    if not _ROOFLINE:
+        import repro_torch
+
+        here = ROOT / "src" / "repro_torch"
+        if pathlib.Path(repro_torch.__file__).resolve().parent == here.resolve():
+            from repro_torch.roofline import analysis as mod
+        else:
+            import importlib.util
+
+            spec = importlib.util.spec_from_file_location(
+                "chip_smoke_roofline", here / "roofline" / "analysis.py")
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[spec.name] = mod       # dataclasses resolve their module
+            spec.loader.exec_module(mod)
+        _ROOFLINE.append(mod)
+    return _ROOFLINE[0]
+
+
+def work_bound(work, max_sm_mhz: float = None):
+    """(ms, "operations" | "bytes"): the least time for a
+    ``roofline.analysis.Work`` on the card (popcounts at the maximum SM
+    clock ``max_sm_mhz``, else the data sheet's)."""
+    A = roofline()
+    hw = A.HW() if max_sm_mhz is None else A.HW(sm_clock_hz=max_sm_mhz * 1e6)
+    return work.bound(hw)
 
 
 def layer_by_layer(cfg, model_a, model_b, x, check, name_of, what):
@@ -581,15 +646,6 @@ def gemm_fns(mode):
     mod = {"tnn": tnn_matmul, "tbn": tbn_matmul, "bnn": bnn_matmul}[mode]
     return {v: getattr(mod, f"{mode}_matmul{v}") for v in
             ("_cuda", "_fused_cuda", "_torch", "_fused_torch")}
-
-
-def popc_bound(popc: float, nbytes: float, max_sm_mhz: float):
-    """(ms, "operations" | "bytes"): the least time for ``popc`` popcounts
-    (16 per clock per SM on 132 SMs at the maximum SM clock) and
-    ``nbytes`` of device memory traffic."""
-    t_ops = popc / (SMS * POPC_PER_CLK_PER_SM * max_sm_mhz * 1e6)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def diag_requests(dev):
@@ -702,8 +758,7 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
                 if tag == "u4" else (a8, b8)
             ad, bd = a8.double(), b8.double()
             c = {"mode": tag, "cnn": cnn, "x": x, "qt": qt, "k": k, "ops": ops_,
-                 "lib": lambda ad=ad, bd=bd: torch.matmul(ad, bd),
-                 "nbytes": ops_[0].numel() + ops_[1].numel() + 4 * m * n, "mnk": [m, n, k]}
+                 "lib": lambda ad=ad, bd=bd: torch.matmul(ad, bd), "mnk": [m, n, k]}
             if cnn:       # B stored k-contiguous, the layout cuBLAS's int8 path wants
                 ai = (a8 ^ 0x80).view(torch.int8)
                 bi = (b8 ^ 0x80).view(torch.int8).t().contiguous().t()
@@ -745,10 +800,10 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
                     continue
                 pre = "cnn_" if c["cnn"] else ""
                 (m, kw), n = c["a"][0].shape, c["b"][0].shape[0]
-                nbytes = 4 * kw * (m * len(c["a"]) + n * len(c["b"])) + 4 * m * n + \
-                    (4 * (m + n) if fused else 0)
-                b_ms, b_by = tc_bound(2 * m * n * c["k"], nbytes) if dense else \
-                    popc_bound(m * n * kw * NPOPC[mode], nbytes, max_sm_mhz)
+                A = roofline()
+                b_ms, b_by = work_bound(
+                    A.dense_gemm_work(mode, m, n, kw, c["k"]) if dense else
+                    A.gemm_work(mode, m, n, kw, c["k"], fused), max_sm_mhz)
                 r[pre + "bound_ms"] += b_ms
                 by[pre].add(b_by)
                 r[pre + "shapes_mnk"].append([m, n, c["k"]])
@@ -772,7 +827,7 @@ def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
                 continue
             pre = "cnn_" if c["cnn"] else ""
             m, n, k = c["mnk"]
-            b_ms, b_by = tc_bound(2 * m * n * k, c["nbytes"])
+            b_ms, b_by = work_bound(roofline().affine_gemm_work(m, n, k, tag == "u4"))
             r[pre + "bound_ms"] += b_ms
             by[pre].add(b_by)
             r[pre + "shapes_mnk"].append([m, n, k])
@@ -904,27 +959,8 @@ def projection_bytes(tree):
 
 def proj_shapes(cfg, m, m_expert):
     """(m, n, k) of every packed projection of one forward at ``m`` token
-    rows (``m_expert`` rows per MoE expert)."""
-    d, dh = cfg.d_model, cfg.head_dim_
-    hd, kvd = cfg.num_heads * dh, cfg.num_kv_heads * dh
-
-    def ffn(rows, f):
-        return [(rows, f, d), (rows, f, d), (rows, d, f)]
-
-    out = []
-    for mixer, ffn_kind in cfg.layer_pattern:
-        if mixer in ("A", "AL"):
-            out += [(m, hd, d), (m, kvd, d), (m, kvd, d), (m, d, hd)]
-        elif mixer == "M":
-            din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
-            out += [(m, 2 * din + 2 * g * n + cfg.ssm_nheads, d), (m, d, din)]
-        if ffn_kind == "D":
-            out += ffn(m, cfg.d_ff)
-        elif ffn_kind == "E":
-            out += cfg.num_experts * ffn(m_expert, cfg.d_ff)
-            if cfg.shared_expert_d_ff:
-                out += ffn(m, cfg.shared_expert_d_ff)
-    return out * cfg.num_periods
+    rows (``m_expert`` rows per MoE expert): ``roofline.analysis``'s."""
+    return roofline().proj_shapes(cfg, m, m_expert)
 
 
 def tnn_gemms_per_forward(cfg) -> int:
@@ -935,42 +971,24 @@ def tnn_gemms_per_forward(cfg) -> int:
 
 
 def kv_bytes_per_token(cfg, kv: str) -> int:
-    """Cache bytes one token occupies in one attention layer: K and V and
-    its position (bf16 slab: 2 bytes a value; tnn2: two bit planes of
-    ceil(dh / 32) words a head and a float32 scale, for K and for V)."""
-    dh, kvh = cfg.head_dim_, cfg.num_kv_heads
-    if kv == "tnn2":
-        return 2 * (kvh * 2 * -(-dh // 32) * 4 + 4) + 4
-    return 2 * kvh * dh * 2 + 4
+    """Cache bytes one token occupies in one attention layer
+    (``roofline.analysis``'s)."""
+    return roofline().kv_bytes_per_token(cfg, kv)
 
 
 def lm_bounds(cfg, batch, prompt, steps, packed_bytes, kv="bf16"):
-    """Least times of an LM run, from shapes: a decode step moves at least
-    the packed projections, the bf16 LM head and its cache (the KV cache
-    at its longest, or the SSM states read and written) at 3.35 TB/s; the
-    prefill's popcount GeMMs do at least m * n * words * POPC per output
-    word (16 per clock per SM, 132 SMs, 1980 MHz).  Returns (decode ms,
-    prefill GeMM ms)."""
-    from repro_torch.models.moe import moe_capacity
-
-    attn = sum(m in ("A", "AL") for m, _ in cfg.layer_pattern) * cfg.num_periods
-    ssm = sum(m == "M" for m, _ in cfg.layer_pattern) * cfg.num_periods
-    cache = attn * batch * (prompt + steps) * kv_bytes_per_token(cfg, kv)
-    if ssm:
-        din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
-        state = cfg.ssm_nheads * n * cfg.ssm_headdim + (cfg.ssm_conv - 1) * (din + 2 * g * n)
-        cache += 2 * ssm * batch * state * 4
-    decode_s = (packed_bytes + cfg.d_model * cfg.vocab_size * 2 + cache) / HBM_BYTES_PER_S
-    m_exp = batch * moe_capacity(cfg, prompt) if cfg.num_experts else 0
-    popc = sum(m * n * -(-k // 32) * NPOPC["tnn"]
-               for m, n, k in proj_shapes(cfg, batch * prompt, m_exp))
-    return decode_s * 1e3, popc / (SMS * POPC_PER_CLK_PER_SM * 1980e6) * 1e3
+    """Least times of an LM run, from shapes (``roofline.analysis.lm_bounds``:
+    a decode step's bytes at 3.35 TB/s, the prefill's popcounts at 16 per
+    clock per SM, 132 SMs, 1980 MHz).  Returns (decode ms, prefill GeMM
+    ms)."""
+    return roofline().lm_bounds(cfg, batch, prompt, steps, packed_bytes, kv)
 
 
-def lm_phase(torch, dev):
-    """Phase 7a-7c (see the module docstring); nothing here runs under
-    torch.profiler.  Returns (the report, {kernel: launches on the LM
-    path}, what phase 7d profiles)."""
+def lm_phase(torch, dev, only_7a: bool = False):
+    """Phase 7a-7c (see the module docstring), or with ``only_7a`` phase 7a
+    alone (``--dryrun``); nothing here runs under torch.profiler.  Returns
+    (the report, {kernel: launches on the LM path}, what phase 7d profiles,
+    None with ``only_7a``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import QuantLinear
     from repro_torch.kernels import _build, ops
@@ -1047,6 +1065,10 @@ def lm_phase(torch, dev):
     report["7a"]["bf16_decode_bound_ms"] = lm_bounds(cfg, LM_BATCH, LM_PROMPT, LM_STEPS,
                                                      pb["bf16"])[0]
     log("[lm 7a] " + json.dumps(report["7a"]))
+    if only_7a:
+        del master, packed
+        torch.cuda.empty_cache()
+        return report, lm_launches, None
 
     # -- 7b. bnn, tnn_dense, int8 at full width, cut depth ------------------
     report["7b"] = {}
@@ -1738,23 +1760,15 @@ def deterministic(torch):
 
 def train_flops(cfg, batch, seq) -> float:
     """Float32 operations of one QAT step of ``cfg`` at (batch, seq), from
-    shapes: per projection the STE backward's two products (gx, gw: 4 m n
-    k; the forward is the popcount GeMM), the head's bf16-operand product
-    forward and backward (6 m d V), and per attention layer and sequence
-    QK^T and PV (4 S^2 d) in the forward, the remat recompute and twice in
-    the backward (16 S^2 d)."""
-    m = batch * seq
-    proj = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, 0))
-    head = 6 * m * cfg.d_model * cfg.vocab_size
-    attn = sum(m_ in ("A", "AL") for m_, _ in cfg.layer_pattern) * cfg.num_periods
-    hd = cfg.num_heads * cfg.head_dim_
-    return proj + head + attn * batch * 16 * seq * seq * hd
+    shapes (``roofline.analysis.train_step_flops``)."""
+    return roofline().train_step_flops(cfg, batch, seq)
 
 
-def phase10(torch, dev):
-    """Phase 10a-10e (see the module docstring); nothing here runs under
-    torch.profiler.  Returns (the report, {sub-phase: {kernel: launches}}
-    for 10a and 10c at full width and 10e at the smoke width)."""
+def phase10(torch, dev, only_10a: bool = False):
+    """Phase 10a-10e (see the module docstring), or with ``only_10a``
+    phase 10a alone (``--dryrun``); nothing here runs under torch.profiler.
+    Returns (the report, {sub-phase: {kernel: launches}} for 10a and 10c
+    at full width and 10e at the smoke width)."""
     import dataclasses
     import shutil
     import tempfile
@@ -1852,10 +1866,12 @@ def phase10(torch, dev):
         "tokens_per_s": tokens / float(np.mean(step_s)),
         "fused_tnn_launches_per_step": per_step, "peak_memory_bytes": peak,
         "moment_bytes_f32": mom_f32, "init_s": init_s, "step_flops_f32": flops,
-        "step_bound_ms": flops / FP32_FLOPS_PER_S * 1e3}
+        "step_bound_ms": roofline().Work({"f32": flops}).compute_s() * 1e3}
     log("[train 10a] " + json.dumps(report["10a"]))
     del state, tr, res
     torch.cuda.empty_cache()
+    if only_10a:
+        return report, launches10
 
     # -- 10b. one step on the kernels and on the plain versions --------------
     def kernels_vs_plain(c, batch):
@@ -2988,6 +3004,309 @@ def phase12(torch, dev):
     return report, launches
 
 
+def dry_run(torch, fn, args):
+    """``fn(*args)`` on ``meta`` tensors under ``roofline.op_stats.counting``;
+    returns (its output, the OpStats, the training mesh's raw collective
+    counters, the serving mesh's)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import qmm_mesh
+    from repro_torch.roofline import op_stats
+
+    with op_stats.counting(args) as stats:
+        out = fn(*args)
+    strip = lambda d: {k: v for k, v in d.items() if not k.endswith("_s")}  # noqa: E731
+    return out, stats, strip(mesh_mod.collectives()), strip(qmm_mesh.collectives())
+
+
+def dry_lm(torch):
+    """13a's LM half on ``meta``: 7a's packed TinyLlama-1.1B (``tnn``), a
+    LM_BATCH x LM_PROMPT prefill, then one decode step against the
+    LM_PROMPT + LM_STEPS cache.  -> (cfg, prefill stats, decode stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.kvcache import init_caches
+    from repro_torch.models.packing import pack_lm_params
+
+    meta, lay = torch.device("meta"), ShardLayout()
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    packed = pack_lm_params(model.init_lm(torch.Generator(), cfg, lay, dtype=cfg.dtype,
+                                          device=meta), cfg)
+    caches = init_caches(cfg, lay, LM_BATCH, LM_PROMPT + LM_STEPS, device=meta)
+    prompt = torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int64, device=meta)
+    with torch.no_grad():
+        (_, caches), pre, _, _ = dry_run(
+            torch, lambda p, c, t: model.prefill(p, {"tokens": t}, c, cfg, lay),
+            (packed, caches, prompt))
+        tok = torch.empty((LM_BATCH, 1), dtype=torch.int64, device=meta)
+        _, dec, _, _ = dry_run(
+            torch, lambda p, c, t: model.decode_step(p, {"tokens": t}, c, LM_PROMPT, cfg, lay),
+            (packed, caches, tok))
+    return cfg, pre, dec
+
+
+def dry_train(torch, cfg, tcfg, layout, rows, mesh=None):
+    """One train step of ``cfg`` on ``meta`` at ``rows`` x TRAIN_SEQ tokens
+    (on ``mesh`` under TRAIN_RULES when given: the state holds rank 0's
+    shards).  -> (OpStats, state bytes, the mesh's collectives, the
+    state's shardings or None)."""
+    from repro_torch.parallel import sharding
+    from repro_torch.roofline import op_stats
+    from repro_torch.train.train_step import init_train_state, make_train_step, state_shardings
+
+    meta = torch.device("meta")
+    batch = {"tokens": torch.empty((rows, TRAIN_SEQ), dtype=torch.int32, device=meta),
+             "labels": torch.empty((rows, TRAIN_SEQ), dtype=torch.int32, device=meta),
+             "mask": torch.empty((rows, TRAIN_SEQ), dtype=torch.float32, device=meta)}
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        sh = state_shardings(cfg, layout, tcfg) if mesh is not None else None
+        state = init_train_state(torch.Generator(), cfg, layout, tcfg, device=meta,
+                                 shardings=sh)
+        _, stats, coll, _ = dry_run(torch, make_train_step(cfg, layout, tcfg), (state, batch))
+    return stats, op_stats.tree_bytes(state), coll, sh
+
+
+def dry_serve_mesh(torch):
+    """11c's serving forward on a placeholder (1, 4) under the engine's
+    ``serve_lowbit`` rules: 7a's TinyLlama-1.1B packed under the mesh (rank
+    0's plane slices), one LM_BATCH x MESH_PROMPT prefill.  -> (cfg,
+    OpStats, the serving mesh's collectives)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import PlaceholderMesh
+    from repro_torch.models import ShardLayout, model
+    from repro_torch.models.kvcache import init_caches
+    from repro_torch.models.packing import pack_lm_params
+    from repro_torch.parallel import sharding
+
+    meta, lay = torch.device("meta"), ShardLayout()
+    cfg = get_config(LM_ARCH, quant_policy="tnn")
+    mesh = PlaceholderMesh((1, MESH_WORLD), ("data", "model"))
+    with sharding.use_mesh(mesh, sharding.RULESETS["serve_lowbit"]), torch.no_grad():
+        packed = pack_lm_params(model.init_lm(torch.Generator(), cfg, lay, dtype=cfg.dtype,
+                                              device=meta), cfg)
+        caches = init_caches(cfg, lay, MESH_REQUESTS, MESH_PROMPT + MESH_NEW, device=meta)
+        prompt = torch.empty((MESH_REQUESTS, MESH_PROMPT), dtype=torch.int64, device=meta)
+        _, stats, _, serve = dry_run(
+            torch, lambda p, c, t: model.prefill(p, {"tokens": t}, c, cfg, lay),
+            (packed, caches, prompt))
+    return cfg, stats, serve
+
+
+def roofline_ms(stats, max_sm_mhz: float) -> dict:
+    """The roofline terms (ms) of one dry-run's OpStats on this card."""
+    A = roofline()
+    t = A.roofline_from_artifact({"cost": {"flops": stats.dot_flops,
+                                           "bytes accessed": stats.hbm_bytes},
+                                  "static": stats.as_dict(), "num_devices": 1},
+                                 A.HW(sm_clock_hz=max_sm_mhz * 1e6))
+    return {"step_ms": t.step_time_s * 1e3, "compute_ms": t.compute_s * 1e3,
+            "memory_ms": t.memory_s * 1e3, "collective_ms": t.collective_s * 1e3,
+            "dominant": t.dominant,
+            "compute_ms_by_class": {k: v * 1e3 for k, v in t.compute_s_by_class.items()}}
+
+
+def card_readings(a7: dict, t10: dict, t12: dict = None, m11c: dict = None) -> dict:
+    """What phase 13 holds the dry-run against, from the reports of phases
+    7a and 10a and, in the full script, 12a and 11c."""
+    out = {"forward_launches": {k: v // (1 + LM_STEPS) for k, v in a7["launches"].items()},
+           "decode_ms": a7["tnn_decode_ms_per_token"],
+           "step_launches": {LM_POLICY_KERNELS["tnn"]: t10["fused_tnn_launches_per_step"]},
+           "step_ms": t10["mean_step_ms"], "step_peak_bytes": t10["peak_memory_bytes"]}
+    if t12 is not None:
+        out["mesh12a"] = {"collectives": {k: v for k, v in t12["collectives_per_step"].items()
+                                          if not k.endswith("_s")},
+                          "state_bytes": sum(t12["rank_bytes"][0].values()),
+                          "peak_bytes": t12["peak_memory_bytes"][0]}
+    if m11c is not None:
+        out["mesh11c"] = m11c["per_forward"]
+    return out
+
+
+def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
+    """Phase 13 (see the module docstring): the dry-run's counts on
+    ``meta`` against the card's readings in ``measured``
+    (:func:`card_readings` of phases 7a, 10a and, in the full script, 11c
+    and 12a), the production cells, the examples on the card.  Any mismatch raises."""
+    import math
+
+    from repro_torch.data.pipeline import mesh_rows
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PlaceholderMesh
+    from repro_torch.models import ShardLayout
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding
+    from repro_torch.train import TrainStepConfig
+
+    t_phase = time.perf_counter()
+    report = {}
+    key = LM_POLICY_KERNELS["tnn"]
+    # -- 13a. kernel records against launches; the step's float operations ------
+    t0 = time.perf_counter()
+    cfg, pre, dec = dry_lm(torch)
+    per_forward = tnn_gemms_per_forward(cfg)
+    for what, st in (("prefill", pre), ("decode step", dec)):
+        if st.kernels != measured["forward_launches"] or st.kernels != {key: per_forward}:
+            raise AssertionError(f"13a {what}: records {st.kernels}, launches per forward on "
+                                 f"the card {measured['forward_launches']}")
+    cfg10 = cfg.with_(remat=True)
+    tcfg10 = TrainStepConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
+    step, _, _, _ = dry_train(torch, cfg10, tcfg10, ShardLayout(), TRAIN_BATCH)
+    flops = train_flops(cfg10, TRAIN_BATCH, TRAIN_SEQ)
+    if step.kernels != measured["step_launches"] or step.kernels != {key: 2 * per_forward}:
+        raise AssertionError(f"13a step: records {step.kernels}, launches on the card "
+                             f"{measured['step_launches']}")
+    if step.dot_flops != flops:
+        raise AssertionError(f"13a step: {step.dot_flops} float operations, train_flops "
+                             f"{flops}")
+    report["13a"] = {"prefill_records": pre.kernels, "decode_records": dec.kernels,
+                     "step_records": step.kernels, "step_flops": step.dot_flops,
+                     "step_flops_by_dtype": step.dot_flops_by_dtype,
+                     "card_forward_launches": measured["forward_launches"],
+                     "card_step_launches": measured["step_launches"],
+                     "s": time.perf_counter() - t0}
+    log("[dryrun 13a] " + json.dumps(report["13a"]))
+    # -- 13b. the placeholder meshes against the real ones ------------------------
+    t0 = time.perf_counter()
+    cfg12, tcfg12, _ = train_mesh_config()
+    mesh = PlaceholderMesh(TRAIN_MESH_SHAPE, ("data", "model"))
+    tp = dict(zip(mesh.axis_names, mesh.shape))["model"]
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        coord, shards = sharding.mesh_coord(mesh, sharding.batch_axes())
+    rows = len(mesh_rows(TRAIN_BATCH, coord, shards, tcfg12.microbatch))
+    mstep, state_bytes_, mcoll, sh = dry_train(torch, cfg12, tcfg12, ShardLayout(tp=tp),
+                                               rows, mesh)
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        expect = train_mesh_collectives(cfg12, tcfg12, sh, mesh, "tnn")
+    got = {k: mcoll.get(k, 0) for k in expect}
+    if got != expect or mstep.kernels != {key: 2 * per_forward}:
+        raise AssertionError(f"13b (2, 2): collectives {got}, records {mstep.kernels}; "
+                             f"train_mesh_collectives {expect}")
+    m12 = measured.get("mesh12a")
+    if m12 is not None and mcoll != m12["collectives"]:
+        raise AssertionError(f"13b (2, 2): collectives {mcoll}, 12a's rank 0 "
+                             f"{m12['collectives']}")
+    cfg11, serve, scoll = dry_serve_mesh(torch)
+    want_l, want_c = mesh_expect(cfg11, 1, 5, 2, 5)
+    got_c = {k: scoll.get(k, 0) for k in want_c}
+    if serve.kernels != want_l or got_c != want_c:
+        raise AssertionError(f"13b (1, 4): records {serve.kernels}, collectives {scoll}; "
+                             f"expected {want_l}, {want_c}")
+    m11 = measured.get("mesh11c")
+    if m11 is not None and m11 != {"fused": want_l["lowbit_gemm_tnn_fused"],
+                                   "i32": want_l["lowbit_gemm_tnn_i32"],
+                                   "all_reduce": want_c["all_reduce"]}:
+        raise AssertionError(f"13b (1, 4): 11c counted {m11} per forward")
+    report["13b"] = {"train_2x2": mcoll, "expected": expect,
+                     "card_12a": None if m12 is None else m12["collectives"],
+                     "records_2x2": mstep.kernels, "serve_1x4_records": serve.kernels,
+                     "serve_1x4_collectives": scoll, "card_11c": m11,
+                     "s": time.perf_counter() - t0}
+    log("[dryrun 13b] " + json.dumps(report["13b"]))
+    # -- 13c. memory ---------------------------------------------------------------
+    lo, hi = DRYRUN_PEAK_BAND
+    ratios = {"10a": step.peak_live_bytes / measured["step_peak_bytes"]}
+    if m12 is not None:
+        if state_bytes_ != m12["state_bytes"]:
+            raise AssertionError(f"13c: state bytes per rank {state_bytes_}, 12a's rank 0 "
+                                 f"{m12['state_bytes']}")
+        ratios["12a"] = mstep.peak_live_bytes / m12["peak_bytes"]
+    for what, r in ratios.items():
+        if not lo <= r <= hi:
+            raise AssertionError(f"13c: {what} peak estimate / measured {r:.3f} outside "
+                                 f"[{lo}, {hi}]")
+    report["13c"] = {"state_bytes_per_rank": state_bytes_,
+                     "card_12a_state_bytes": None if m12 is None else m12["state_bytes"],
+                     "peak_estimate_10a": step.peak_live_bytes,
+                     "card_10a_peak": measured["step_peak_bytes"],
+                     "peak_estimate_12a": mstep.peak_live_bytes,
+                     "card_12a_peak": None if m12 is None else m12["peak_bytes"],
+                     "ratio_estimate_over_card": ratios}
+    log("[dryrun 13c] " + json.dumps(report["13c"]))
+    # -- 13d. the roofline against measured time -----------------------------------
+    terms = {"10a_step": roofline_ms(step, max_sm_mhz), "7a_decode": roofline_ms(dec, max_sm_mhz)}
+    meas = {"10a_step": measured["step_ms"], "7a_decode": measured["decode_ms"]}
+    ratio = {k: meas[k] / terms[k]["step_ms"] for k in terms}
+    for k, r in ratio.items():
+        if not r >= 1:
+            raise AssertionError(f"13d: {k} measured {meas[k]:.3f} ms under its roofline "
+                                 f"{terms[k]['step_ms']:.3f} ms: a count is wrong")
+    f32_ms = roofline().Work({"f32": step.dot_flops}).compute_s() * 1e3
+    report["13d"] = {"roofline": terms, "measured_ms": meas, "measured_over_roofline": ratio,
+                     "step_float32_bound_ms": f32_ms,
+                     "step_measured_over_float32_bound": meas["10a_step"] / f32_ms}
+    log("[dryrun 13d] " + json.dumps(report["13d"]))
+    # -- 13e. the production cells -------------------------------------------------
+    out_dir = str(ROOT / "build" / "chip_smoke" / "dryrun")
+    cells = {}
+    for mesh_name in DRYRUN_MESHES:
+        for shape in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(LM_ARCH, shape, mesh_name, out_dir, force=True,
+                                  timeout=DRYRUN_CELL_TIMEOUT_S)
+            if rec["status"] != "PASS":
+                raise AssertionError(f"13e {mesh_name} {shape}: {rec.get('error')}")
+            cells[f"{mesh_name}/{shape}"] = {
+                "s": time.perf_counter() - t0, "trace_s": rec["trace_s"],
+                "flops": rec["cost"]["flops"], "bytes_accessed": rec["cost"]["bytes accessed"],
+                "peak_live_bytes": rec["memory"]["peak_live_bytes"],
+                "collective_bytes": rec["collectives"]["total"]}
+    report["13e"] = cells
+    log("[dryrun 13e] " + json.dumps(cells))
+    # -- 13f. the examples on the card ----------------------------------------------
+    from repro_torch.examples import quickstart, serve_batch, train_tinylm
+
+    t0 = time.perf_counter()
+    q = quickstart.main(["--device", "cuda"])
+    if not q["tbn_exact"]:
+        raise AssertionError("13f quickstart: TBN core differs from the float reference")
+    res = serve_batch.main(EXAMPLE_SERVE_ARGS + ["--device", "cuda"])
+    if len(res) != int(EXAMPLE_SERVE_ARGS[EXAMPLE_SERVE_ARGS.index("--requests") + 1]) or \
+            any(r.status != "ok" for r in res.values()):
+        raise AssertionError(f"13f serve_batch: {[(u, r.status) for u, r in res.items()]}")
+    ck = ROOT / "build" / "chip_smoke" / "tinylm_ckpt"
+    tr = train_tinylm.main(EXAMPLE_TRAIN_ARGS + ["--device", "cuda", "--checkpoint-dir",
+                                                 str(ck)])
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    vocab = int(EXAMPLE_TRAIN_ARGS[EXAMPLE_TRAIN_ARGS.index("--vocab") + 1])
+    last = sum(tr.losses[-10:]) / min(10, len(tr.losses))
+    if not last < math.log(vocab):
+        raise AssertionError(f"13f train_tinylm: loss {last} not below ln(V)")
+    report["13f"] = {"quickstart": q, "serve_batch_requests": len(res),
+                     "train_tinylm_first_last": [tr.losses[0], last],
+                     "s": time.perf_counter() - t0}
+    log("[dryrun 13f] " + json.dumps(report["13f"]))
+    report["phase_s"] = time.perf_counter() - t_phase
+    if report["phase_s"] > DRYRUN_PHASE_S:
+        raise AssertionError(f"phase 13 took {report['phase_s']:.1f} s, over "
+                             f"{DRYRUN_PHASE_S} s")
+    return report
+
+
+def dryrun_only(torch) -> int:
+    """``--dryrun``: phases 1, 2, 7a, 10a and 13 (the mesh readings of 11c
+    and 12a need those phases: 13b then holds the placeholder meshes to the
+    formulas only)."""
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind, card, max_sm_mhz = device_and_build(torch, _build)
+    from repro_torch.tune import cache as plan_cache
+
+    plan_cache.set_cache_path(str(ROOT / "build" / "chip_smoke" / "tune_plans.json"))
+    lm_report, _, _ = lm_phase(torch, dev, only_7a=True)
+    train_report, _ = phase10(torch, dev, only_10a=True)
+    report = phase13(torch, dev, card_readings(lm_report["7a"], train_report["10a"]),
+                     max_sm_mhz)
+    log(f"[dryrun] phase 13 {report['phase_s']:.1f} s")
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def device_and_build(torch, _build):
     """Phases 1 and 2: the card (name, count, power limit, maximum SM
     clock) and the build of every csrc library.  Returns (kind, the
@@ -3094,6 +3413,9 @@ def main(argv=None) -> int:
     parser.add_argument("--train-mesh", action="store_true",
                         help="run only the device and build phases and phase 12")
     parser.add_argument("--train-mesh-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dryrun", action="store_true",
+                        help="run only the device and build phases, 7a, 10a and "
+                             "phase 13")
     args = parser.parse_args(argv)
     import torch
 
@@ -3113,6 +3435,8 @@ def main(argv=None) -> int:
         return train_mesh_rank(torch, args.train_mesh_rank)
     if args.train_mesh:
         return train_mesh_only(torch)
+    if args.dryrun:
+        return dryrun_only(torch)
     try:
         from repro_torch.cnn import PaperCNN
         from repro_torch.configs.paper_cnn import GEMM_GRID, PAPER_CNN, PAPER_CNN_SMOKE
@@ -3447,6 +3771,13 @@ def main(argv=None) -> int:
     tmesh_report, tmesh_launches = phase12(torch, dev)
     log("[train mesh] " + json.dumps(tmesh_report))
     log(card)
+    # -- 13. the dry-run against phases 7a, 10a, 11c and 12a (before any
+    # profiler session) ---------------------------------------------------------
+    dry_report = phase13(torch, dev, card_readings(
+        lm_report["7a"], train_report["10a"], tmesh_report["12a"], mesh_report["11c"]),
+        max_sm_mhz)
+    log(f"[dryrun] phase 13 {dry_report['phase_s']:.1f} s")
+    log(card)
 
     # a qmm request launches its quantization's kernels and the GeMM, no copy
     # of the per-tensor activation scale (both backends).  torch.profiler
@@ -3511,8 +3842,6 @@ def main(argv=None) -> int:
         log(f"[table3] {r:>26s} " + " ".join(f"{r_device[f'{r}/{c}']:7.3f}" for c in TABLE3))
 
     # -- 6. times ----------------------------------------------------------
-    def bound(popc, nbytes):
-        return popc_bound(popc, nbytes, max_sm_mhz)
 
     # where one CNN batch's device time goes, by kernel: the repository's
     # kernels by name (the packing pass, the conv kernels), the rest is
@@ -3593,12 +3922,9 @@ def main(argv=None) -> int:
                                 reps=20)
             b, h, w, _ = x.shape
             oh, ow, _, _ = conv_fused.conv_out_hw(h, w, kh, kw_, stride, "SAME")
-            m, words = b * oh * ow, planes[0].shape[1]
-            nbytes = x.numel() * 4 + 4 * cout * words * len(planes) + 4 * m * cout
-            if tc:
-                b_ms, b_by = tc_bound(2 * m * cout * kh * kw_ * cin, nbytes + 4 * cout)
-            else:
-                b_ms, b_by = bound(m * cout * words * NPOPC[mode], nbytes)
+            words = planes[0].shape[1]
+            b_ms, b_by = work_bound(roofline().conv_fused_work(
+                mode, b, h, w, cin, kh, kw_, oh, ow, cout, words, dense=tc), max_sm_mhz)
             bound_ms += b_ms
             by.add(b_by)
             shp.append([b, h, w, cin, cout, kh])
@@ -3620,8 +3946,9 @@ def main(argv=None) -> int:
             device_ms += kernel_device_ms(lambda: conv_fused.conv_pack_cuda(*args),
                                           "conv_pack_kernel") or 0.0
             plain_ms += cuda_ms(lambda: conv_fused.conv_pack_torch(*args), reps=5, warmup=1)
-            out_words = sum(p.numel() for p in conv_fused.conv_pack_cuda(*args))
-            b_ms, _ = bound(0, x.numel() * 4 + 4 * out_words)
+            bb, hh, ww, cc = x.shape
+            hp, wp = conv_fused.conv_pack_cuda(*args)[0].shape[1:3]
+            b_ms, _ = work_bound(roofline().conv_pack_work(mode, bb, hh, ww, cc, hp, wp))
             bound_ms += b_ms
             shp.append(list(x.shape))
         name = f"conv_pack_{mode}"

@@ -39,6 +39,8 @@ __all__ = [
     "unpack_binary",
     "pack_ternary",
     "unpack_ternary",
+    "random_binary",
+    "random_ternary",
 ]
 
 # Bit i's weight as an int32: 2**i, with 2**31 wrapping to -2**31.  The
@@ -110,3 +112,23 @@ def pack_ternary(x: torch.Tensor):
 def unpack_ternary(plus: torch.Tensor, minus: torch.Tensor, k: int,
                    dtype=torch.float32) -> torch.Tensor:
     return (unpack_bits(plus, k) - unpack_bits(minus, k)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Test helpers (the reference's; a torch.Generator in place of a PRNG key)
+# ---------------------------------------------------------------------------
+
+def random_binary(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """Uniform random {-1,+1} tensor on ``generator``'s device."""
+    bits = torch.rand(shape, generator=generator, device=generator.device) < 0.5
+    return (1 - 2 * bits.to(torch.int32)).to(dtype)
+
+
+def random_ternary(generator: torch.Generator, shape, p_zero: float = 1 / 3,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Random {-1,0,+1} tensor on ``generator``'s device: zero with
+    probability ``p_zero``, else a uniform sign."""
+    dev = generator.device
+    nz = torch.rand(shape, generator=generator, device=dev) < 1.0 - p_zero
+    neg = torch.rand(shape, generator=generator, device=dev) < 0.5
+    return (nz.to(torch.int32) * (1 - 2 * neg.to(torch.int32))).to(dtype)

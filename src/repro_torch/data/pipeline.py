@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/data/pipeline.py``: numpy only, so every batch is
 bit-identical to the reference's; the trainer moves it to its device.
-The dry-run's ``global_batch_spec`` comes with the dry-run slice.
+:func:`global_batch_spec` describes the global batch as ``meta`` tensors
+for the dry-run (``launch/specs.py``), the reference's ShapeDtypeStructs.
 
 Fault-tolerance posture (1000+ node jobs):
 
@@ -33,7 +34,8 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["DataState", "SyntheticLM", "make_pipeline", "host_rows", "mesh_rows"]
+__all__ = ["DataState", "SyntheticLM", "make_pipeline", "host_rows", "mesh_rows",
+           "global_batch_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,3 +151,15 @@ def make_pipeline(source: SyntheticLM, state: DataState, *,
         batch = source.batch_at(state, rows)
         state = state.next()
         yield state, batch
+
+
+def global_batch_spec(source: SyntheticLM):
+    """The *global* batch as ``meta`` tensors, the port's ShapeDtypeStructs
+    (for the dry-run): ``tokens`` and ``labels`` int32, ``mask`` float32,
+    each (global_batch, seq_len)."""
+    import torch
+
+    shape = (source.global_batch, source.seq_len)
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "labels": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "mask": torch.empty(shape, dtype=torch.float32, device="meta")}

@@ -29,6 +29,14 @@ after the launch succeeded, so a run can show which kernels its main path
 went through: ``lowbit_gemm_<mode>_{fused,i32}``, ``conv_pack_<mode>``,
 ``lowbit_conv_<mode>``, ``dense_gemm_<mode>``, ``dense_conv_<mode>``,
 ``affine_gemm_{u8,u4}``.
+
+Records on ``meta``: a wrapper whose operands all lie on the ``meta``
+device (the dry-run, ``launch/dryrun.py``) launches nothing and runs no
+plain version; it calls :func:`record` with the kernel's problem (its
+dims, under the key :func:`launch` would count) and returns an empty
+``meta`` output of the kernel's shape and dtype.  :func:`records` reads
+them in order; ``repro_torch.roofline.analysis.kernel_work`` turns each
+into operations and bytes.
 """
 
 from __future__ import annotations
@@ -42,12 +50,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "nvcc_path", "build",
-           "build_log", "load", "launch", "launches", "reset_launches"]
+           "build_log", "load", "launch", "launches", "reset_launches",
+           "record", "records", "reset_records"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -96,6 +105,7 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 _LAUNCHES: collections.Counter = collections.Counter()
+_RECORDS: List[Tuple[str, Dict[str, int]]] = []
 
 
 def nvcc_path() -> str:
@@ -209,3 +219,19 @@ def launches() -> Dict[str, int]:
 
 def reset_launches() -> None:
     _LAUNCHES.clear()
+
+
+def record(key: str, **problem: int) -> None:
+    """Record, in place of a launch on ``meta`` operands, the problem of
+    the kernel counted under ``key`` (module docstring)."""
+    _RECORDS.append((key, {k: int(v) for k, v in problem.items()}))
+
+
+def records() -> List[Tuple[str, Dict[str, int]]]:
+    """(key, problem) of every kernel recorded on ``meta`` since the last
+    :func:`reset_records`, in call order."""
+    return list(_RECORDS)
+
+
+def reset_records() -> None:
+    _RECORDS.clear()

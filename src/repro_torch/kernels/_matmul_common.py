@@ -30,7 +30,7 @@ from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_TILES",
            "gemm_tile", "cta_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
-           "scale_epilogue", "on_cuda", "gemm_dims", "row_stride",
+           "scale_epilogue", "runs_kernel", "gemm_dims", "row_stride",
            "check_f32_vec", "check_row_scale", "sm_count",
            "lowbit_matmul_call", "psum_accum_dtype"]
 
@@ -200,21 +200,18 @@ _MODE_ID = {QuantMode.BNN: 0, QuantMode.TNN: 1, QuantMode.TBN: 2}
 _PLANES = {QuantMode.BNN: (1, 1), QuantMode.TNN: (2, 2), QuantMode.TBN: (2, 1)}
 
 
-def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
-    """Which version a kernel wrapper runs: True (the kernel) when every
-    operand lies on a CUDA device, False (the plain version) when none
-    does; a mix raises."""
-    cuda = other = False
-    for t in tensors:
-        if t is not None:
-            if t.is_cuda:
-                cuda = True
-            else:
-                other = True
-    if cuda and other:
-        raise ValueError("kernel operands must all lie on CUDA or all on "
-                         "the CPU, got a mix")
-    return cuda
+def runs_kernel(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a kernel wrapper takes its kernel's branch: True when every
+    operand lies on a CUDA device (the kernel launches) or every one on
+    ``meta`` (the kernel's problem is recorded, ``_build.record``, and
+    nothing runs); False (the plain version) when every one lies on the
+    CPU; a mix of devices raises."""
+    kinds = {"cuda" if t.is_cuda else "meta" if t.is_meta else "cpu"
+             for t in tensors if t is not None}
+    if len(kinds) > 1:
+        raise ValueError("kernel operands must all lie on CUDA, all on the "
+                         f"CPU or all on meta, got a mix: {sorted(kinds)}")
+    return "cpu" not in kinds and bool(kinds)
 
 
 def _check_plane(name: str, p: torch.Tensor, rows: int, kw: int,
@@ -248,7 +245,7 @@ def gemm_dims(mode: QuantMode, a_planes: Sequence[torch.Tensor],
         _check_plane("a", p, m, kw, device)
     for p in b_planes:
         _check_plane("b", p, n, kw, device)
-    if device < 0:
+    if device < 0 and not a0.is_meta:
         raise ValueError(f"GeMM kernels need CUDA planes, got {a0.device}")
     if m * kw >= 2**31:
         raise ValueError("GeMM kernels index A words with 32-bit ints")
@@ -340,6 +337,9 @@ def lowbit_matmul_call(mode: QuantMode, a_planes: Sequence[torch.Tensor],
     out = a_planes[0].new_empty((m, n), dtype=torch.float32 if fused
                                 else torch.int32)
     if m == 0 or n == 0:
+        return out
+    if out.is_meta:
+        _build.record(_GEMM_KEYS[(mode, fused)], m=m, n=n, kw=kw, k=k_valid)
         return out
     _build.launch(
         "lowbit_gemm_launch", _GEMM_KEYS[(mode, fused)], device, _MODE_ID[mode],

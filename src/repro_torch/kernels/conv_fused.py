@@ -43,7 +43,7 @@ from repro_torch.core.quantize import f32_scalar
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
     DEFAULT_TILES, PRODUCT_FNS, _MODE_ID, _ptr, check_f32_vec,
-    chunked_bitwise_matmul, on_cuda, scale_epilogue)
+    chunked_bitwise_matmul, runs_kernel, scale_epilogue)
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["conv_out_hw", "conv_spatial_pad", "conv_act_stats",
@@ -323,6 +323,9 @@ def _launch_pack(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
                                device=x.device) for _ in range(nplanes))
     if x.numel() == 0:
         return planes
+    if x.is_meta:
+        _build.record(_PACK_KEYS[mode], b=bsz, h=h, w=w, c=c, hp=hp, wp=wp)
+        return planes
     _build.launch(
         "conv_pack_launch", _PACK_KEYS[mode], dev, _MODE_ID[mode], x.data_ptr(),
         bsz, h, w, c, hp, wp, ph // 2, pw // 2, _ptr(thr), planes[0].data_ptr(),
@@ -336,7 +339,7 @@ def conv_pack_cuda(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
     """Packing pass of both conv kernels: ``conv_pack_kernel`` on CUDA
     operands (raises on anything it does not take), the plain version on
     CPU operands."""
-    if not on_cuda(x, *stats.values()):
+    if not runs_kernel(x, *stats.values()):
         return conv_pack_torch(mode, x, kh, kw, stride, padding, stats)
     return _launch_pack(mode, x, kh, kw, stride, padding, stats)
 
@@ -376,6 +379,15 @@ def packed_conv_args(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     return out, dims, words, scale, col_scale, bias
 
 
+def _conv_problem(dims, cout: int, words: int) -> Dict[str, int]:
+    """A conv kernel's problem as ``_build.record`` keeps it: the launch's
+    (B, Hp, Wp, Cin, kh, kw, stride, OH, OW), Cout and the words per
+    weight row."""
+    bsz, hp, wp, cin, kh, kw, stride, oh, ow = dims
+    return dict(b=bsz, hp=hp, wp=wp, cin=cin, kh=kh, kw=kw, stride=stride, oh=oh,
+                ow=ow, cout=cout, words=words)
+
+
 def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
                  stride: int, padding: str, stats: Dict[str, torch.Tensor],
                  col_scale: torch.Tensor,
@@ -387,6 +399,9 @@ def _launch_conv(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
     a = _launch_pack(mode, x, kh, kw, stride, padding, stats)
+    if x.is_meta:
+        _build.record(_CONV_KEYS[mode], **_conv_problem(dims, cout, words))
+        return out.reshape(bsz, oh, ow, cout)
     _build.launch(
         "lowbit_conv_launch", _CONV_KEYS[mode], x.get_device(), _MODE_ID[mode],
         a[0].data_ptr(), a[-1].data_ptr(), *dims, b_planes[0].data_ptr(),
@@ -403,7 +418,7 @@ def conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes, geometry,
     kernel then the conv kernel, on the current stream with no host sync
     (raises on anything they do not take); the plain version on CPU
     operands."""
-    if not on_cuda(x, *b_planes, *stats.values(), col_scale, bias):
+    if not runs_kernel(x, *b_planes, *stats.values(), col_scale, bias):
         return conv_fused_torch(mode, x, b_planes, geometry, stride,
                                 padding, stats, col_scale, bias)
     return _launch_conv(mode, x, b_planes, geometry, stride, padding, stats,

@@ -43,9 +43,9 @@ from repro_torch.core import encoding
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
     _MODE_ID, _PLANES, DENSE_TILES, _ptr, check_f32_vec, check_row_scale, cta_tile,
-    gemm_dims, on_cuda, scale_epilogue)
+    gemm_dims, runs_kernel, scale_epilogue)
 from repro_torch.kernels.conv_fused import (
-    conv_pack_cuda, conv_spatial_pad, gather_patch_tile, packed_conv_args,
+    _conv_problem, conv_pack_cuda, conv_spatial_pad, gather_patch_tile, packed_conv_args,
     quantize_patch_values)
 from repro_torch.kernels.modes import QuantMode
 from repro_torch.tune.space import DENSE_SPACE
@@ -120,7 +120,7 @@ def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
     CPU operands.  ``row_scale`` one per-tensor value or (m, 1) (never
     copied), ``col_scale`` and ``bias`` n contiguous values; ``tile`` the
     CTA tile (``_matmul_common.cta_tile`` over ``DENSE_TILES``)."""
-    if not on_cuda(*a_planes, *b_planes, row_scale, col_scale, bias):
+    if not runs_kernel(*a_planes, *b_planes, row_scale, col_scale, bias):
         return dense_matmul_fused_torch(mode, a_planes, b_planes, k_valid,
                                         row_scale, col_scale, bias)
     m, n, kw, device = gemm_dims(mode, a_planes, b_planes)
@@ -129,6 +129,9 @@ def dense_matmul_fused_cuda(mode: QuantMode, a_planes, b_planes,
     check_f32_vec("bias", bias, n, device)
     out = a_planes[0].new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:
+        return out
+    if out.is_meta:
+        _build.record(_GEMM_KEYS[mode], m=m, n=n, kw=kw, k=k_valid)
         return out
     _build.launch(
         "dense_gemm_launch", _GEMM_KEYS[mode], device, _MODE_ID[mode],
@@ -196,7 +199,7 @@ def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
     pack kernel (``conv_fused.conv_pack_cuda``) then ``csrc/dense_tc.cu``'s
     conv kernel, on the current stream with no host sync (raises on
     anything they do not take); the plain version on CPU operands."""
-    if not on_cuda(x, *b_planes, *stats.values(), col_scale, bias):
+    if not runs_kernel(x, *b_planes, *stats.values(), col_scale, bias):
         return dense_conv_fused_torch(mode, x, b_planes, geometry, stride,
                                       padding, stats, col_scale, bias)
     kh, kw, cin, cout = geometry
@@ -206,6 +209,9 @@ def dense_conv_fused_cuda(mode: QuantMode, x: torch.Tensor, b_planes,
     if out.numel() == 0:
         return out.reshape(bsz, oh, ow, cout)
     a = conv_pack_cuda(mode, x, kh, kw, stride, padding, stats)
+    if out.is_meta:
+        _build.record(_CONV_KEYS[mode], **_conv_problem(dims, cout, words))
+        return out.reshape(bsz, oh, ow, cout)
     _build.launch(
         "dense_conv_launch", _CONV_KEYS[mode], x.get_device(), _MODE_ID[mode],
         a[0].data_ptr(), a[-1].data_ptr(), *dims, b_planes[0].data_ptr(),

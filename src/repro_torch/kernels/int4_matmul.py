@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._matmul_common import on_cuda
+from repro_torch.kernels._matmul_common import runs_kernel
 from repro_torch.kernels.int8_matmul import affine_gemm_call, exact_int_matmul
 
 __all__ = ["pack_nibbles_rows", "pack_nibbles_cols", "int4_matmul_cuda",
@@ -65,6 +65,6 @@ def int4_matmul_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor,
                      tile: Optional[int] = None) -> torch.Tensor:
     """Raw accumulator, int32 (m, n): the kernel on CUDA operands (in CTA
     tile ``tile``), the plain version on CPU operands."""
-    if not on_cuda(a_packed, b_packed):
+    if not runs_kernel(a_packed, b_packed):
         return int4_matmul_torch(a_packed, b_packed)
     return affine_gemm_call(True, a_packed, b_packed, 2 * a_packed.shape[1], tile)

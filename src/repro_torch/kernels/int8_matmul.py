@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._matmul_common import AFFINE_TILES, cta_tile, on_cuda
+from repro_torch.kernels._matmul_common import AFFINE_TILES, cta_tile, runs_kernel
 
 __all__ = ["int8_matmul_cuda", "int8_matmul_torch", "exact_int_matmul",
            "affine_gemm_call"]
@@ -60,7 +60,7 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
             raise TypeError(f"{name}: expected a contiguous 2-D torch.uint8 "
                             f"tensor, got {t.dtype} {tuple(t.shape)}")
     device = a.get_device()
-    if device < 0 or b.get_device() != device:
+    if (device < 0 and not a.is_meta) or b.get_device() != device:
         raise ValueError(f"affine GeMM kernel needs CUDA operands on one "
                          f"device, got {a.device} and {b.device}")
     m, ka = a.shape
@@ -71,6 +71,9 @@ def affine_gemm_call(u4: bool, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
+    if out.is_meta:
+        _build.record(_KEYS[u4], m=m, n=n, k=k)
+        return out
     _build.launch("affine_gemm_launch", _KEYS[u4], device, int(u4),
                   a.data_ptr(), b.data_ptr(), m, n, k,
                   cta_tile(tile, m, n, device, AFFINE_TILES), out.data_ptr())
@@ -81,6 +84,6 @@ def int8_matmul_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor,
                      tile: Optional[int] = None) -> torch.Tensor:
     """Raw accumulator, int32 (m, n): the kernel on CUDA operands (in CTA
     tile ``tile``), the plain version on CPU operands."""
-    if not on_cuda(a_u8, b_u8):
+    if not runs_kernel(a_u8, b_u8):
         return int8_matmul_torch(a_u8, b_u8)
     return affine_gemm_call(False, a_u8, b_u8, a_u8.shape[1], tile)

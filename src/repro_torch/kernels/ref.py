@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels._matmul_common import popcount_i32
 
 __all__ = [
+    "matmul_f32_ref",
     "bnn_matmul_ref",
     "tnn_matmul_ref",
     "tbn_matmul_ref",
@@ -32,6 +33,12 @@ __all__ = [
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m, k) x (k, n) as a broadcast sum, exact for integer dtypes."""
     return (a[:, :, None] * b[None, :, :]).sum(dim=1)
+
+
+def matmul_f32_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Float32 ``a @ b``, summed in float64 so that TF32 on the card does
+    not round the operands (no process-wide flag is set)."""
+    return torch.matmul(a.to(torch.float32).double(), b.to(torch.float32).double()).float()
 
 
 # ---------------------------------------------------------------------------

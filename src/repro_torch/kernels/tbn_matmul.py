@@ -30,7 +30,7 @@ from repro_torch.kernels._matmul_common import (
     PRODUCT_FNS,
     chunked_bitwise_matmul,
     lowbit_matmul_call,
-    on_cuda,
+    runs_kernel,
     scale_epilogue,
 )
 from repro_torch.kernels.modes import QuantMode
@@ -71,7 +71,7 @@ def tbn_matmul_cuda(a_plus: torch.Tensor, a_minus: torch.Tensor,
                     k_valid: int = 0, tile: Optional[int] = None) -> torch.Tensor:
     """int32 core (m, n): the kernel on CUDA planes, the plain version on
     CPU planes.  ``tile``: the CTA tile (``_matmul_common.cta_tile``)."""
-    if not on_cuda(a_plus, a_minus, b_bits_t):
+    if not runs_kernel(a_plus, a_minus, b_bits_t):
         return tbn_matmul_torch(a_plus, a_minus, b_bits_t, k_valid)
     return lowbit_matmul_call(_MODE, (a_plus, a_minus), (b_bits_t,), k_valid, tile=tile)
 
@@ -85,8 +85,8 @@ def tbn_matmul_fused_cuda(a_plus: torch.Tensor, a_minus: torch.Tensor,
     """Fused form, float32 (m, n): the kernel on CUDA operands, the plain
     version on CPU operands.  ``tile``: the CTA tile
     (``_matmul_common.cta_tile``)."""
-    if not on_cuda(a_plus, a_minus, b_bits_t, row_scale, col_scale,
-                   bias):
+    if not runs_kernel(a_plus, a_minus, b_bits_t, row_scale, col_scale,
+                       bias):
         return tbn_matmul_fused_torch(a_plus, a_minus, b_bits_t, k_valid,
                                       row_scale, col_scale, bias)
     return lowbit_matmul_call(

@@ -35,6 +35,15 @@ on a card the mesh stages each collective's operand through host memory
 transport goes through the host.  The choice is printed once by
 :func:`init_rank`; nothing falls back from one backend to the other.
 
+:class:`PlaceholderMesh` is one rank's view of a mesh without a world
+(the dry-run's counterpart of the reference's 512 forced host devices,
+``launch/dryrun.py``): the axis names, shape and one rank's coordinates,
+no process group; its collectives move nothing and return ``meta``
+tensors of the right shape, counted as a real mesh counts them, and it
+keeps the ordered schedule of every transport call (:func:`schedule`).
+``make_production_mesh(placeholder=True)`` builds the (16, 16) pod and
+the (2, 16, 16) multi-pod from it.
+
 Rank plumbing (tests, ``chip_smoke.py``, ``launch/serve.py``):
 :func:`run_ranks` starts ``world_size`` processes of one command with
 ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and a fresh file-store
@@ -62,7 +71,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "MeshDesyncError", "collectives", "reset_collectives", "POD_SHAPE", "make_mesh", "make_host_mesh",
+__all__ = ["Mesh", "PlaceholderMesh", "MeshDesyncError", "collectives", "reset_collectives",
+           "schedule", "reset_schedule", "POD_SHAPE", "make_mesh", "make_host_mesh",
            "make_serve_mesh", "make_production_mesh", "pick_backend", "init_rank",
            "shutdown", "run_ranks", "rank_logs", "STORE_ENV", "DEFAULT_TIMEOUT_S"]
 
@@ -91,6 +101,23 @@ def collectives() -> Dict[str, float]:
 
 def reset_collectives() -> None:
     _COLLECTIVES.clear()
+
+
+# A PlaceholderMesh's transport calls in order: (kind, axis or "all",
+# dtype, shape, bytes this rank sends).
+_SCHEDULE: List[tuple] = []
+
+
+def schedule() -> List[tuple]:
+    """Every collective a :class:`PlaceholderMesh` ran since
+    :func:`reset_schedule`, in order: ``(kind, axis, dtype, shape,
+    bytes)``, the bytes the operand this rank sends (its shard for a
+    gather)."""
+    return list(_SCHEDULE)
+
+
+def reset_schedule() -> None:
+    _SCHEDULE.clear()
 
 
 @contextlib.contextmanager
@@ -172,6 +199,17 @@ class Mesh:
     def _group(self, axis: Optional[str]):
         return self.group if axis is None else self.groups[axis]
 
+    # the transport: torch.distributed on a real mesh (PlaceholderMesh
+    # moves nothing)
+    def _all_reduce(self, buf: torch.Tensor, op, group) -> None:
+        dist.all_reduce(buf, op=op, group=group)
+
+    def _all_gather(self, parts: List[torch.Tensor], src: torch.Tensor, group) -> None:
+        dist.all_gather(parts, src, group=group)
+
+    def _reduce_scatter(self, out: torch.Tensor, src: torch.Tensor, group) -> None:
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+
     def all_reduce_sum_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum ``t`` over the line along ``axis``; the result lands in a
         tensor on ``t``'s device (``t`` itself when no staging is
@@ -179,7 +217,7 @@ class Mesh:
         if self.axis_size(axis) == 1:
             return t
         buf = t.to(self.comm_device)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self._group(axis))
+        self._all_reduce(buf, dist.ReduceOp.SUM, self._group(axis))
         return buf.to(t.device)
 
     def all_gather_cat(self, t: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
@@ -190,7 +228,7 @@ class Mesh:
             return t
         src = t.contiguous().to(self.comm_device)
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self._group(axis))
+        self._all_gather(parts, src, self._group(axis))
         return torch.cat(parts, dim=dim).to(t.device)
 
     def all_gather_axes(self, t: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
@@ -218,8 +256,7 @@ class Mesh:
                 src = t.movedim(dim, 0).contiguous().to(self.comm_device)
                 out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                                   dtype=src.dtype, device=src.device)
-                dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
-                                           group=self._group(ax))
+                self._reduce_scatter(out, src, self._group(ax))
                 t = out.movedim(0, dim).to(t.device)
         return t
 
@@ -235,7 +272,7 @@ class Mesh:
         buf = t.to(self.comm_device)
         for ax in axes:
             with _counted("all_reduce", t):
-                dist.all_reduce(buf, op=red, group=self._group(ax))
+                self._all_reduce(buf, red, self._group(ax))
         return buf.to(t.device)
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -245,7 +282,7 @@ class Mesh:
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         with _counted("all_reduce", t):
             buf = t.to(self.comm_device)
-            dist.all_reduce(buf, op=red, group=self.group)
+            self._all_reduce(buf, red, self.group)
         return buf.to(t.device)
 
     def barrier(self) -> None:
@@ -285,6 +322,70 @@ class Mesh:
         t = torch.tensor([value], dtype=torch.float64, device=self.comm_device)
         dist.broadcast(t, src=int(self.devices.reshape(-1)[0]), group=self.group)
         return float(t.item())
+
+
+class PlaceholderMesh(Mesh):
+    """One rank's view of a ``shape`` mesh of ``axis_names`` with no world
+    behind it (module docstring): rank 0 of the grid, computing on
+    ``meta``.  Collectives run the real mesh's code, counted
+    by :func:`collectives` (and ``qmm_mesh.collectives``) as there; the
+    transport moves nothing (every operand is a ``meta`` tensor, whose
+    result shape the real mesh's code already gives) and appends each
+    call to :func:`schedule`.  Agreement and clock reads return this
+    rank's own values.  ``sharding.use_mesh``, ``qmm_sharded`` and the
+    train step take it as a real mesh."""
+
+    def __init__(self, shape, axis_names):
+        n = int(np.prod(shape))
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.devices = np.arange(n, dtype=np.int64).reshape(self.shape)
+        self.device = torch.device("meta")
+        self.backend = "placeholder"
+        self.rank = 0
+        self.member = True
+        self.coords = {ax: 0 for ax in self.axis_names}
+        # a group per axis line this rank is on, named by its axis
+        self.groups = {ax: ax for ax in self.axis_names}
+        self.group = "all"
+
+    @property
+    def comm_device(self) -> torch.device:
+        return self.device
+
+    def _all_reduce(self, buf, op, group) -> None:
+        _SCHEDULE.append(("all_reduce", group, _dtype(buf), tuple(buf.shape), _bytes(buf)))
+
+    def _all_gather(self, parts, src, group) -> None:
+        _SCHEDULE.append(("all_gather", group, _dtype(src), tuple(src.shape), _bytes(src)))
+
+    def _reduce_scatter(self, out, src, group) -> None:
+        _SCHEDULE.append(("reduce_scatter", group, _dtype(src), tuple(src.shape),
+                          _bytes(src)))
+
+    def barrier(self) -> None:
+        return None
+
+    def gather_values(self, value: float) -> List[float]:
+        return [float(value)] * self.size
+
+    def agree(self, values: Sequence[int], what: str) -> None:
+        return None
+
+    def from_first(self, value: float) -> float:
+        return value
+
+    def __repr__(self) -> str:
+        return (f"PlaceholderMesh({dict(zip(self.axis_names, self.shape))}, "
+                "rank=0, device=meta)")
+
+
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _default_device() -> torch.device:
@@ -348,9 +449,16 @@ def make_mesh(shape, axes, ranks: Optional[Sequence[int]] = None,
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: Optional[torch.device] = None) -> Mesh:
+                         device: Optional[torch.device] = None,
+                         placeholder: bool = False) -> Mesh:
+    """The (16, 16) ("data", "model") pod, or with ``multi_pod`` the (2,
+    16, 16) ("pod", "data", "model") multi-pod: over the world's ranks,
+    or with ``placeholder`` as rank 0's :class:`PlaceholderMesh` (no
+    world; the dry-run)."""
     shape = (2,) + POD_SHAPE if multi_pod else POD_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if placeholder:
+        return PlaceholderMesh(shape, axes)
     return make_mesh(shape, axes, device=device)
 
 

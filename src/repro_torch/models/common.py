@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -169,6 +169,42 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # Parameter counting (for the roofline's 6ND accounting) -----------
+
+    def param_counts(self) -> Dict[str, int]:
+        """{"total": N, "active": N_active}, the embedding included (the
+        reference's formula: MoE routers count whole, the active experts
+        are ``num_experts_per_tok``)."""
+        d, dh = self.d_model, self.head_dim_
+        h, kv = self.num_heads, self.num_kv_heads
+        attn = d * (h * dh) + 2 * d * (kv * dh) + (h * dh) * d
+        dense_ffn = 3 * d * self.d_ff                    # gate, up, down
+        expert_ffn = 3 * d * self.d_ff                   # per expert
+        shared_ffn = 3 * d * self.shared_expert_d_ff
+        din, nstate, ng = self.ssm_d_inner, self.ssm_state, self.ssm_ngroups
+        nh = self.ssm_nheads
+        ssm = (d * (2 * din + 2 * ng * nstate + nh)      # in_proj (z, x, B, C, dt)
+               + din * self.ssm_conv + nh                # conv + A_log
+               + nh + din * d)                           # D + out_proj
+        total = active = 0
+        for mixer, ffn in self.layer_pattern:
+            if mixer in ("A", "AL"):
+                total += attn
+                active += attn
+            elif mixer == "M":
+                total += ssm
+                active += ssm
+            if ffn == "D":
+                total += dense_ffn
+                active += dense_ffn
+            elif ffn == "E":
+                total += self.num_experts * expert_ffn + d * self.num_experts + shared_ffn
+                active += (self.num_experts_per_tok * expert_ffn + d * self.num_experts
+                           + shared_ffn)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return {"total": total * self.num_periods + emb,
+                "active": active * self.num_periods + emb}
 
 
 # ---------------------------------------------------------------------------

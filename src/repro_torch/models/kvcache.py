@@ -28,9 +28,10 @@ from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import head_layout
 from repro_torch.models.common import ModelConfig, ShardLayout, kv_cache_format
-from repro_torch.models.paged_kvcache import INVALID_POS, init_paged_caches
+from repro_torch.models.paged_kvcache import (INVALID_POS, init_paged_caches,
+                                              paged_logical_axes)
 
-__all__ = ["init_caches", "INVALID_POS"]
+__all__ = ["init_caches", "cache_logical_axes", "INVALID_POS"]
 
 
 def init_caches(cfg: ModelConfig, layout: ShardLayout, batch: int, max_len: int,
@@ -69,3 +70,24 @@ def init_caches(cfg: ModelConfig, layout: ShardLayout, batch: int, max_len: int,
         else:
             raise ValueError(mixer)
     return caches
+
+
+def cache_logical_axes(cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """Logical axes per cache leaf, the leading period dim replicated (the
+    reference's); a paged format hands over to ``paged_logical_axes``."""
+    if kv_cache_format(cfg.kv_cache_dtype).paged:
+        return paged_logical_axes(cfg)
+    out = []
+    for mixer, _ in cfg.layer_pattern:
+        if mixer in ("A", "AL"):
+            out.append({
+                "k": (None, "batch", None, "kv_heads", None),
+                "v": (None, "batch", None, "kv_heads", None),
+                "pos": (None, "batch", None),
+            })
+        else:
+            out.append({
+                "conv": (None, "batch", None, "conv_dim"),
+                "h": (None, "batch", None, "ssm_heads", None, None),
+            })
+    return out

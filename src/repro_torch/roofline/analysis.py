@@ -1,0 +1,327 @@
+"""Roofline terms of the port on an NVIDIA H100 SXM, and the work each
+kernel of ``csrc/`` does on a problem.
+
+Counterpart of ``repro/roofline/analysis.py``, over the port's dry-run
+records (``launch/dryrun.py``) in place of compiled XLA artifacts:
+
+    compute    = sum over classes of work (ops of the class / its peak)
+    memory     = bytes accessed / HBM rate
+    collective = sum over mesh axes of (collective bytes / the axis' link rate)
+
+and the step time is the largest of the three (overlapped execution), as
+in the reference.  Unlike the reference's one bf16 peak, each class of
+work runs at its own rate and the class times add: float32 products
+outside the tensor cores, bf16 (and fp16) on the tensor cores, int8
+tensor-core operations (the dense and u8/u4 kernels: 2 m n k) and
+popcounts (the popcount kernels: ``NPOPC`` per output per 32-bit word).
+
+:class:`HW` holds the H100 SXM data sheet's rates in place of the TPU v5e
+constants of the reference; the popcount rate is the CUDA programming
+guide's 16 per clock per SM (compute capability 9.0) on 132 SMs at the SM
+clock.  A card run reads its maximum SM clock from ``nvidia-smi`` and
+passes it as ``HW(sm_clock_hz=...)``.
+
+The work functions (:func:`gemm_work`, :func:`dense_gemm_work`,
+:func:`affine_gemm_work`, :func:`conv_pack_work`, :func:`conv_work`,
+:func:`conv_fused_work`, and :func:`kernel_work` over a
+``_build.record`` entry) take a kernel's problem dims and return its
+:class:`Work`: operations by class and the bytes the kernel must move
+(each input read once, each output written once).  ``chip_smoke.py``'s
+bound columns and the dry-run's kernel terms both come from them; so do
+:func:`lm_bounds` (an LM run's decode and prefill bounds) and
+:func:`train_step_flops` (the float products of one QAT step).
+
+The module imports nothing at load time, so a script can load it from
+its file to bound another checkout's kernels with this checkout's
+formulas.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+__all__ = ["HW", "Work", "RooflineTerms", "model_flops", "roofline_from_artifact",
+           "NPOPC", "gemm_work", "dense_gemm_work", "affine_gemm_work", "conv_pack_work",
+           "conv_work", "conv_fused_work", "kernel_work", "proj_shapes",
+           "kv_bytes_per_token", "lm_bounds", "train_step_flops", "DTYPE_CLASS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class HW:
+    """One H100 SXM's peak rates (data sheet; dense, no sparsity)."""
+    fp32_flops: float = 67e12        # float32 outside the tensor cores
+    bf16_flops: float = 989e12       # bf16 / fp16 tensor cores
+    int8_ops: float = 1.979e15       # int8 tensor cores
+    sms: int = 132
+    popc_per_clk_per_sm: int = 16    # CUDA programming guide, compute capability 9.0
+    sm_clock_hz: float = 1.98e9      # the card's maximum SM clock
+    hbm_bw: float = 3.35e12          # bytes/s
+    nvlink_bw: float = 450e9         # NVLink 4, bytes/s per direction per GPU
+    ib_bw: float = 50e9              # InfiniBand NDR (400 Gb/s) per GPU: the "pod" axis
+
+    @property
+    def popc_per_s(self) -> float:
+        return self.sms * self.popc_per_clk_per_sm * self.sm_clock_hz
+
+    def peak(self, cls: str) -> float:
+        """Operations per second of one class of work."""
+        return {"f32": self.fp32_flops, "bf16": self.bf16_flops,
+                "int8": self.int8_ops, "popc": self.popc_per_s}[cls]
+
+    def link_bw(self, axis: str) -> float:
+        """Bytes/s per GPU of a collective over mesh ``axis``."""
+        return self.ib_bw if axis == "pod" else self.nvlink_bw
+
+
+# torch dtype name -> the class of work its products run in (any other
+# dtype counts as float32)
+DTYPE_CLASS = {"float32": "f32", "bfloat16": "bf16", "float16": "bf16", "int8": "int8",
+               "uint8": "int8"}
+
+
+@dataclasses.dataclass
+class Work:
+    """Operations by class (``HW.peak``'s keys) and bytes moved."""
+    ops: Dict[str, float] = dataclasses.field(default_factory=dict)
+    bytes: float = 0.0
+
+    def __add__(self, other: "Work") -> "Work":
+        ops = dict(self.ops)
+        for k, v in other.ops.items():
+            ops[k] = ops.get(k, 0.0) + v
+        return Work(ops, self.bytes + other.bytes)
+
+    def compute_s(self, hw: Optional[HW] = None) -> float:
+        hw = hw or HW()
+        return sum(v / hw.peak(k) for k, v in self.ops.items())
+
+    def memory_s(self, hw: Optional[HW] = None) -> float:
+        return self.bytes / (hw or HW()).hbm_bw
+
+    def bound(self, hw: Optional[HW] = None) -> Tuple[float, str]:
+        """(ms, "operations" | "bytes"): the least time for this work, and
+        which term sets it."""
+        t_ops, t_bytes = self.compute_s(hw), self.memory_s(hw)
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+# ---------------------------------------------------------------------------
+# Per-kernel work
+# ---------------------------------------------------------------------------
+
+NPOPC = {"tnn": 2, "tbn": 2, "bnn": 1}       # POPC per output per word
+_PLANES = {"tnn": (2, 2), "tbn": (2, 1), "bnn": (1, 1)}   # (A planes, B planes)
+
+
+def _gemm_bytes(mode: str, m: int, n: int, kw: int, fused: bool) -> float:
+    na, nb = _PLANES[mode]
+    return 4 * kw * (m * na + n * nb) + 4 * m * n + (4 * (m + n) if fused else 0)
+
+
+def gemm_work(mode: str, m: int, n: int, kw: int, k: int = 0, fused: bool = True) -> Work:
+    """The popcount GeMM (``lowbit_gemm_<mode>_{fused,i32}``): A (m, kw) and
+    B^T (n, kw) planes in, (m, n) out (float32 fused, with a row and a
+    column scale; int32 core)."""
+    return Work({"popc": float(m * n * kw * NPOPC[mode])}, _gemm_bytes(mode, m, n, kw, fused))
+
+
+def dense_gemm_work(mode: str, m: int, n: int, kw: int, k: int) -> Work:
+    """The tensor-core GeMM (``dense_gemm_<mode>``): 2 m n k int8
+    operations on the same operands as the fused popcount GeMM."""
+    return Work({"int8": 2.0 * m * n * k}, _gemm_bytes(mode, m, n, kw, True))
+
+
+def affine_gemm_work(m: int, n: int, k: int, u4: bool = False) -> Work:
+    """The u8 / u4 GeMM (``affine_gemm_{u8,u4}``): (m, k) and (k, n) bytes
+    (nibble-packed along k for u4) in, int32 (m, n) out."""
+    kb = -(-k // 2) if u4 else k
+    return Work({"int8": 2.0 * m * n * k}, float(m * kb + kb * n + 4 * m * n))
+
+
+def conv_pack_work(mode: str, b: int, h: int, w: int, c: int, hp: int, wp: int) -> Work:
+    """The conv packing pass (``conv_pack_<mode>``): float32 (b, h, w, c)
+    in, one (BNN) or two (b, hp, wp, ceil(c / 32)) word planes out."""
+    return Work({}, float(b * h * w * c * 4 + 4 * _PLANES[mode][0] * b * hp * wp * -(-c // 32)))
+
+
+def conv_work(mode: str, b: int, hp: int, wp: int, cin: int, kh: int, kw: int,
+              stride: int, oh: int, ow: int, cout: int, words: int,
+              dense: bool = False) -> Work:
+    """The conv kernel alone (``lowbit_conv_<mode>``, ``dense_conv_<mode>``)
+    on the packing pass' planes: packed input, weight planes and the
+    column scale in, float32 (b * oh * ow, cout) out."""
+    m = b * oh * ow
+    na, nb = _PLANES[mode]
+    nbytes = 4 * na * b * hp * wp * -(-cin // 32) + 4 * cout * words * nb + 4 * m * cout \
+        + 4 * cout
+    ops = {"int8": 2.0 * m * cout * kh * kw * cin} if dense else \
+        {"popc": float(m * cout * words * NPOPC[mode])}
+    return Work(ops, float(nbytes))
+
+
+def conv_fused_work(mode: str, b: int, h: int, w: int, cin: int, kh: int, kw: int,
+                    oh: int, ow: int, cout: int, words: int, dense: bool = False) -> Work:
+    """A conv wrapper's call as one pass (pack + conv, the bound of
+    ``chip_smoke.py``'s conv rows): float32 input, weight planes (and,
+    dense, the column scale) in, float32 (b * oh * ow, cout) out."""
+    m = b * oh * ow
+    nbytes = b * h * w * cin * 4 + 4 * cout * words * _PLANES[mode][1] + 4 * m * cout
+    if dense:
+        return Work({"int8": 2.0 * m * cout * kh * kw * cin}, float(nbytes + 4 * cout))
+    return Work({"popc": float(m * cout * words * NPOPC[mode])}, float(nbytes))
+
+
+def kernel_work(key: str, problem: Dict[str, int]) -> Work:
+    """The :class:`Work` of one kernel recorded on ``meta``
+    (``kernels._build.record``: its launch key and problem)."""
+    p = problem
+    if key.startswith("lowbit_gemm_"):
+        mode, variant = key[len("lowbit_gemm_"):].split("_")
+        return gemm_work(mode, p["m"], p["n"], p["kw"], p["k"], variant == "fused")
+    if key.startswith("dense_gemm_"):
+        return dense_gemm_work(key[len("dense_gemm_"):], p["m"], p["n"], p["kw"], p["k"])
+    if key.startswith("affine_gemm_"):
+        return affine_gemm_work(p["m"], p["n"], p["k"], key.endswith("u4"))
+    if key.startswith("conv_pack_"):
+        return conv_pack_work(key[len("conv_pack_"):], p["b"], p["h"], p["w"], p["c"],
+                              p["hp"], p["wp"])
+    for prefix, dense in (("lowbit_conv_", False), ("dense_conv_", True)):
+        if key.startswith(prefix):
+            return conv_work(key[len(prefix):], p["b"], p["hp"], p["wp"], p["cin"], p["kh"],
+                             p["kw"], p["stride"], p["oh"], p["ow"], p["cout"], p["words"],
+                             dense)
+    raise KeyError(f"no work function for kernel {key!r}")
+
+
+# ---------------------------------------------------------------------------
+# LM runs from shapes
+# ---------------------------------------------------------------------------
+
+def proj_shapes(cfg, m: int, m_expert: int):
+    """(m, n, k) of every projection of one forward of ``cfg`` at ``m``
+    token rows (``m_expert`` rows per MoE expert)."""
+    d, dh = cfg.d_model, cfg.head_dim_
+    hd, kvd = cfg.num_heads * dh, cfg.num_kv_heads * dh
+
+    def ffn(rows, f):
+        return [(rows, f, d), (rows, f, d), (rows, d, f)]
+
+    out = []
+    for mixer, ffn_kind in cfg.layer_pattern:
+        if mixer in ("A", "AL"):
+            out += [(m, hd, d), (m, kvd, d), (m, kvd, d), (m, d, hd)]
+        elif mixer == "M":
+            din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
+            out += [(m, 2 * din + 2 * g * n + cfg.ssm_nheads, d), (m, d, din)]
+        if ffn_kind == "D":
+            out += ffn(m, cfg.d_ff)
+        elif ffn_kind == "E":
+            out += cfg.num_experts * ffn(m_expert, cfg.d_ff)
+            if cfg.shared_expert_d_ff:
+                out += ffn(m, cfg.shared_expert_d_ff)
+    return out * cfg.num_periods
+
+
+def kv_bytes_per_token(cfg, kv: str) -> int:
+    """Cache bytes one token occupies in one attention layer: K and V and
+    its position (bf16 slab: 2 bytes a value; tnn2: two bit planes of
+    ceil(dh / 32) words a head and a float32 scale, for K and for V)."""
+    dh, kvh = cfg.head_dim_, cfg.num_kv_heads
+    if kv == "tnn2":
+        return 2 * (kvh * 2 * -(-dh // 32) * 4 + 4) + 4
+    return 2 * kvh * dh * 2 + 4
+
+
+def lm_bounds(cfg, batch: int, prompt: int, steps: int, packed_bytes: int,
+              kv: str = "bf16", hw: Optional[HW] = None) -> Tuple[float, float]:
+    """Least times of an LM run, from shapes: a decode step moves at least
+    the packed projections, the bf16 LM head and its cache (the KV cache
+    at its longest, or the SSM states read and written); the prefill's
+    popcount GeMMs do at least :func:`gemm_work`'s popcounts (``tnn``)
+    over every projection.  Returns (decode ms, prefill GeMM ms)."""
+    from repro_torch.models.moe import moe_capacity
+
+    hw = hw or HW()
+    attn = sum(m in ("A", "AL") for m, _ in cfg.layer_pattern) * cfg.num_periods
+    ssm = sum(m == "M" for m, _ in cfg.layer_pattern) * cfg.num_periods
+    cache = attn * batch * (prompt + steps) * kv_bytes_per_token(cfg, kv)
+    if ssm:
+        din, g, n = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
+        state = cfg.ssm_nheads * n * cfg.ssm_headdim + (cfg.ssm_conv - 1) * (din + 2 * g * n)
+        cache += 2 * ssm * batch * state * 4
+    decode = Work({}, float(packed_bytes + cfg.d_model * cfg.vocab_size * 2 + cache))
+    m_exp = batch * moe_capacity(cfg, prompt) if cfg.num_experts else 0
+    popc = sum(m * n * -(-k // 32) * NPOPC["tnn"]
+               for m, n, k in proj_shapes(cfg, batch * prompt, m_exp))
+    return decode.memory_s(hw) * 1e3, Work({"popc": float(popc)}).compute_s(hw) * 1e3
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Float operations of one QAT step of ``cfg`` at (batch, seq), from
+    shapes: per projection the STE backward's two products (gx, gw: 4 m n
+    k; the forward is the popcount GeMM), the head forward and backward
+    (6 m d V), and per attention layer and sequence QK^T and PV (4 S^2 d)
+    in the forward, the remat recompute and twice in the backward
+    (16 S^2 d)."""
+    m = batch * seq
+    proj = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, 0))
+    head = 6 * m * cfg.d_model * cfg.vocab_size
+    attn = sum(m_ in ("A", "AL") for m_, _ in cfg.layer_pattern) * cfg.num_periods
+    hd = cfg.num_heads * cfg.head_dim_
+    return proj + head + attn * batch * 16 * seq * seq * hd
+
+
+# ---------------------------------------------------------------------------
+# Roofline over dry-run records
+# ---------------------------------------------------------------------------
+
+def model_flops(total_params: int, active_params: int, tokens: int, kind: str) -> float:
+    """6*N*D for train (fwd+bwd), 2*N*D for inference, N = active."""
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * active_params * tokens
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    bytes_accessed: float
+    coll_bytes: float
+    chips: int
+    compute_s_by_class: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline step-time model: overlapped execution -> max of terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def roofline_from_artifact(art: Dict, hw: Optional[HW] = None) -> RooflineTerms:
+    """art: one dry-run record (``launch/dryrun.py``); every count in it is
+    one rank's.  Compute: ``static["ops_by_class"]`` (the float products
+    by dtype and the kernels' operations) at each class' peak; memory:
+    ``cost["bytes accessed"]``; collectives: ``static
+    ["collective_bytes_by_axis"]`` at each axis' link rate."""
+    hw = hw or HW()
+    static = art.get("static") or {}
+    by_class = {k: v / hw.peak(k) for k, v in static.get("ops_by_class", {}).items()}
+    by_axis = static.get("collective_bytes_by_axis", {})
+    return RooflineTerms(
+        compute_s=sum(by_class.values()),
+        memory_s=float(art["cost"].get("bytes accessed", 0.0)) / hw.hbm_bw,
+        collective_s=sum(b / hw.link_bw(ax) for ax, b in by_axis.items()),
+        flops=float(art["cost"].get("flops", 0.0)),
+        bytes_accessed=float(art["cost"].get("bytes accessed", 0.0)),
+        coll_bytes=float((art.get("collectives") or {}).get("total", 0.0)),
+        chips=int(art.get("num_devices", 1)),
+        compute_s_by_class=by_class,
+    )
