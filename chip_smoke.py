@@ -6,14 +6,17 @@ against its plain PyTorch version, drives the main path, times it.
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times [--src DIR]
     python3 chip_smoke.py --mesh
-    python3 chip_smoke.py --train-mesh
+    python3 chip_smoke.py --train-mesh [--train-mesh-fault]
     python3 chip_smoke.py --dryrun
 
 The second form runs phases 1, 2 and the GeMM rows of phase 6 only
 (popcount, dense, u8 and u4), for the ``repro_torch`` package under
 ``DIR`` (default this checkout's ``src``): the way to time another
 checkout's GeMM kernels, e.g. the parent commit's, on the same card.
-The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12,
+The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12
+(with ``--train-mesh-fault`` its ranks run the faulty step the bounds of
+``TRAIN_MESH_BOUNDS`` must reject: norm scales that sum their gradients
+over the batch axes only; the phase prints the readings and fails),
 the fifth phases 1, 2, 7a, 10a and 13 (13b and 13c then hold the
 placeholder meshes to the formulas, not to 11c and 12a).
 Phases 11 and 12 start this script again as each of their ranks
@@ -250,31 +253,42 @@ without printing a result:
         (ranks 2 and 3 leave), the migrated requests finish there with
         the single-device tokens;
 12. the training mesh (after 11, before any profiler session): first
-    12a's configuration on one device (the reference), then
+    12a's configurations on one device (the references), then
     ``TRAIN_MESH_WORLD`` ranks of this script (``--train-mesh-rank``) on a
-    ``TRAIN_MESH_SHAPE`` ("data", "model") mesh under ``TRAIN_RULES``,
-    sharing the card over gloo (one card each over NCCL where the machine
-    has them); every rank must exit 0:
+    ``TRAIN_MESH_SHAPE`` ("data", "model") mesh, sharing the card over
+    gloo (one card each over NCCL where the machine has them); every rank
+    must exit 0:
     12a. a ``Trainer`` of QAT under ``tnn`` on TinyLlama-1.1B at its
         published width and depth (remat, AdamW with int8 moments at lr
         ``TRAIN_MESH_LR``, EF compression, bf16 compute copies gathered
-        over the mesh and bf16 cotangents reduce-scattered),
-        ``ShardLayout(tp=2)``, ``TRAIN_MESH_STEPS`` steps of
+        over "data" and bf16 cotangents reduce-scattered) under
+        ``TRAIN_RULES``: heads, FFN, vocab and the sequence split over
+        "model" (``train_layout()``, tp 2), ``TRAIN_MESH_STEPS`` steps of
         ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, each rank the rows of its
-        "data" coordinate and the shards of every leaf by ``param_spec``;
-        launch and collective counters zeroed just before each step and
-        read just after: exactly 2 x 7 x 22 fused TNN GeMM launches per
-        rank per step (the remat recompute doubles the forward's) and
-        nothing else; the first forward's planes equal to one device's (a
-        checksum of every projection's, ``torch.equal`` for the first
-        layer's seven); the loss, ``grad_norm`` and each parameter leaf's
-        sum of squares after each step within ``TRAIN_MESH_BOUNDS`` of one
-        device's; ms per step and tokens/s of the ranks time-sharing the
-        card (not a scaling figure) beside one device's, peak memory per
-        rank, master / moment / EF bytes per rank against one device's,
-        collectives per step with their bytes and host seconds; then the
-        same at ``LM_CUT_LAYERS`` layers, every master elementwise against
-        one device's;
+        "data" coordinate; launch and collective counters zeroed just
+        before each step and read just after: exactly 2 x 5 x 22 fused and
+        2 x 2 x 22 int32 TNN GeMM launches per rank per step (the
+        column-parallel wq/wk/wv/gate/up and the row-parallel wo/down, the
+        remat recompute doubling the forward's) and nothing else; the
+        collectives ``train_mesh_collectives`` predicts, exactly; the first
+        forward's column-parallel planes equal to one device's n chunk at
+        the rank's "model" coordinate (a checksum of every projection's,
+        ``torch.equal`` for the first layer's five); row 1 and row 4a
+        ``torch.equal`` to their plain versions at the rank's own
+        operands; the first layer's row-parallel int32 counts, reduced over
+        "model", equal to one device's core on the whole matrices packed
+        with the rank's statistics; the loss, ``grad_norm``, each
+        parameter leaf's sum of squares and each gradient's after each
+        step within ``TRAIN_MESH_BOUNDS`` of one device's; ms per step and
+        tokens/s of the ranks time-sharing the card (not a scaling figure)
+        beside one device's, peak memory per rank, master / moment / EF
+        bytes per rank against one device's, collectives per step with
+        their bytes and host seconds; then the same at ``LM_CUT_LAYERS``
+        layers under ``tnn`` ("12a_cut", every master elementwise against
+        one device's) and under ``f32`` ("12a_f32"), and "12d": the
+        ``LM_CUT_LAYERS``-layer ``tnn`` run under ``TRAIN_RULES_FSDP``
+        (every leaf gathered whole, 2 x 7 x 2 fused launches, planes equal
+        to one device's whole);
     12b. at ``LM_CUT_LAYERS`` layers: 12a's state saved on the mesh (whole
         leaves, the reference's format), restored onto (4, 1) equal to the
         saved state re-sharded in memory, and one more step from each
@@ -291,9 +305,11 @@ without printing a result:
         launches 7a and 10a counted on the card (154 per forward, 308 per
         step), the step's float operations equal to ``train_flops``;
     13b. 12a's configuration on a ``PlaceholderMesh`` (2, 2) under
-        ``TRAIN_RULES``: the collectives per rank per step equal to
-        ``train_mesh_collectives`` and to 12a's rank 0, key by key (count
-        and bytes per kind and dtype); 11c's serving forward on a
+        ``TRAIN_RULES``: 220 fused and 88 int32 records, the collectives
+        per rank per step equal to ``train_mesh_collectives`` and to 12a's
+        rank 0, key by key (count and bytes per kind and dtype), the float
+        operations per rank equal to ``train_step_flops(cfg, 4, 512, tp=2)``
+        and a quarter of 13a's within 1%; 11c's serving forward on a
         placeholder (1, 4): 110 fused and 44 int32 records and 44
         all-reduces, equal to 11c's counts;
     13c. the train state's bytes per rank equal to 12a's rank 0; the peak of
@@ -415,41 +431,60 @@ MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 4, 128, 16
 MESH_CASES = {"n": ("model", None), "k": (None, "model"), "nk": ("model", "data")}
 # Phase 12, the training mesh: TRAIN_MESH_WORLD ranks share the card over
 # gloo (one card each over NCCL where the machine has them) as a
-# TRAIN_MESH_SHAPE ("data", "model") mesh under TRAIN_RULES; 12a trains
-# TRAIN_MESH_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens at lr
-# TRAIN_MESH_LR (warm-up 1) and is held to the same steps on one device:
-# TRAIN_MESH_BOUNDS[run][i] bounds the relative differences of step i's
-# loss and grad_norm and, after the first step, of each parameter leaf's
-# sum of squares.  The tnn runs' bounds are wide because the card's float
-# products round differently at the rank's row count than at the whole
-# batch's (cuBLAS picks its kernel by shape), and a ternary threshold turns
-# a last-bit difference of an activation into a different ternary value;
-# at 22 layers the differences compound (one device moves its own first
-# loss by ~9e-4 when only the order of its rows changes).  "12a_f32" runs
-# the same mesh at LM_CUT_LAYERS layers with float32 projections, no
-# threshold, and holds it tight: its remaining differences are the float
+# TRAIN_MESH_SHAPE ("data", "model") mesh; 12a trains TRAIN_MESH_STEPS
+# steps of TRAIN_BATCH x TRAIN_SEQ tokens at lr TRAIN_MESH_LR (warm-up 1)
+# under TRAIN_RULES, heads, FFN, vocab and the sequence split over "model"
+# (tensor and sequence parallelism), and is held to the same steps on one
+# device: TRAIN_MESH_BOUNDS[run][i] bounds the relative differences of
+# step i's loss and grad_norm and, after the first step, of each parameter
+# leaf's sum of squares and of the sum of squares of each leaf's gradient
+# (after EF, as AdamW takes it).  The tnn runs' bounds are wide because the
+# card's float products round differently at the rank's shapes than at one
+# device's (cuBLAS picks its kernel by shape), the ranks round a
+# column-parallel input's cotangent once after their float32 sum where one
+# device rounds each projection's and then their sum, and a ternary
+# threshold turns a last-bit difference of an activation into a different
+# ternary value; at 22 layers the differences compound.  Each one-device
+# reference runs a second time with the rows of its batches reversed, and
+# its differences from the first print beside the mesh's: the floor that
+# the device's own float sums set (PERF.md gives both).  "12a_f32" runs the
+# same mesh at LM_CUT_LAYERS layers with float32 projections, no
+# threshold, and holds it tighter: its remaining differences are the float
 # rounding and the bf16 wire.  At LM_CUT_LAYERS layers every tnn master
 # after the first step is within 2 lr of one device's (a flipped gradient
 # sign moves it by that much), and at most TRAIN_MESH_MOVED_MAX of them by
-# more than 1e-3 lr.  The first step's grad_norm bounds, 12a's second
-# step's and TRAIN_MESH_MOVED_MAX lie between the readings of a sound mesh
-# and of one whose remat recompute quantizes with each rank's own
-# statistics (PERF.md gives both for every bound).  The second update is not bounded
-# elementwise: with int8 moments and EF (the reference's arithmetic, which
-# the JAX package shows too) an element whose EF gradient rounds to 0 while
-# its int8 v rounded to 0 and its m did not takes a step of m / eps.
+# more than 1e-3 lr.  "12d" runs LM_CUT_LAYERS layers under
+# TRAIN_RULES_FSDP ("model" splits the batch; every leaf gathered whole).
+# Each gradients' sum-of-squares bound of a TRAIN_RULES run lies between
+# the readings of a sound step and of one whose norm scales sum their
+# gradients over the batch axes only (``--train-mesh-fault``); that fault
+# moves neither the loss nor grad_norm (Adam's first update is lr *
+# sign(g)), whose bounds sit at about twice a sound step's readings
+# (PERF.md gives both, and the one-device floor, for every bound).
+# The second update is not bounded elementwise: with int8 moments and EF
+# (the reference's arithmetic, which the JAX package shows too) an element
+# whose EF gradient rounds to 0 while its int8 v rounded to 0 and its m did
+# not takes a step of m / eps.
 TRAIN_MESH_WORLD, TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = 4, (2, 2), 2
 TRAIN_MESH_LR, TRAIN_MESH_TIMEOUT_S, TRAIN_MESH_MOVED_MAX = 3e-4, 900, 0.05
-TRAIN_MESH_RUNS = (("12a", None, "tnn"), ("12a_cut", LM_CUT_LAYERS, "tnn"),
-                   ("12a_f32", LM_CUT_LAYERS, "f32"))
+# (name, layers, policy, ruleset, the one-device run it is held to)
+TRAIN_MESH_RUNS = (("12a", None, "tnn", "train", "12a"),
+                   ("12a_cut", LM_CUT_LAYERS, "tnn", "train", "12a_cut"),
+                   ("12a_f32", LM_CUT_LAYERS, "f32", "train", "12a_f32"),
+                   ("12d", LM_CUT_LAYERS, "tnn", "train_fsdp", "12a_cut"))
 TRAIN_MESH_BOUNDS = {
-    "12a": ({"loss": 1e-2, "grad_norm": 7e-2, "sumsq": 1e-3},
-            {"loss": 2e-3, "grad_norm": 7.5e-2, "sumsq": None}),
-    "12a_cut": ({"loss": 1e-3, "grad_norm": 1e-3, "sumsq": 1e-3},
-                {"loss": 2e-2, "grad_norm": 1e-1, "sumsq": None}),
-    "12a_f32": ({"loss": 1e-5, "grad_norm": 1e-3, "sumsq": 1e-4},
-                {"loss": 1e-4, "grad_norm": 1e-2, "sumsq": None}),
+    "12a": ({"loss": 1e-2, "grad_norm": 7e-2, "sumsq": 1e-3, "grad_sumsq": 0.3},
+            {"loss": 5e-3, "grad_norm": 0.15, "sumsq": None, "grad_sumsq": 0.38}),
+    "12a_cut": ({"loss": 1e-3, "grad_norm": 1e-3, "sumsq": 1e-3, "grad_sumsq": 0.1},
+                {"loss": 2e-2, "grad_norm": 1e-1, "sumsq": None, "grad_sumsq": 0.3}),
+    "12a_f32": ({"loss": 1e-5, "grad_norm": 1e-3, "sumsq": 1e-4, "grad_sumsq": 1e-2},
+                {"loss": 1e-4, "grad_norm": 1e-2, "sumsq": None, "grad_sumsq": 5e-2}),
+    "12d": ({"loss": 1e-3, "grad_norm": 1e-3, "sumsq": 1e-3, "grad_sumsq": 0.1},
+            {"loss": 2e-2, "grad_norm": 1e-1, "sumsq": None, "grad_sumsq": 0.3}),
 }
+# the column- and row-parallel projections of an attention + dense FFN
+# layer (the order of a block's qmm requests: wq, wk, wv, wo, gate, up, down)
+TP_COL, TP_ROW = (0, 1, 2, 4, 5), (3, 6)
 # Phase 13, the dry-run against the card: TinyLlama-1.1B's production cells
 # DRYRUN_CELLS on the placeholder DRYRUN_MESHES (one subprocess each, at most
 # DRYRUN_CELL_TIMEOUT_S); a peak estimate within DRYRUN_PEAK_BAND of the
@@ -2495,24 +2530,31 @@ def plane_digest(torch, t) -> int:
 
 
 @contextlib.contextmanager
-def record_planes(torch, box, n_keep: int, n_forward: int):
+def record_planes(torch, box, n_keep: int, n_forward: int, slices: int = 1):
     """While active, the first ``n_forward`` low-bit ``qmm`` calls (the
-    first forward's projections): each call's planes' digests, and the
-    first ``n_keep`` calls' planes themselves (on the host) and operands
-    (``x``, the packed weight, the activation statistics the call was
-    given: a split batch's global ones on the mesh), for
+    first forward's projections that run ``qmm``: all seven a layer on one
+    device and under ``TRAIN_RULES_FSDP``, the five column-parallel ones
+    under tensor parallelism): each call's planes' digests (with
+    ``slices`` > 1 also the digests of each of its ``slices`` n chunks),
+    and the first ``n_keep`` calls' planes themselves (on the host) and
+    operands (``x``, the packed weight, the activation statistics the call
+    was given: a split batch's global ones on the mesh), for
     :func:`operands_vs_plain`."""
     from repro_torch.kernels import ops
 
     real = ops.qmm
-    box.setdefault("digests", [])
-    box.setdefault("planes", [])
-    box.setdefault("operands", [])
+    for key in ("digests", "slice_digests", "planes", "operands"):
+        box.setdefault(key, [])
 
     def qmm(x, qt, *, backend=None, act_stats=None):
         if qt.mode.is_lowbit and len(box["digests"]) < n_forward:
-            box["digests"].append([plane_digest(torch, qt.payload[k])
-                                   for k in sorted(qt.payload)])
+            keys = sorted(qt.payload)
+            box["digests"].append([plane_digest(torch, qt.payload[k]) for k in keys])
+            if slices > 1:
+                n = qt.payload[keys[0]].shape[-2] // slices
+                box["slice_digests"].append(
+                    [[plane_digest(torch, qt.payload[k].narrow(-2, j * n, n).contiguous())
+                      for k in keys] for j in range(slices)])
             if len(box["planes"]) < n_keep:
                 box["planes"].append({k: v.cpu() for k, v in qt.payload.items()})
                 box["operands"].append((x.detach().clone(), qt, act_stats))
@@ -2523,6 +2565,85 @@ def record_planes(torch, box, n_keep: int, n_forward: int):
         yield box
     finally:
         ops.qmm = real
+
+
+@contextlib.contextmanager
+def record_row_parallel(torch, box, n_keep: int):
+    """While active, the first ``n_keep`` row-parallel projections of the
+    tensor-parallel forward (``ops._qmm_row_parallel``): this rank's input
+    slice, its bf16 weight slice (as float32), the statistics it packed
+    with, and, from ``qmm_mesh.k_sharded_matmul``, its activation and
+    weight words, tiles and the int32 counts reduced over "model" (its
+    sequence shard): for :func:`row_parallel_checks`."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import qmm_mesh
+
+    real_row, real_k = ops._qmm_row_parallel, qmm_mesh.k_sharded_matmul
+    box.setdefault("row", [])
+
+    def row(x, w, mode, backend, lead, split, stats):
+        keep = len(box["row"]) < n_keep
+        if keep:
+            box["row"].append({"x": x.detach().clone(), "w": w.detach().clone(),
+                               "stats": stats, "lead": lead})
+        return real_row(x, w, mode, backend, lead, split, stats)
+
+    def k_sharded(a_loc, planes, **kw):
+        rec = box["row"][-1] if box["row"] and "acc" not in box["row"][-1] else None
+        if rec is None:
+            return real_k(a_loc, planes, **kw)
+        reduce = kw["reduce"]
+
+        def keep_acc(part):
+            acc = reduce(part)
+            rec["acc"] = acc.clone()
+            return acc
+        rec.update(a_loc=tuple(a.clone() for a in a_loc), planes=tuple(p.clone() for p in planes),
+                   tiles=kw["tiles"])
+        return real_k(a_loc, planes, **{**kw, "reduce": keep_acc})
+
+    ops._qmm_row_parallel, qmm_mesh.k_sharded_matmul = row, k_sharded
+    try:
+        yield box
+    finally:
+        ops._qmm_row_parallel, qmm_mesh.k_sharded_matmul = real_row, real_k
+
+
+def row_parallel_checks(torch, records, mesh) -> dict:
+    """Row 4a at this rank's own operands of the first forward's
+    row-parallel projections (the int32 core on the card ``torch.equal``
+    to its plain version), and their reduced int32 counts against one
+    device's core on the whole matrices: the rank's input gathered over
+    "model" (its rows, every feature), the whole weight gathered, both
+    packed with the rank's statistics, the plain core, this rank's
+    sequence shard of it ``torch.equal`` to the counts.  Collective:
+    every rank of the mesh calls it."""
+    from repro_torch.kernels import ops, registry
+    from repro_torch.kernels.modes import QuantMode
+    from repro_torch.kernels.qtensor import QTensor
+
+    mode = QuantMode.TNN
+    out = {"vs_plain": [], "vs_one_device": [], "shapes": []}
+    j, tp = mesh.axis_index("model"), mesh.axis_size("model")
+    for rec in records:
+        cuda = registry.lookup(mode, "cuda", fused=False)
+        plain = registry.lookup(mode, "torch", fused=False)
+        with deterministic(torch):
+            got = cuda.fn(rec["a_loc"], rec["planes"], 0, tiles=rec["tiles"])
+        want = plain.fn(rec["a_loc"], rec["planes"], 0)
+        out["vs_plain"].append(bool(torch.equal(got, want)))
+        x = mesh.all_gather_axes(rec["x"].contiguous(), ("model",), 1)
+        w = mesh.all_gather_axes(rec["w"].contiguous(), ("model",), 0)
+        qt = QTensor.from_dense(w, mode, stats=rec["stats"]["w"])
+        xa = ops.quantize_activations(x.to(torch.float32), mode, stats=rec["stats"]["act"])
+        core = ops.packed_matmul({k: xa[k] for k in ("plus", "minus")}, qt, backend="torch")
+        lead = tuple(rec["lead"])
+        core = core.reshape(lead + (core.shape[-1],))
+        n = lead[-1] // tp
+        core = core.narrow(len(lead) - 1, j * n, n).reshape(-1, core.shape[-1])
+        out["vs_one_device"].append(bool(torch.equal(core, rec["acc"])))
+        out["shapes"].append([int(x.shape[0]), int(w.shape[1]), int(rec["x"].shape[1])])
+    return out
 
 
 def operands_vs_plain(torch, operands) -> dict:
@@ -2543,6 +2664,14 @@ def operands_vs_plain(torch, operands) -> dict:
     return out
 
 
+def sumsq64(torch, t, chunk: int = 1 << 22):
+    """The sum of squares of ``t`` in float64, ``chunk`` elements at a time
+    (no float64 copy of a whole leaf on the card)."""
+    flat = t.reshape(-1)
+    return sum(torch.sum(torch.square(flat[i:i + chunk].to(torch.float64)))
+               for i in range(0, flat.numel(), chunk))
+
+
 def leaf_sumsq(torch, state, shardings=None, mesh=None):
     """{path: sum of squares} of every float leaf of ``state["params"]``:
     on a mesh each shard counted once (``sharding.holds_first_copy``; one
@@ -2551,7 +2680,7 @@ def leaf_sumsq(torch, state, shardings=None, mesh=None):
     from repro_torch.tree import flatten_with_paths
 
     flat = flatten_with_paths(state["params"])
-    vals = torch.stack([torch.sum(torch.square(t.to(torch.float64))) for _, t in flat])
+    vals = torch.stack([sumsq64(torch, t) for _, t in flat])
     if mesh is not None:
         sh = dict(flatten_with_paths(shardings["params"]))
         keep = [sharding.holds_first_copy(sh[path].spec, mesh) for path, _ in flat]
@@ -2560,44 +2689,27 @@ def leaf_sumsq(torch, state, shardings=None, mesh=None):
 
 
 def train_mesh_collectives(cfg, tcfg, sh, mesh, policy) -> dict:
-    """The training mesh's collectives per rank per step, predicted from
-    the state's shardings ``sh`` and the rules (each counted once per mesh
-    axis of size > 1 it runs over, as ``launch.mesh.collectives`` counts
-    them): a gather per sharded axis of every sharded leaf and a
-    reduce-scatter per batch axis among them; all-reduces: the batch axes
-    a sharded leaf's spec does not use, every replicated leaf's gradient,
-    each low-bit projection's statistics (2 sums for tnn/tbn, 1 for bnn)
-    in the forward and in the remat recompute, the loss's token count and
-    the loss shares, the global norm and EF's absmax (one each over the
-    whole mesh), and an int8 moment whose shard cuts a 256-block: its
-    block maxima (all-reduce) and its scales (gather), for m and v."""
-    from repro_torch.optim.adamw import Q8Layout
-    from repro_torch.parallel import sharding
-    from repro_torch.tree import flatten_with_paths
+    """The training mesh's collectives per rank per step of a run of
+    TRAIN_SEQ tokens under the active rules, predicted from the state's
+    shardings ``sh`` (``roofline.analysis.train_mesh_collectives``: the
+    leaves' gathers and gradient reductions, the statistics, the tensor-
+    and sequence-parallel activations, the loss and the optimizer)."""
+    return roofline().train_mesh_collectives(cfg, tcfg, sh, mesh, policy, TRAIN_SEQ)
 
-    def n(axes):
-        return sum(1 for a in axes if mesh.axis_size(a) > 1)
 
-    batch = [a for a in sharding.batch_axes() if mesh.axis_size(a) > 1]
-    micro = tcfg.microbatch
-    gathers = scatters = reduces = 0
-    opt_m = dict(flatten_with_paths(sh["opt"]["m"]))
-    for path, p in flatten_with_paths(sh["params"]):
-        used = {a for e in p.spec for a in sharding.spec_axes(e)}
-        if p.sharded:
-            gathers += micro * n(used)
-            scatters += micro * n([a for a in batch if a in used])
-            reduces += micro * n([a for a in batch if a not in used])
-        else:
-            reduces += n(batch)
-        if tcfg.optimizer.moments_dtype == "int8" and Q8Layout.cuts(p, mesh):
-            reduces += 2 * n(sharding.spec_axes(p.spec[-1]))
-            gathers += 2 * n(sharding.spec_axes(opt_m[f"{path}/scale"].spec[-1]))
-    stats = {"tnn": 2, "tbn": 2, "bnn": 1}.get(policy, 0)
-    forwards = 2 if cfg.remat else 1
-    reduces += micro * n(batch) * (stats * forwards * tnn_gemms_per_forward(cfg) + 1)
-    reduces += n(batch) + (1 if mesh.size > 1 else 0) * (1 + int(tcfg.ef_compression))
-    return {"all_gather": gathers, "reduce_scatter": scatters, "all_reduce": reduces}
+def train_mesh_launches(cfg, policy: str, tp: bool) -> dict:
+    """Launches per rank per step of a training-mesh run (forward and remat
+    recompute): under tensor parallelism the column-parallel projections'
+    fused TNN GeMMs and the row-parallel ones' int32 cores, else seven
+    fused a layer."""
+    if policy != "tnn":
+        return {}
+    fwd = 2 if cfg.remat else 1
+    layers = cfg.num_layers
+    if tp:
+        return {LM_POLICY_KERNELS["tnn"]: fwd * len(TP_COL) * layers,
+                "lowbit_gemm_tnn_i32": fwd * len(TP_ROW) * layers}
+    return {LM_POLICY_KERNELS["tnn"]: fwd * tnn_gemms_per_forward(cfg)}
 
 
 def state_bytes(state) -> dict:
@@ -2611,60 +2723,118 @@ def state_bytes(state) -> dict:
     return out
 
 
-def train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept, mesh=None):
+def train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept, mesh=None,
+                       tp=False, record=True):
     """A Trainer of 12a's configuration whose step is instrumented: host
     clock around each synchronized step, the launch and collective
     counters zeroed just before it and read just after, then (outside the
-    window) the metrics and every leaf's sum of squares into ``rows`` and
-    the state into ``kept["state"]``; the first step's forward recorded
-    into ``box``."""
+    window) the metrics, every leaf's sum of squares and every leaf's
+    gradient's (after EF, as AdamW took it) into ``rows`` and the state
+    into ``kept["state"]``; with ``record`` the first step's forward
+    recorded into ``box`` (on one device with each plane's two n chunks'
+    digests too; with ``tp`` its row-parallel projections as well)."""
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.tree import flatten_with_paths
 
     tr = Trainer(cfg, layout, tcfg, TrainerConfig(steps=TRAIN_MESH_STEPS, log_every=10**9),
                  source, device=dev, log_fn=log)
     inner = tr.step_fn
+    per_layer = len(TP_COL) if tp else 7
 
     def step(state, batch):
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        mesh_mod.reset_collectives()
-        t0 = time.perf_counter()
-        if not rows:
-            with record_planes(torch, box, 7, tnn_gemms_per_forward(cfg)):
+        grads = {}
+        real = adamw.adamw_update
+
+        def update(g, *a, **kw):
+            # the gradients as AdamW takes them, summed after the timed window
+            grads["tree"] = g
+            return real(g, *a, **kw)
+
+        adamw.adamw_update = update
+        try:
+            torch.cuda.synchronize()
+            run_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            mesh_mod.reset_collectives()
+            t0 = time.perf_counter()
+            if not rows and record:
+                with record_planes(torch, box, per_layer, per_layer * cfg.num_layers,
+                                   slices=1 if mesh is not None else TRAIN_MESH_SHAPE[1]), \
+                        record_row_parallel(torch, box, len(TP_ROW) if tp else 0):
+                    out = inner(state, batch)
+            else:
                 out = inner(state, batch)
-        else:
-            out = inner(state, batch)
-        float(out[1]["loss"])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches, coll = _build.launches(), mesh_mod.collectives()
+            float(out[1]["loss"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches, coll = _build.launches(), mesh_mod.collectives()
+            step_peak = torch.cuda.max_memory_allocated()
+            kept["run_peak"] = max(kept.get("run_peak", 0), run_peak, step_peak)
+        finally:
+            adamw.adamw_update = real
+        # this rank's float64 sums of squares of the gradients, outside the window
+        g2 = torch.stack([sumsq64(torch, t) for _, t in flatten_with_paths(grads.pop("tree"))])
         kept["state"] = out[0]
         if not rows and kept.get("snapshot"):
             kept["params_after_first"] = {p: t.clone() for p, t in
                                           flatten_with_paths(out[0]["params"])}
-        rows.append({"s": secs, "launches": launches, "collectives": coll,
+        paths = [p for p, _ in flatten_with_paths(out[0]["params"])]
+        if mesh is not None:
+            sh = dict(flatten_with_paths(tr.shardings["params"]))
+            from repro_torch.parallel import sharding
+
+            keep = [sharding.holds_first_copy(sh[p].spec, mesh) for p in paths]
+            g2 = mesh.all_reduce_(g2 * torch.tensor(keep, dtype=g2.dtype, device=g2.device))
+        rows.append({"s": secs, "peak": step_peak, "launches": launches, "collectives": coll,
                      "metrics": {k: float(v) for k, v in out[1].items()},
-                     "sumsq": leaf_sumsq(torch, out[0], tr.shardings, mesh)})
+                     "sumsq": leaf_sumsq(torch, out[0], tr.shardings, mesh),
+                     "grad_sumsq": dict(zip(paths, g2.tolist()))})
         return out
 
     tr.step_fn = step
     return tr
 
 
-def train_mesh_rank(torch, out_dir: str) -> int:
+def fault_norm_sum():
+    """``--train-mesh-fault``: leaf plans whose whole leaves (the norm
+    scales) sum their gradients over the batch axes only, not over the
+    tensor-parallel axis too: the faulty step each TRAIN_RULES bound must
+    reject.  Returns the undo."""
+    from repro_torch import tree
+    from repro_torch.parallel import sharding
+
+    real = sharding.leaf_plans
+
+    def faulty(p_sh, ctx=None, *, sp):
+        plans, split = real(p_sh, ctx, sp=sp)
+        tp = sharding.tp_axis(ctx)
+        return tree.tree_map(lambda pl: pl if pl.split else sharding.LeafPlan(
+            pl.gather, tuple(a for a in pl.sum_axes if a != tp)), plans), split
+
+    sharding.leaf_plans = faulty
+
+    def undo():
+        sharding.leaf_plans = real
+    return undo
+
+
+def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
     """One rank of phase 12 (``--train-mesh-rank``): 12a on (2, 2) at full
-    depth and at LM_CUT_LAYERS, 12b at LM_CUT_LAYERS; writes
-    ``rank<r>.json`` into ``out_dir``.  Any failure raises."""
-    import numpy as np
+    depth and at LM_CUT_LAYERS under TRAIN_RULES, 12d at LM_CUT_LAYERS under
+    TRAIN_RULES_FSDP, 12b at LM_CUT_LAYERS; writes ``rank<r>.json`` into
+    ``out_dir``.  ``fault``: the norm scales' gradients skip the "model"
+    sum (:func:`fault_norm_sum`).  Any failure raises."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointConfig, Checkpointer
     from repro_torch.data import DataState, make_pipeline
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import ShardLayout
+    from repro_torch.models.common import train_layout
     from repro_torch.parallel import sharding
     from repro_torch.train import make_train_step
     from repro_torch.tree import flatten_with_paths, map_with_paths
@@ -2676,44 +2846,70 @@ def train_mesh_rank(torch, out_dir: str) -> int:
     mesh = mesh_mod.make_mesh(TRAIN_MESH_SHAPE, ("data", "model"), device=dev)
     mesh41 = mesh_mod.make_mesh((mesh.size, 1), ("data", "model"), device=dev)
     log(f"[train mesh] rank {rank}: {mesh!r}")
-    report = {"rank": rank, "backend": mesh.backend}
+    report = {"rank": rank, "backend": mesh.backend, "fault": fault}
     single = torch.load(os.path.join(out_dir, "single.pt"), weights_only=False)
-    tp = dict(zip(mesh.axis_names, mesh.shape))["model"]
+    undo = fault_norm_sum() if fault else None
+    j = mesh.axis_index("model")
 
-    # -- 12a: full width and depth, then LM_CUT_LAYERS layers -------------------
-    for name, layers, policy in TRAIN_MESH_RUNS:
+    # -- 12a: full width and depth, then LM_CUT_LAYERS layers; 12d -------------
+    for name, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
         cfg, tcfg, source = train_mesh_config(layers, policy)
         state = None
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
         t0 = time.perf_counter()
-        with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
-            tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, ShardLayout(tp=tp), rows,
-                                    box, kept, mesh)
+        with sharding.use_mesh(mesh, sharding.RULESETS[rules]):
+            layout = train_layout()
+            tp = sharding.tp_axis() is not None
+            tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept,
+                                    mesh, tp=tp)
             expect = train_mesh_collectives(cfg, tcfg, tr.shardings, mesh, policy)
             state, ds = tr.restore_or_init()
             torch.cuda.synchronize()
             init_s = time.perf_counter() - t0
             nbytes = state_bytes(state)
             res = tr.run(state, ds)
+            rp = row_parallel_checks(torch, box["row"], mesh) if tp and box.get("row") \
+                else None
         del state
-        peak = torch.cuda.max_memory_allocated()
-        ref = single[name]
+        # the run's peak (init, steps, checks) and the steps' own
+        peak = max(kept.get("run_peak", 0), torch.cuda.max_memory_allocated())
+        step_peak = max(row["peak"] for row in rows)
+        ref = single[ref_name]
+        # the one-device digests and planes this rank's first forward matches:
+        # the column-parallel projections' n chunk at its "model" coordinate
+        # under tensor parallelism, every projection whole else
+        if tp:
+            want_d = [d[j] for i, d in enumerate(ref["slice_digests"]) if i % 7 in TP_COL]
+            want_p = []
+            for i in TP_COL if ref["planes"] else ():
+                n = next(iter(ref["planes"][i].values())).shape[-2] // TRAIN_MESH_SHAPE[1]
+                want_p.append({k: v.narrow(-2, j * n, n) for k, v in ref["planes"][i].items()})
+        else:
+            want_d, want_p = ref["digests"], ref["planes"]
+        got_p = box["planes"]
         report[name] = {
             "rows": rows, "losses": res.losses, "init_s": init_s, "peak_memory_bytes": peak,
-            "collectives_expected": expect, "vs_plain": operands_vs_plain(torch, box["operands"]),
-            "bytes": nbytes, "coords": mesh.coords, "n_digests": len(box["digests"]),
-            "digests": box["digests"],
-            "digests_equal": box["digests"] == ref["digests"],
-            "planes_equal": len(box["planes"]) == len(ref["planes"]) and all(
-                torch.equal(a[k], b[k]) for a, b in zip(box["planes"], ref["planes"])
-                for k in a)}
+            "step_peak_memory_bytes": step_peak,
+            "collectives_expected": expect, "launches_expected": train_mesh_launches(
+                cfg, policy, tp), "tp": tp,
+            "vs_plain": operands_vs_plain(torch, box["operands"]),
+            "row_parallel": rp, "bytes": nbytes, "coords": mesh.coords,
+            "n_digests": len(box["digests"]), "n_digests_expected": len(want_d),
+            "first_differing_digest": next((k for k, (x, y) in enumerate(
+                zip(box["digests"], want_d)) if x != y), None),
+            "digests_equal": box["digests"] == want_d,
+            "planes_equal": len(got_p) == len(want_p) and all(
+                torch.equal(a[k], b[k]) for a, b in zip(got_p, want_p) for k in a)}
         del box
         if name == "12a_cut":
             cut = kept, tr.shardings, cfg, tcfg, source
         log(f"[train mesh {name}] rank {rank}: steps {[round(r['s'], 3) for r in rows]} s, "
-            f"losses {res.losses}, peak {peak / 2**30:.2f} GiB")
+            f"losses {res.losses}, peak {peak / 2**30:.2f} GiB (steps "
+            f"{step_peak / 2**30:.2f} GiB)")
+    if undo is not None:
+        undo()
     kept, sh, cfg, tcfg, source = cut
     state = kept["state"]
     by = dict(flatten_with_paths(sh))
@@ -2784,44 +2980,50 @@ def train_mesh_rank(torch, out_dir: str) -> int:
     return 0
 
 
-def train_mesh_single(torch, dev, name, layers, policy, out_dir):
+def reversed_rows(source):
+    """``source`` (a SyntheticLM) whose every batch holds its rows in
+    reverse order."""
+    import dataclasses
+
+    import numpy as np
+
+    class Reversed(type(source)):
+        def batch_at(self, state, rows=None):
+            return {k: np.ascontiguousarray(v[::-1])
+                    for k, v in super().batch_at(state, rows).items()}
+
+    return Reversed(**dataclasses.asdict(source))
+
+
+def train_mesh_single(torch, dev, name, layers, policy, out_dir, reverse=False):
     """A run of TRAIN_MESH_RUNS on one device (the reference of the mesh
-    run): the instrumented rows, the first forward's planes, peak memory,
-    bytes; for "12a_cut" the masters after the first step too."""
+    runs): the instrumented rows, the first forward's planes and their n
+    chunks' digests, peak memory, bytes; for "12a_cut" the masters after
+    the first step too.  ``reverse``: the same run with the rows of every
+    batch in reverse order, its rows only (how far the device's own float
+    sums move each reading: the noise floor of the mesh's differences)."""
     from repro_torch.models import ShardLayout
 
     cfg, tcfg, source = train_mesh_config(layers, policy)
+    if reverse:
+        source = reversed_rows(source)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
-    tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, ShardLayout(), rows, box, kept)
+    rows, box, kept = [], {}, {"snapshot": name == "12a_cut" and not reverse}
+    tr = train_mesh_trainer(torch, dev, cfg, tcfg, source, ShardLayout(), rows, box, kept,
+                            record=not reverse)
     state, ds = tr.restore_or_init()
     nbytes = state_bytes(state)
-    # the loss and gradient norm (before EF) of one device on the first
-    # batch, its rows in order and reversed: how far the device's own float
-    # sums move the QAT step
-    from repro_torch.data import DataState
-    from repro_torch.train.train_step import make_loss_fn
-
-    from repro_torch.optim.adamw import global_norm
-    from repro_torch.train.train_step import value_and_grad
-
-    loss_fn = make_loss_fn(cfg, ShardLayout(), tcfg)
-    b0 = {k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(DataState(0, 0)).items()}
-    probe = []
-    for b in (b0, {k: v.flip(0) for k, v in b0.items()}):
-        (loss, _), grads = value_and_grad(loss_fn, state["params"], b)
-        probe.append((float(loss), float(global_norm(grads))))
-        del grads
-    torch.cuda.empty_cache()
-    noise = {"loss": probe[0][0], "loss_rows_reversed": probe[1][0],
-             "rel": abs(probe[1][0] / probe[0][0] - 1), "grad_norm": probe[0][1],
-             "grad_norm_rows_reversed": probe[1][1],
-             "grad_norm_rel": abs(probe[1][1] / probe[0][1] - 1)}
     res = tr.run(state, ds)
+    if reverse:
+        del state, kept, tr
+        torch.cuda.empty_cache()
+        return {"rows": rows, "losses": res.losses}
     out = {"rows": rows, "losses": res.losses, "peak_memory_bytes":
-           torch.cuda.max_memory_allocated(), "bytes": nbytes, "digests": box["digests"],
-           "planes": box["planes"], "order_noise": noise,
+           max(kept.get("run_peak", 0), torch.cuda.max_memory_allocated()),
+           "step_peak_memory_bytes": max(row["peak"] for row in rows),
+           "bytes": nbytes, "digests": box["digests"],
+           "slice_digests": box["slice_digests"], "planes": box["planes"],
            "vs_plain": operands_vs_plain(torch, box.pop("operands"))}
     if name == "12a_cut":
         torch.save({p: t.cpu() for p, t in kept["params_after_first"].items()},
@@ -2831,15 +3033,35 @@ def train_mesh_single(torch, dev, name, layers, policy, out_dir):
     return out
 
 
-def phase12(torch, dev):
+def step_diffs(row: dict, ref: dict) -> dict:
+    """The relative differences of one step's readings ``row`` from the
+    same step's ``ref``: loss, grad_norm, the largest over the leaves of
+    the sums of squares and of the gradients' sums of squares, and the
+    leaf of the latter."""
+    m, sm = row["metrics"], ref["metrics"]
+    g, sg = row["grad_sumsq"], ref["grad_sumsq"]
+    return {"loss": abs(m["loss"] / sm["loss"] - 1),
+            "grad_norm": abs(m["grad_norm"] / sm["grad_norm"] - 1),
+            "sumsq": rel_diff(row["sumsq"], ref["sumsq"]),
+            "grad_sumsq": rel_diff(g, sg),
+            "grad_sumsq_leaf": max(sg, key=lambda p: abs(g[p] / sg[p] - 1) if sg[p] else 0.0)}
+
+
+def rel_diff(got: dict, want: dict) -> float:
+    """The largest relative difference over the keys of ``want`` (an exact
+    zero must stay zero)."""
+    return max((abs(got[k] / v - 1) if v else abs(got[k])) for k, v in want.items())
+
+
+def phase12(torch, dev, fault: bool = False):
     """Phase 12 (see the module docstring): the single-device reference
     runs, then TRAIN_MESH_WORLD ranks of ``--train-mesh-rank`` sharing the
     card over gloo (one card each over NCCL where the machine has them),
-    then ``launch.train`` on 4 ranks.  Returns (the report, {kernel:
-    {sub-phase: rank 0's launches per step}})."""
+    then ``launch.train`` on 4 ranks.  ``fault``: the ranks run
+    :func:`fault_norm_sum`'s faulty step (its readings print; the checks
+    must fail).  Returns (the report, {kernel: {sub-phase: rank 0's
+    launches per step}})."""
     import shutil
-
-    import numpy as np
 
     from repro_torch.launch import mesh as mesh_mod
 
@@ -2847,9 +3069,14 @@ def phase12(torch, dev):
     out_dir = ROOT / "build" / "chip_smoke" / "train_mesh"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    key = LM_POLICY_KERNELS["tnn"]
-    single = {name: train_mesh_single(torch, dev, name, layers, policy, str(out_dir))
-              for name, layers, policy in TRAIN_MESH_RUNS}
+    key, key32 = LM_POLICY_KERNELS["tnn"], "lowbit_gemm_tnn_i32"
+    single = {}
+    for _, layers, policy, _, ref in TRAIN_MESH_RUNS:
+        if ref not in single:
+            single[ref] = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir))
+            rev = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir), reverse=True)
+            single[ref]["floor"] = [step_diffs(row, srow) for row, srow in
+                                    zip(rev["rows"], single[ref]["rows"])]
     torch.save(single, out_dir / "single.pt")
     t0 = time.perf_counter()
     env = dict(os.environ)
@@ -2857,7 +3084,8 @@ def phase12(torch, dev):
         p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     env.setdefault("OMP_NUM_THREADS", "2")      # 4 ranks on the host's 8 cores
     res = mesh_mod.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
-                              str(out_dir)], TRAIN_MESH_WORLD, timeout_s=TRAIN_MESH_TIMEOUT_S,
+                              str(out_dir)] + (["--train-mesh-fault"] if fault else []),
+                             TRAIN_MESH_WORLD, timeout_s=TRAIN_MESH_TIMEOUT_S,
                              env=env, log_dir=str(out_dir / "logs"))
     ranks_s = time.perf_counter() - t0
     with open(res[0]["log"]) as f:
@@ -2871,47 +3099,51 @@ def phase12(torch, dev):
     failures, diag = [], []
     for rep in reps:
         r = rep["rank"]
-        for name, layers, policy in TRAIN_MESH_RUNS:
-            # the remat recompute doubles the forward's launches
-            n_fwd = tnn_gemms_per_forward(train_mesh_config(layers)[0]) if policy == "tnn" \
-                else 0
-            want = {key: 2 * n_fwd} if n_fwd else {}
-            got, ref = rep[name], single[name]
+        for name, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
+            got, ref = rep[name], single[ref_name]
             for i, (row, srow) in enumerate(zip(got["rows"], ref["rows"])):
                 m, sm = row["metrics"], srow["metrics"]
                 tol = TRAIN_MESH_BOUNDS[name][i]
-                d_loss = abs(m["loss"] / sm["loss"] - 1)
-                d_gn = abs(m["grad_norm"] / sm["grad_norm"] - 1)
-                d_sq = max(abs(row["sumsq"][p] / v - 1) for p, v in srow["sumsq"].items())
+                d = step_diffs(row, srow)
+                d_loss, d_gn, d_sq, d_g = d["loss"], d["grad_norm"], d["sumsq"], d["grad_sumsq"]
                 diag.append(f"{name} rank {r} step {i}: loss {m['loss']} vs {sm['loss']} "
                             f"({d_loss:.2e}), grad_norm ({d_gn:.2e}), sums of squares "
-                            f"(max {d_sq:.2e})")
-                if row["launches"] != want:
+                            f"(max {d_sq:.2e}), gradients' sums of squares (max {d_g:.2e}, "
+                            f"{d['grad_sumsq_leaf']})")
+                if row["launches"] != got["launches_expected"]:
                     failures.append(f"{name} rank {r} step {i}: launched {row['launches']}, "
-                                    f"expected {want}")
+                                    f"expected {got['launches_expected']}")
                 coll = {k: row["collectives"].get(k, 0) for k in got["collectives_expected"]}
                 if coll != got["collectives_expected"]:
                     failures.append(f"{name} rank {r} step {i}: collectives {coll}, expected "
                                     f"{got['collectives_expected']}")
-                if d_loss > tol["loss"] or d_gn > tol["grad_norm"] or (
-                        tol["sumsq"] is not None and d_sq > tol["sumsq"]):
+                if d_loss > tol["loss"] or d_gn > tol["grad_norm"] or d_g > tol["grad_sumsq"] \
+                        or (tol["sumsq"] is not None and d_sq > tol["sumsq"]):
                     failures.append(f"{name} rank {r} step {i}: outside {tol}")
-            first = next((k for k, (x, y) in enumerate(zip(got["digests"], ref["digests"]))
-                          if x != y), None)
-            diag.append(f"{name} rank {r}: {got['n_digests']} projections, first differing "
-                        f"planes at {first}; first layer's planes equal {got['planes_equal']}")
+            diag.append(f"{name} rank {r}: {got['n_digests']} projections through qmm, first "
+                        f"differing planes at {got['first_differing_digest']}; first layer's "
+                        f"planes equal {got['planes_equal']}")
             if not (got["digests_equal"] and got["planes_equal"]):
                 failures.append(f"{name} rank {r}: the first forward's planes differ from one "
-                                f"device's (first at projection {first})")
-            if got["n_digests"] != n_fwd:
-                failures.append(f"{name} rank {r}: {got['n_digests']} projections in the "
-                                f"first forward")
+                                f"device's (first at projection {got['first_differing_digest']})")
+            if got["n_digests"] != got["n_digests_expected"]:
+                failures.append(f"{name} rank {r}: {got['n_digests']} qmm projections in the "
+                                f"first forward, expected {got['n_digests_expected']}")
             vp = got["vs_plain"]
             diag.append(f"{name} rank {r}: row 1 vs plain at the first forward's operands "
                         f"{vp['shapes']}: {vp['equal']}")
-            if len(vp["equal"]) != min(n_fwd, 7) or not all(vp["equal"]):
+            n_keep = (len(TP_COL) if got["tp"] else 7) if policy == "tnn" else 0
+            if len(vp["equal"]) != n_keep or not all(vp["equal"]):
                 failures.append(f"{name} rank {r}: row 1 differs from its plain version at the "
                                 f"mesh's operands: {vp}")
+            rp = got["row_parallel"]
+            if got["tp"] and policy == "tnn":
+                diag.append(f"{name} rank {r}: row 4a vs plain at the row-parallel operands "
+                            f"{rp and rp['shapes']}: {rp and rp['vs_plain']}; reduced counts "
+                            f"== one device's core: {rp and rp['vs_one_device']}")
+                if rp is None or len(rp["vs_plain"]) != len(TP_ROW) or not (
+                        all(rp["vs_plain"]) and all(rp["vs_one_device"])):
+                    failures.append(f"{name} rank {r}: row-parallel check failed: {rp}")
         el = rep["12a_cut"]["elementwise"]
         diag.append(f"12a_cut rank {r} masters after step 1: {el}")
         if el["max_abs_diff"] > el["bound"] + 1e-6:
@@ -2923,12 +3155,15 @@ def phase12(torch, dev):
         b = rep["12b"]
         if not (b["restored_equal"] and b["resume_equal"]):
             failures.append(f"12b rank {r}: {b}")
-    for name, layers, policy in TRAIN_MESH_RUNS:
-        diag.append(f"{name} one device, the loss and grad norm with the rows reversed: "
-                    f"{single[name]['order_noise']}")
-        vp = single[name]["vs_plain"]
-        if policy == "tnn" and (len(vp["equal"]) != 7 or not all(vp["equal"])):
-            failures.append(f"{name} one device: row 1 differs from its plain version: {vp}")
+    for ref_name, one in single.items():
+        for i, f in enumerate(one["floor"]):
+            diag.append(f"{ref_name} one device with its rows reversed, step {i}: loss "
+                        f"({f['loss']:.2e}), grad_norm ({f['grad_norm']:.2e}), sums of squares "
+                        f"(max {f['sumsq']:.2e}), gradients' sums of squares (max "
+                        f"{f['grad_sumsq']:.2e}, {f['grad_sumsq_leaf']})")
+        vp = one["vs_plain"]
+        if one["digests"] and (len(vp["equal"]) != 7 or not all(vp["equal"])):
+            failures.append(f"{ref_name} one device: row 1 differs from its plain version: {vp}")
     for line in diag:
         log("[train mesh check] " + line)
     if failures:
@@ -2938,8 +3173,6 @@ def phase12(torch, dev):
     step_s = a["rows"][-1]["s"]
     coll = a["rows"][-1]["collectives"]
     coll_s = sum(v for k, v in coll.items() if k.endswith("_s"))
-    f32_gather = sum(v * (2 if k.endswith("bfloat16") else 1) for k, v in coll.items()
-                     if k.startswith("all_gather_bytes_"))
     report = {
         "world": TRAIN_MESH_WORLD, "backend": r0["backend"], "mesh": list(TRAIN_MESH_SHAPE),
         "ranks_s": ranks_s,
@@ -2953,28 +3186,30 @@ def phase12(torch, dev):
                 "single_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / sa["rows"][-1]["s"],
                 "launches_per_step": a["rows"][-1]["launches"],
                 "peak_memory_bytes": [rep["12a"]["peak_memory_bytes"] for rep in reps],
+                "step_peak_memory_bytes": [rep["12a"]["step_peak_memory_bytes"]
+                                           for rep in reps],
                 "single_peak_memory_bytes": sa["peak_memory_bytes"],
+                "single_step_peak_memory_bytes": sa["step_peak_memory_bytes"],
                 "single_bytes": sa["bytes"], "rank_bytes": [rep["12a"]["bytes"] for rep in reps],
                 "collectives_per_step": coll, "collective_s_share": coll_s / step_s,
-                "gather_bytes_over_f32": coll.get("all_gather_bytes", 0) / max(f32_gather, 1),
-                "init_s": a["init_s"],
-                "max_sumsq_rel_diff": [max(abs(row["sumsq"][p] / v - 1)
-                                           for p, v in srow["sumsq"].items())
-                                       for row, srow in zip(a["rows"], sa["rows"])]},
+                "row_parallel": a["row_parallel"], "init_s": a["init_s"]},
         "12a_cut": {"elementwise": [rep["12a_cut"]["elementwise"] for rep in reps],
                     "losses": r0["12a_cut"]["losses"],
-                    "single_losses": single["12a_cut"]["losses"]},
+                    "single_losses": single["12a_cut"]["losses"],
+                    "collectives_per_step": r0["12a_cut"]["rows"][-1]["collectives"]},
         "12a_f32": {"losses": r0["12a_f32"]["losses"],
-                    "single_losses": single["12a_f32"]["losses"]},
+                    "single_losses": single["12a_f32"]["losses"],
+                    "collectives_per_step": r0["12a_f32"]["rows"][-1]["collectives"]},
+        "12d": {"losses": r0["12d"]["losses"], "step_s": [row["s"] for row in
+                                                          r0["12d"]["rows"]],
+                "launches_per_step": r0["12d"]["rows"][-1]["launches"],
+                "collectives_per_step": r0["12d"]["rows"][-1]["collectives"],
+                "peak_memory_bytes": [rep["12d"]["peak_memory_bytes"] for rep in reps]},
         "rel_diff_vs_one_device": {
-            name: [{"loss": abs(row["metrics"]["loss"] / srow["metrics"]["loss"] - 1),
-                    "grad_norm": abs(row["metrics"]["grad_norm"]
-                                     / srow["metrics"]["grad_norm"] - 1),
-                    "max_sumsq": max(abs(row["sumsq"][p] / v - 1)
-                                     for p, v in srow["sumsq"].items())}
-                   for row, srow in zip(r0[name]["rows"], single[name]["rows"])]
-            for name, _, _ in TRAIN_MESH_RUNS},
-        "order_noise": {name: single[name]["order_noise"] for name, _, _ in TRAIN_MESH_RUNS},
+            name: [step_diffs(row, srow)
+                   for row, srow in zip(r0[name]["rows"], single[ref]["rows"])]
+            for name, _, _, _, ref in TRAIN_MESH_RUNS},
+        "one_device_rows_reversed": {ref: one["floor"] for ref, one in single.items()},
         "12b": {k: r0["12b"][k] for k in ("save_s", "restore_s", "loss_after_restore")},
     }
     for rep, rb in zip(reps, report["12a"]["rank_bytes"]):
@@ -2999,8 +3234,8 @@ def phase12(torch, dev):
                      "last_loss": float(found[-1][2]), "where": found[-1][3],
                      "s": time.perf_counter() - t0}
     report["phase_s"] = time.perf_counter() - t_phase
-    launches = {key: {"12a": a["rows"][-1]["launches"].get(key, 0),
-                      "12a_cut": r0["12a_cut"]["rows"][-1]["launches"].get(key, 0)}}
+    launches = {k: {name: r0[name]["rows"][-1]["launches"].get(k, 0)
+                    for name in ("12a", "12a_cut", "12d")} for k in (key, key32)}
     return report, launches
 
 
@@ -3061,7 +3296,11 @@ def dry_train(torch, cfg, tcfg, layout, rows, mesh=None):
         sh = state_shardings(cfg, layout, tcfg) if mesh is not None else None
         state = init_train_state(torch.Generator(), cfg, layout, tcfg, device=meta,
                                  shardings=sh)
-        _, stats, coll, _ = dry_run(torch, make_train_step(cfg, layout, tcfg), (state, batch))
+        step = make_train_step(cfg, layout, tcfg)
+        # the step's plans come from a whole-shape meta skeleton: built
+        # outside the count, as the card's first step builds them
+        step.prepare(sharding.active(), TRAIN_SEQ)
+        _, stats, coll, _ = dry_run(torch, step, (state, batch))
     return stats, op_stats.tree_bytes(state), coll, sh
 
 
@@ -3132,6 +3371,7 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import PlaceholderMesh
     from repro_torch.models import ShardLayout
+    from repro_torch.models.common import train_layout
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import sharding
     from repro_torch.train import TrainStepConfig
@@ -3168,18 +3408,25 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
     t0 = time.perf_counter()
     cfg12, tcfg12, _ = train_mesh_config()
     mesh = PlaceholderMesh(TRAIN_MESH_SHAPE, ("data", "model"))
-    tp = dict(zip(mesh.axis_names, mesh.shape))["model"]
     with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
         coord, shards = sharding.mesh_coord(mesh, sharding.batch_axes())
+        layout = train_layout()
     rows = len(mesh_rows(TRAIN_BATCH, coord, shards, tcfg12.microbatch))
-    mstep, state_bytes_, mcoll, sh = dry_train(torch, cfg12, tcfg12, ShardLayout(tp=tp),
-                                               rows, mesh)
+    mstep, state_bytes_, mcoll, sh = dry_train(torch, cfg12, tcfg12, layout, rows, mesh)
     with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
         expect = train_mesh_collectives(cfg12, tcfg12, sh, mesh, "tnn")
     got = {k: mcoll.get(k, 0) for k in expect}
-    if got != expect or mstep.kernels != {key: 2 * per_forward}:
+    want_records = train_mesh_launches(cfg12, "tnn", layout.tp > 1)
+    if got != expect or mstep.kernels != want_records:
         raise AssertionError(f"13b (2, 2): collectives {got}, records {mstep.kernels}; "
-                             f"train_mesh_collectives {expect}")
+                             f"train_mesh_collectives {expect}, records {want_records}")
+    # each rank's float products: its rows and its 1/tp of the heads, FFN and
+    # vocab, a quarter of 10a's whole step on (2, 2)
+    rank_flops = roofline().train_step_flops(cfg12, rows, TRAIN_SEQ, layout.tp)
+    share = mstep.dot_flops / flops
+    if mstep.dot_flops != rank_flops or abs(share - 0.25) > 0.01 * 0.25:
+        raise AssertionError(f"13b (2, 2): {mstep.dot_flops} float operations per rank, "
+                             f"train_step_flops {rank_flops}, {share:.4f} of one device's")
     m12 = measured.get("mesh12a")
     if m12 is not None and mcoll != m12["collectives"]:
         raise AssertionError(f"13b (2, 2): collectives {mcoll}, 12a's rank 0 "
@@ -3195,7 +3442,8 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
                                    "i32": want_l["lowbit_gemm_tnn_i32"],
                                    "all_reduce": want_c["all_reduce"]}:
         raise AssertionError(f"13b (1, 4): 11c counted {m11} per forward")
-    report["13b"] = {"train_2x2": mcoll, "expected": expect,
+    report["13b"] = {"train_2x2": mcoll, "expected": expect, "rank_flops": mstep.dot_flops,
+                     "rank_flops_share": share,
                      "card_12a": None if m12 is None else m12["collectives"],
                      "records_2x2": mstep.kernels, "serve_1x4_records": serve.kernels,
                      "serve_1x4_collectives": scoll, "card_11c": m11,
@@ -3381,8 +3629,9 @@ def mesh_only(torch) -> int:
     return 0
 
 
-def train_mesh_only(torch) -> int:
-    """``--train-mesh``: phases 1, 2 and 12."""
+def train_mesh_only(torch, fault: bool = False) -> int:
+    """``--train-mesh``: phases 1, 2 and 12 (``fault``: 12 with the faulty
+    step of :func:`fault_norm_sum`)."""
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3390,7 +3639,7 @@ def train_mesh_only(torch) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind, card, _ = device_and_build(torch, _build)
-    report, launches = phase12(torch, dev)
+    report, launches = phase12(torch, dev, fault=fault)
     log("[train mesh] " + json.dumps(report))
     log("[train mesh] launches per rank per step (rank 0): " + json.dumps(launches))
     log(card)
@@ -3413,6 +3662,10 @@ def main(argv=None) -> int:
     parser.add_argument("--train-mesh", action="store_true",
                         help="run only the device and build phases and phase 12")
     parser.add_argument("--train-mesh-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--train-mesh-fault", action="store_true",
+                        help="with --train-mesh: the ranks' norm scales sum their gradients "
+                             "over the batch axes only (the faulty step TRAIN_MESH_BOUNDS "
+                             "must reject); the phase prints its readings and fails")
     parser.add_argument("--dryrun", action="store_true",
                         help="run only the device and build phases, 7a, 10a and "
                              "phase 13")
@@ -3432,9 +3685,9 @@ def main(argv=None) -> int:
     if args.mesh:
         return mesh_only(torch)
     if args.train_mesh_rank:
-        return train_mesh_rank(torch, args.train_mesh_rank)
+        return train_mesh_rank(torch, args.train_mesh_rank, fault=args.train_mesh_fault)
     if args.train_mesh:
-        return train_mesh_only(torch)
+        return train_mesh_only(torch, fault=args.train_mesh_fault)
     if args.dryrun:
         return dryrun_only(torch)
     try:
@@ -4068,14 +4321,19 @@ def main(argv=None) -> int:
         f"(1, 2) in {m11d['rebuild_s']:.1f} s, tokens == single-device; phase "
         f"{mesh_report['phase_s']:.1f} s")
     t12 = tmesh_report["12a"]
+    c12 = t12["collectives_per_step"]
     log(f"[train mesh] {TRAIN_MESH_WORLD} ranks on {torch.cuda.device_count()} card(s) over "
-        f"{tmesh_report['backend']}, mesh {TRAIN_MESH_SHAPE} TRAIN_RULES: 12a {LM_ARCH} QAT "
-        f"(tnn, remat, int8 moments, EF, bf16 wire) {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"{tmesh_report['backend']}, mesh {TRAIN_MESH_SHAPE} TRAIN_RULES (heads, FFN, vocab "
+        f"and the sequence over \"model\"): 12a {LM_ARCH} QAT (tnn, remat, int8 moments, EF, "
+        f"bf16 wire) {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
         f"{t12['step_s'][-1] * 1e3:.1f} ms/step ({t12['tokens_per_s']:.1f} tokens/s; one "
         f"device {t12['single_step_s'][-1] * 1e3:.1f} ms), losses {t12['losses']} (one device "
         f"{t12['single_losses']}), {t12['launches_per_step']} per rank per step, collectives "
-        f"{t12['collective_s_share']:.2f} of a step, gathers at "
-        f"{t12['gather_bytes_over_f32']:.3f} of float32 bytes, master/moment/EF bytes per rank "
+        f"{c12['all_gather']} / {c12['reduce_scatter']} / {c12['all_reduce']} "
+        f"({c12['all_gather_bytes']} / {c12['reduce_scatter_bytes']} / "
+        f"{c12['all_reduce_bytes']} bytes), {t12['collective_s_share']:.2f} of a step, peak "
+        f"{max(t12['peak_memory_bytes']) / 1e9:.2f} GB a rank (one device "
+        f"{t12['single_peak_memory_bytes'] / 1e9:.2f} GB), master/moment/EF bytes per rank "
         f"{t12['bytes_ratio'][0]} of one device; first-forward planes == one device; 12b "
         f"save {tmesh_report['12b']['save_s']:.1f} s, restore onto (4, 1) "
         f"{tmesh_report['12b']['restore_s']:.1f} s, == saved, resumed == uninterrupted; 12c "

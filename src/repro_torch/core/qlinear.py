@@ -20,7 +20,7 @@ reduction deeper than k_max is a configuration error.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -30,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.modes import (DEFAULT_BACKEND, DEFAULT_DEVICE,
                                        QuantMode, resolve_device)
 from repro_torch.kernels.qtensor import QTensor
+from repro_torch.parallel import sharding
 
 __all__ = ["QuantLinear", "linear_init", "linear_apply"]
 
@@ -71,19 +72,32 @@ class QuantLinear:
 
     # -- QAT / training forward --------------------------------------------
 
-    def apply(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Dict[str, Any], x: torch.Tensor,
+              role: Optional[str] = None) -> torch.Tensor:
+        """The QAT forward.  ``role`` is the projection's place on a
+        tensor-parallel training split (the model reads it off the leaf's
+        spec, ``sharding.tp_split``): "col" when ``params["w"]`` is this
+        rank's n slice, "row" when it is its k slice and ``x`` its slice of
+        the input features, whose partial sums are then reduced over the
+        tensor-parallel axis into the rows this rank keeps (its sequence
+        shard under sequence parallelism: the output has ``x``'s leading
+        dims with the last one, the sequence, cut by the axis' size).
+        None: the whole matrix."""
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         w = params["w"]
-        if self.mode == QuantMode.BF16:
-            y = matmul_f32(x2.to(torch.bfloat16), w.to(torch.bfloat16))
-        elif self.mode == QuantMode.F32:
-            y = matmul_f32(x2, w)
+        if self.mode in (QuantMode.BF16, QuantMode.F32):
+            y = matmul_f32(x2.to(torch.bfloat16), w.to(torch.bfloat16)) \
+                if self.mode == QuantMode.BF16 else matmul_f32(x2, w)
+            if role == "row":
+                y = sharding.tp_reduce(y.reshape(*lead, self.d_out), dim=len(lead) - 1)
         else:
-            y = ops.quantized_matmul(x2, w.to(torch.float32), self.mode, self.backend)
+            y = ops.quantized_matmul(x2, w.to(torch.float32), self.mode, self.backend,
+                                     role=role, lead=lead)
         if self.use_bias:
             y = y + params["b"]
-        return y.reshape(*lead, self.d_out).to(x.dtype)
+        out = lead if role != "row" else (*lead[:-1], -1)
+        return y.reshape(*out, self.d_out).to(x.dtype)
 
     # -- packed inference ----------------------------------------------------
 
@@ -108,8 +122,10 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
 
 def linear_apply(params: Dict[str, Any], x: torch.Tensor,
                  mode: QuantMode = QuantMode.BF16,
-                 backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+                 backend: str = DEFAULT_BACKEND, role: Optional[str] = None) -> torch.Tensor:
+    """:meth:`QuantLinear.apply` of the layer ``params`` describes (its
+    shapes are this rank's slice's on a tensor-parallel split, ``role``)."""
     d_in, d_out = params["w"].shape
     layer = QuantLinear(d_in, d_out, mode=mode, use_bias="b" in params,
                         backend=backend)
-    return layer.apply(params, x)
+    return layer.apply(params, x, role)

@@ -567,87 +567,189 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
 # Float-facing quantized matmul with STE gradients (QAT)
 # ---------------------------------------------------------------------------
 
-def split_batch_stats(x: torch.Tensor, mode: QuantMode, split) -> Dict[str, Any]:
+def split_batch_stats(x: torch.Tensor, mode: QuantMode, split,
+                      over_tp: bool = False) -> Dict[str, Any]:
     """The per-tensor activation statistics of the global batch whose rows
     ``x`` (m, k) holds this rank's share of (``sharding.split_batch``):
     the same formulas as :func:`quantize_activations` derives from a whole
     ``x``, with every sum and count summed over the batch axes (float64
     partial sums, so the result is the exact sum rounded once to float32,
     a few ULPs from one device's float32 sum) and the affine range's
-    min / max reduced exactly."""
+    min / max reduced exactly.  ``over_tp``: over the tensor-parallel axis
+    too (a row-parallel projection's input, this rank's k slice)."""
     x = x.to(torch.float32)
     f64 = torch.float64
+    red = split.reduce_all if over_tp else split.reduce
     if mode in (QuantMode.INT8, QuantMode.INT4):
-        r = split.reduce(torch.stack([x.amax(), -x.amin()]), "max")
+        r = red(torch.stack([x.amax(), -x.amin()]), "max")
         q = quantize.affine_from_range(-r[1], r[0], 8 if mode == QuantMode.INT8 else 4)
         return {"scale": q.scale, "zero": q.zero_point}
     a = x.abs()
-    tot = split.reduce(torch.stack([a.sum(dtype=f64),
-                                    torch.full((), a.numel(), dtype=f64, device=a.device)]))
+    tot = red(torch.stack([a.sum(dtype=f64),
+                           torch.full((), a.numel(), dtype=f64, device=a.device)]))
     mean = tot[0].to(torch.float32) / tot[1].to(torch.float32)
     if mode == QuantMode.BNN:
         return {"scale": mean}
     thr = 0.7 * mean
     mask = a > thr
-    kept = split.reduce(torch.stack([(a * mask).sum(dtype=f64), mask.sum().to(f64)]))
+    kept = red(torch.stack([(a * mask).sum(dtype=f64), mask.sum().to(f64)]))
     return {"thr": thr,
             "scale": kept[0].to(torch.float32) / kept[1].to(torch.float32).clamp(min=1)}
 
 
+def split_weight_stats(w: torch.Tensor, mode: QuantMode, split) -> Dict[str, torch.Tensor]:
+    """The per-output-channel statistics of a (k, n) weight whose k rows
+    this rank holds a slice of along the tensor-parallel axis (a
+    row-parallel projection): ``QTensor.from_dense``'s TWN / mean-abs
+    formulas over the whole depth, with float64 partial sums over the
+    tensor-parallel axis (as :func:`split_batch_stats` sums rows), each
+    rounded once to float32.  -> the ``stats`` of ``QTensor.from_dense``."""
+    w = w.to(torch.float32)
+    f64 = torch.float64
+    a = w.abs()
+    k = a.shape[0] * split.tp_size
+    mean = split.reduce_tp(a.sum(dim=0, dtype=f64)).to(torch.float32) / float(k)
+    if mode in (QuantMode.TBN, QuantMode.BNN):
+        return {"scale": mean}
+    thr = 0.7 * mean
+    mask = a > thr
+    kept = split.reduce_tp(torch.stack([(a * mask).sum(dim=0, dtype=f64),
+                                        mask.sum(dim=0).to(f64)]))
+    return {"thr": thr, "scale": kept[0].to(torch.float32) / kept[1].to(torch.float32).clamp(min=1)}
+
+
+def _qmm_row_parallel(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend: str,
+                      lead, split, stats: Dict[str, Any]) -> torch.Tensor:
+    """A row-parallel projection's forward on this rank's k slice: ``w``
+    packed with the whole depth's statistics, the int32 core of this
+    rank's words (row 4a), the partial counts reduced over the
+    tensor-parallel axis (into sequence shards under ``sp``), the eq. (2)
+    epilogue (``qmm_mesh.k_sharded_matmul``)."""
+    from repro_torch.parallel import qmm_mesh, sharding
+
+    m, k_local = x.shape
+    qt = QTensor.from_dense(w, mode, stats=stats["w"])
+    n = qt.out_features
+    faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
+    spec = registry.lookup(mode, backend, fused=False)
+    tiles = _plan_tiles(spec, mode, backend, m, n, k_local, x.device, fused=False)
+    xa = quantize_activations(x.to(torch.float32), mode, stats=stats["act"])
+    row = _as_row_scale(xa["scale"], m, x)
+    col = _as_col_vec(qt.scale, n, x)
+    a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
+    return qmm_mesh.k_sharded_matmul(
+        a_pl, _b_planes(qt, mode), mode=mode, backend=backend, spec=spec, tiles=tiles,
+        bit0=0, depth=k_local, k=k_local * split.tp_size,
+        reduce=lambda part: sharding.tp_reduce_partial(part, lead, split),
+        row=row, col=col, bias=None)
+
+
+def _tp_stats(x, w, mode: QuantMode, role: Optional[str], split, stats):
+    """The statistics of one quantized projection on a split batch:
+    ``stats`` ({"act", "w"}) where given, else the activations' over the
+    batch axes (and the tensor-parallel axis for a row-parallel input) and,
+    for a row-parallel weight, its channels' over the whole depth."""
+    stats = dict(stats or {})
+    if "act" not in stats and split is not None and (split.axes or role == "row"):
+        stats["act"] = split_batch_stats(x, mode, split, over_tp=role == "row")
+    if role == "row" and stats.get("w") is None:
+        stats["w"] = split_weight_stats(w, mode, split)
+    return stats
+
+
 def _qmm_fwd_value(x: torch.Tensor, w: torch.Tensor, mode: QuantMode,
-                   backend: str) -> torch.Tensor:
+                   backend: str, role: Optional[str] = None, lead=None,
+                   stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """F32: a float32 product; BF16: bf16 operands, exact float32
     products and sums (never a bf16 ``torch.matmul``, which rounds its
     output to bf16); every quantized mode: ``qmm`` against ``w`` packed
     here (QAT re-packs per call; inference packs once and calls ``qmm``).
     When the batch is split over ranks (the training mesh), the
-    activation statistics are the global batch's (:func:`split_batch_stats`)."""
+    activation statistics are the global batch's (:func:`split_batch_stats`).
+
+    ``role`` "col" (column-parallel: ``w`` this rank's n slice, ``x`` the
+    same on every rank of the tensor-parallel axis): the fused kernel on
+    the slice, the weight's statistics local.  "row" (row-parallel: ``x``
+    and ``w`` this rank's k slice): statistics over the whole depth, the
+    partial sums (int32 counts, or float32 products for the float modes)
+    reduced over the tensor-parallel axis into the rows of ``lead`` this
+    rank keeps (:func:`~repro_torch.parallel.sharding.tp_reduce_partial`).
+    ``stats`` ({"act": ..., "w": ...}) replaces the statistics derived
+    here."""
     from repro_torch.core.conv import matmul_f32   # core.conv imports ops
     from repro_torch.parallel import sharding
 
-    if mode == QuantMode.F32:
-        return matmul_f32(x, w)
-    if mode == QuantMode.BF16:
-        return matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
     split = sharding.batch_split()
-    stats = None if split is None or not split.axes else split_batch_stats(x, mode, split)
-    return qmm(x, QTensor.from_dense(w, mode), backend=backend, act_stats=stats)
+    tp = sharding.tp_split() if role is not None else None
+    if role is not None and tp is None:
+        role = None
+    if mode.is_float:
+        y = matmul_f32(x, w) if mode == QuantMode.F32 else \
+            matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
+        return sharding.tp_reduce_partial(y, lead, tp) if role == "row" else y
+    if role is not None and mode in (QuantMode.INT8, QuantMode.INT4):
+        raise NotImplementedError(f"{mode.value}: the affine grid is per tensor; the "
+                                  f"tensor-parallel training path runs tnn/tbn/bnn and the "
+                                  f"float modes")
+    stats = _tp_stats(x, w, mode, role, split, stats)
+    if role == "row":
+        return _qmm_row_parallel(x, w, mode, backend, lead, tp, stats)
+    qt = QTensor.from_dense(w, mode, stats=stats.get("w"))
+    return qmm(x, qt, backend=backend, act_stats=stats.get("act"))
 
 
 class _QuantizedMatmul(torch.autograd.Function):
     """Straight-through at matmul granularity: the backward treats the
-    whole pipeline as ``x @ w`` (reference ``ops._qmm_bwd``)."""
+    whole pipeline as ``x @ w`` (reference ``ops._qmm_bwd``).  A
+    row-parallel projection (``role`` "row") first gathers the cotangent of
+    the rows it kept into every row of ``lead``; a column-parallel one
+    returns its partial ``gx``, which the region's input sums over the
+    tensor-parallel axis (``sharding.tp_enter``)."""
 
     @staticmethod
-    def forward(ctx, x, w, mode, backend):
+    def forward(ctx, x, w, mode, backend, role, lead, stats):
         ctx.save_for_backward(x, w)
-        ctx.mode = mode
-        return _qmm_fwd_value(x, w, mode, backend)
+        ctx.mode, ctx.role, ctx.lead = mode, role, lead
+        return _qmm_fwd_value(x, w, mode, backend, role, lead, stats)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.core.conv import matmul_f32
+        from repro_torch.parallel import sharding
 
         x, w = ctx.saved_tensors
         g = g.to(torch.float32)
+        tp = sharding.tp_split()
+        if ctx.role == "row" and tp is not None:
+            g = sharding.tp_gather_rows(g, ctx.lead, tp)
         gx = matmul_f32(g, w.t())
         gw = matmul_f32(x.t(), g)
         if ctx.mode.is_lowbit:
             gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
-        return gx.to(x.dtype), gw.to(w.dtype), None, None
+        return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None, None
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
                      mode: QuantMode = QuantMode.TNN,
-                     backend: str = DEFAULT_BACKEND) -> torch.Tensor:
+                     backend: str = DEFAULT_BACKEND, *, role: Optional[str] = None,
+                     lead=None, stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """y ~= x @ w, x (m, k) and float master weights w (k, n) -> float32
     (m, n), computed through the selected quantized pipeline.
 
     Gradients are straight-through (standard for BNN/TNN QAT):
     ``gx = g @ w.T`` and ``gw = x.T @ g`` in float32, with a hard-tanh
     clip mask ``|x| <= 1`` on ``gx`` for the binary/ternary modes
-    (XNOR-Net)."""
-    return _QuantizedMatmul.apply(x, w, QuantMode(mode), backend)
+    (XNOR-Net).
+
+    On a tensor-parallel training split ``role`` says how the projection
+    splits (:func:`_qmm_fwd_value`): "col" on its n slice, "row" on its k
+    slice, whose output is then the rows of ``lead`` (the leading dims of
+    ``x``'s rows, the last one the sequence) this rank keeps: its sequence
+    shard under sequence parallelism, every row else.  None, and off such
+    a split, the whole matrix.  ``stats`` ({"act", "w"}) passes the
+    statistics in."""
+    lead = tuple(int(d) for d in (lead if lead is not None else (x.shape[0],)))
+    return _QuantizedMatmul.apply(x, w, QuantMode(mode), backend, role, lead, stats)
 
 
 # ---------------------------------------------------------------------------

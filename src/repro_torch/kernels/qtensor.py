@@ -203,6 +203,7 @@ class QTensor:
                    per_channel: bool = True,
                    bias: Optional[torch.Tensor] = None,
                    geometry: Optional[Tuple[int, int, int, int]] = None,
+                   stats: Optional[Dict[str, torch.Tensor]] = None,
                    ) -> "QTensor":
         """Offline packing of a dense (k, n) float matrix (Algorithm 2's
         PackedB) on ``w``'s device.
@@ -213,6 +214,11 @@ class QTensor:
         ``per_channel=False``; INT8/INT4 an affine grid; F32/BF16 the
         matrix itself.  Low-bit conv weights (``geometry`` given) whose
         ``cin % 32 != 0`` also store the positional planes.
+
+        ``stats`` supplies the per-channel statistics of a low-bit mode in
+        place of ``w``'s own ({"thr", "scale"} for TNN, {"scale"} for
+        TBN/BNN, each of shape (n,)): a row-parallel shard of a weight
+        whose statistics span the whole depth (``ops.quantized_matmul``).
         """
         from repro_torch.core import encoding, quantize
 
@@ -227,6 +233,19 @@ class QTensor:
         w = w.to(torch.float32)
         dim = 0 if per_channel else None
         pos = geometry is not None and geometry[2] % 32 != 0
+        if stats is not None:
+            if not per_channel or pos or mode not in (QuantMode.TNN, QuantMode.TBN,
+                                                      QuantMode.BNN):
+                raise ValueError(f"from_dense: stats= for per-channel {mode.value} "
+                                 f"GeMM weights only")
+            if mode == QuantMode.TNN:
+                t = torch.sign(w) * (w.abs() > stats["thr"].reshape(1, n))
+                plus, minus = encoding.pack_ternary(t.t())
+                payload = {"plus": plus, "minus": minus}
+            else:
+                payload = {"bits": encoding.pack_binary(w.t())}
+            return cls(payload=payload, scale=stats["scale"], mode=mode, shape=shape,
+                       bias=bias, geometry=geometry)
         if mode == QuantMode.TNN:
             thr = 0.7 * quantize.mean_abs(w, dim=dim, keepdim=True)
             mask = w.abs() > thr

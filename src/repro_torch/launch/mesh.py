@@ -22,11 +22,12 @@ the ranks left out take part in the group creation, then leave).
 
 The training mesh (``train/train_step.py``) adds collectives over one or
 several axes: :meth:`Mesh.all_gather_axes` (a leaf's shards, whole, in a
-spec entry's order), :meth:`Mesh.reduce_scatter_sum` (one
-``reduce_scatter_tensor`` per axis, in the operand's dtype: bf16 stays
-bf16; gloo runs it on the host), :meth:`Mesh.all_reduce_axes_` and
-:meth:`Mesh.all_reduce_`; :func:`collectives` counts them with their bytes
-and host seconds.
+spec entry's order; the sequence shards of a tensor-parallel step),
+:meth:`Mesh.reduce_scatter_sum` (one ``reduce_scatter_tensor`` per axis,
+in the operand's dtype: bf16 cotangents stay bf16, a row-parallel
+projection's partial counts int32; gloo runs it on the host),
+:meth:`Mesh.all_reduce_axes_` and :meth:`Mesh.all_reduce_`;
+:func:`collectives` counts them with their bytes and host seconds.
 
 Transport: NCCL when every rank has a card of its own, gloo otherwise
 (several ranks sharing one card, or the CPU).  Gloo moves CPU tensors:

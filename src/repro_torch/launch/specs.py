@@ -19,11 +19,12 @@ Counterpart of ``repro/launch/specs.py``.  ``cell_artifacts(cfg, shape)``
 What one rank holds follows the port's meshes, not the reference's
 GSPMD: the training mesh keeps each rank's shard of every leaf
 (``LeafSharding.local_shape``) and its rows of the global batch
-(``data.pipeline.mesh_rows`` over ``sharding.batch_axes``); the serving
-mesh keeps each rank's slice of the packed bit planes
+(``data.pipeline.mesh_rows`` over ``sharding.batch_axes``), and a dense
+config's step splits heads, FFN, vocab and the sequence over "model"
+(``train/train_step.py``; the layout from ``models.common.train_layout``);
+the serving mesh keeps each rank's slice of the packed bit planes
 (``pack_lm_params`` under the mesh) while float leaves, caches and
-activations stay whole on every rank (tensor-parallel activations are not
-ported, ROADMAP.md).  Train cells run the production step (forward,
+activations stay whole on every rank.  Train cells run the production step (forward,
 backward, chunked loss, AdamW with int8 moments, microbatches by
 :func:`default_train_config`); decode cells one token against a
 seq_len-deep cache on the packed tree; prefill cells the prompt into the
@@ -43,7 +44,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.pipeline import mesh_rows
 from repro_torch.models import model as model_mod
-from repro_torch.models.common import ModelConfig, ShardLayout
+from repro_torch.models.common import ModelConfig, ShardLayout, train_layout
 from repro_torch.models.kvcache import cache_logical_axes, init_caches
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel import sharding
@@ -164,7 +165,8 @@ def _local_rows(global_batch: int, micro: int) -> int:
 
 def _train_cell(cfg: ModelConfig, shape: ShapeSpec,
                 tcfg: Optional[TrainStepConfig]) -> CellArtifacts:
-    layout = make_layout()
+    # tp: the size of the axis the step splits heads, FFN and vocab over
+    layout = train_layout()
     tcfg = tcfg or default_train_config(cfg)
     step = make_train_step(cfg, layout, tcfg)
     gen = torch.Generator()
@@ -176,6 +178,9 @@ def _train_cell(cfg: ModelConfig, shape: ShapeSpec,
         state = init_train_state(gen, cfg, layout, tcfg, device=META, shardings=sh)
         specs = {path: leaf.spec for path, leaf in tree.flatten_with_paths(sh)}
     b, s = shape.global_batch, shape.seq_len
+    # the step's shardings come from a whole-shape meta skeleton: built
+    # here, so the cell's count of live bytes holds the step's alone
+    step.prepare(sharding.active(), s)
     whole = _batch(cfg, b, s, with_labels=True)
     batch = _batch(cfg, _local_rows(b, tcfg.microbatch), s, with_labels=True)
     return CellArtifacts(step_fn=step, args=(state, batch), specs=(specs, _batch_specs(whole)),

@@ -13,8 +13,12 @@ Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) every rank joins the
 world (``launch.mesh.init_rank``: NCCL when each rank has a card of its
 own, gloo otherwise), builds the (1, world) host mesh or, with
 ``--production``, the reference's 16 x 16 mesh (which raises its
-``RuntimeError`` below 256 ranks), sets ``ShardLayout(tp=<model axis>)``
-and trains under ``TRAIN_RULES`` (``train/trainer.py``).  Rank 0 prints
+``RuntimeError`` below 256 ranks), takes the layout of its
+tensor-parallel axis (``models.common.train_layout``: ``tp`` the "model"
+axis' size) and trains under ``TRAIN_RULES`` (``train/trainer.py``): the
+heads, FFN and vocab split over "model" and the residual stream holds
+sequence shards (with ``--seq`` a multiple of the axis' size; else the
+step all-reduces in their place), the batch over "data".  Rank 0 prints
 the summary.
 """
 
@@ -28,7 +32,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels.modes import resolve_device
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models.common import ShardLayout
+from repro_torch.models.common import train_layout
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel import sharding
 from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
@@ -88,8 +92,7 @@ def _train(args, device, mesh) -> TrainResult:
     tr = TrainerConfig(steps=args.steps, seed=args.seed,
                        checkpoint_dir=args.checkpoint_dir,
                        checkpoint_every=max(10, args.steps // 4))
-    tp = 1 if mesh is None else dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
-    trainer = Trainer(cfg, ShardLayout(tp=tp), tcfg, tr, source, device=device)
+    trainer = Trainer(cfg, train_layout(), tcfg, tr, source, device=device)
     result = trainer.run()
     if mesh is not None and trainer.host_id != 0:
         return result

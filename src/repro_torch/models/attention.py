@@ -118,15 +118,16 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, layout: ShardLa
 
 
 def project(params: Dict[str, Any] | QTensor, x: torch.Tensor,
-            mode: QuantMode, backend: str) -> torch.Tensor:
+            mode: QuantMode, backend: str, role: Optional[str] = None) -> torch.Tensor:
     """QuantLinear forward on a ``{"w": ...}`` leaf (``linear_apply``: the
-    QAT path), or on a packed :class:`QTensor` leaf (offline-packed
-    weights, see models/packing.py) — told apart by type; a packed leaf
-    carries its own mode, depth and scale."""
+    QAT path, ``role`` its place on a tensor-parallel training split), or
+    on a packed :class:`QTensor` leaf (offline-packed weights, see
+    models/packing.py) — told apart by type; a packed leaf carries its own
+    mode, depth and scale."""
     if isinstance(params, QTensor):
         y = packed_matmul_any(params, x.reshape(-1, x.shape[-1]), backend)
         return y.reshape(*x.shape[:-1], params.out_features).to(x.dtype)
-    return linear_apply(params, x, mode, backend)
+    return linear_apply(params, x, mode, backend, role)
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +135,22 @@ def project(params: Dict[str, Any] | QTensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _qkv(params, x, cfg: ModelConfig, hl: HeadLayout, positions,
-         policy: QuantPolicy):
-    b, s, _ = x.shape
+         policy: QuantPolicy, role: Optional[str] = None):
+    """q, k, v (B, S, heads, dh) of x (B, S, D); with ``role`` "col" (the
+    heads split over the tensor-parallel axis) x is this rank's sequence
+    shard, gathered here, and the heads are this rank's: ``hp / tp`` q
+    heads in the groups of its ``kvp / tp`` kv slots."""
     dh = cfg.head_dim_
     mode, backend = policy.attn_proj, policy.backend_for("attn_proj")
-    if s > 1:
+    if x.shape[1] > 1:
         x = sharding.constrain(x, ("batch", "seq", None))
-    q = project(params["wq"], x, mode, backend).reshape(b, s, hl.hp, dh)
-    k = project(params["wk"], x, mode, backend).reshape(b, s, hl.kvp, dh)
-    v = project(params["wv"], x, mode, backend).reshape(b, s, hl.kvp, dh)
+    dt = x.dtype
+    if role is not None:
+        x = sharding.tp_enter(x)        # float32: the partial cotangents sum in float32
+    b, s, _ = x.shape
+    q = project(params["wq"], x, mode, backend, role).reshape(b, s, -1, dh).to(dt)
+    k = project(params["wk"], x, mode, backend, role).reshape(b, s, -1, dh).to(dt)
+    v = project(params["wv"], x, mode, backend, role).reshape(b, s, -1, dh).to(dt)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -182,11 +190,14 @@ def attention(params, x, positions, cfg: ModelConfig, layout: ShardLayout,
     of one layer), the roped K/V are written into it (the last L of them
     when the prompt is longer than a ring cache) and it is returned
     beside the output."""
-    b, s, d = x.shape
     dh = cfg.head_dim_
     hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
     policy = cfg.policy
-    q, k, v = _qkv(params, x, cfg, hl, positions, policy)
+    # on a tensor-parallel split of the heads: the sequence gathered, this
+    # rank's heads, wo row-parallel back into sequence shards
+    role = "col" if sharding.tp_split("heads") is not None else None
+    q, k, v = _qkv(params, x, cfg, hl, positions, policy, role)
+    b, s = q.shape[0], q.shape[1]
 
     qc = min(q_chunk, s)
     outs = []
@@ -198,8 +209,9 @@ def attention(params, x, positions, cfg: ModelConfig, layout: ShardLayout,
                                   g=hl.g, window=window,
                                   cap=cfg.attn_logit_softcap, dh=dh))
     out = torch.cat(outs, dim=1).to(x.dtype)
-    y = project(params["wo"], out.reshape(b, s, hl.hp * dh),
-                policy.attn_proj, policy.backend_for("attn_proj"))
+    y = project(params["wo"], out.reshape(b, s, -1),
+                policy.attn_proj, policy.backend_for("attn_proj"),
+                None if role is None else "row")
 
     if cache_update is None:
         return y, None

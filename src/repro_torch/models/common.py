@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.policy import POLICIES, QuantPolicy
 from repro_torch.core.quantize import f32_scalar
 
-__all__ = ["ModelConfig", "ShardLayout", "rms_norm", "layer_norm",
+__all__ = ["ModelConfig", "ShardLayout", "train_layout", "rms_norm", "layer_norm",
            "apply_rope", "rope_freqs", "softcap", "ceil_to",
            "KVCacheFormat", "kv_cache_format", "KV_CACHE_FORMATS", "einsum_f32"]
 
@@ -84,6 +84,18 @@ class ShardLayout:
 
     def pad_vocab(self, v: int) -> int:
         return ceil_to(v, 128 * math.gcd(self.tp, 128))
+
+
+def train_layout(ctx=None) -> ShardLayout:
+    """The layout of a training step under the active (or given) mesh
+    context: ``tp`` the size of its tensor-parallel axis
+    (``sharding.tp_size``: "model" under ``TRAIN_RULES`` and
+    ``TRAIN_RULES_HYBRID``), 1 off the mesh and under ``TRAIN_RULES_FSDP``,
+    whose "model" axis splits the batch."""
+    from repro_torch.parallel import sharding
+
+    ctx = ctx or sharding.active()
+    return ShardLayout(tp=sharding.tp_size(ctx) if ctx is not None else 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,9 +31,17 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, dtype=torch.fl
 
 def ffn(params: Dict[str, Any], x: torch.Tensor, policy: QuantPolicy,
         activation=F.silu) -> torch.Tensor:
+    """down(act(gate x) * up x).  On a tensor-parallel split of "ffn" x is
+    this rank's sequence shard (under sequence parallelism), gathered
+    here; gate and up run column-parallel on this rank's ffn slice and
+    down row-parallel, its partial sums reduced back into the shard."""
     mode, backend = policy.ffn_proj, policy.backend_for("ffn_proj")
-    g = project(params["gate"], x, mode, backend)
-    u = project(params["up"], x, mode, backend)
-    h = (activation(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    dt, col, row = x.dtype, None, None
+    if sharding.tp_split("ffn") is not None:
+        # float32: the partial cotangents sum in float32 (sharding.tp_enter)
+        x, col, row = sharding.tp_enter(x), "col", "row"
+    g = project(params["gate"], x, mode, backend, col).to(dt)
+    u = project(params["up"], x, mode, backend, col).to(dt)
+    h = (activation(g.to(torch.float32)) * u.to(torch.float32)).to(dt)
     h = sharding.constrain(h, ("batch", None, "ffn"))
-    return project(params["down"], h, mode, backend)
+    return project(params["down"], h, mode, backend, row)

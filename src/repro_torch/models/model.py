@@ -122,11 +122,21 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, layout: ShardLayout,
 
 
 def _embed(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """The input rows.  On a tensor-parallel split of the vocab the table is
+    this rank's vocab slice: ids outside it look up zeros, and the partial
+    rows are summed over the tensor-parallel axis into this rank's
+    sequence shard (``sharding.tp_reduce``)."""
     if cfg.input_kind == "embeddings":
-        x = batch["embeddings"]
-    else:
-        x = params["embed"][batch["tokens"]]
-    return x.to(cfg.dtype)
+        return batch["embeddings"].to(cfg.dtype)
+    split = sharding.tp_split("vocab")
+    if split is None:
+        return params["embed"][batch["tokens"]].to(cfg.dtype)
+    table = params["embed"]
+    rows = table.shape[0]
+    ids = batch["tokens"].long() - split.tp_index * rows
+    inside = (ids >= 0) & (ids < rows)
+    x = table[ids.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return sharding.tp_reduce(x.to(cfg.dtype), dim=1)
 
 
 def _layers(params, x, cfg: ModelConfig, layout: ShardLayout, *, decode: bool,
@@ -135,8 +145,11 @@ def _layers(params, x, cfg: ModelConfig, layout: ShardLayout, *, decode: bool,
     stacked parameter is unbound once and each period's cache taken with
     ``take_period``; with ``remat`` each period, and with ``cfg.remat_block``
     and a longer pattern each block too, runs under ``checkpoint``."""
-    positions = None if decode else torch.arange(x.shape[1], dtype=torch.int32,
-                                                  device=x.device)
+    # a sequence-parallel split holds shards of the step's sequence: the
+    # positions are the whole sequence's (attention gathers it)
+    split = sharding.batch_split()
+    seq = split.seq if split is not None and split.sp else x.shape[1]
+    positions = None if decode else torch.arange(seq, dtype=torch.int32, device=x.device)
     remat_block = remat and cfg.remat_block and cfg.period > 1
 
     def period(pp, x, r):
@@ -173,10 +186,17 @@ def forward_hidden(params, batch, cfg: ModelConfig, layout: ShardLayout
 def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig,
                        layout: ShardLayout) -> torch.Tensor:
     """Head projection (+ final softcap): bf16 operands, float32 products
-    and sums -> float32 (B, S, Vp)."""
+    and sums -> float32 (B, S, Vp).  On a tensor-parallel split of the
+    vocab the head is column-parallel: ``x`` (this rank's sequence shard)
+    is gathered and the logits are this rank's vocab slice, then
+    constrained as the reference names them (its sequence shard under
+    sequence parallelism)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]["w"]
+    x = x.to(torch.bfloat16)
+    if sharding.tp_split("vocab") is not None:
+        x = sharding.tp_enter(x)        # float32 holding the bf16 values
     lead = x.shape[:-1]
-    logits = matmul_f32(x.reshape(-1, x.shape[-1]).to(torch.bfloat16),
+    logits = matmul_f32(x.reshape(-1, x.shape[-1]),
                         w.to(torch.bfloat16)).reshape(*lead, w.shape[-1])
     logits = softcap(logits, cfg.final_logit_softcap)
     return sharding.constrain(logits, ("batch", "seq", "vocab"))

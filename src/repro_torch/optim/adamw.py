@@ -80,9 +80,13 @@ def global_norm(tree, shardings=None, mesh=None) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(f32_scalar(max_norm, norm) / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float, shardings=None, mesh=None):
     norm = global_norm(tree, shardings, mesh)
-    scale = torch.clamp(f32_scalar(max_norm, norm) / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda x: x.to(torch.float32) * scale, tree), norm
 
 
@@ -239,10 +243,10 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *, shardings=None, mesh
     lr = cosine_schedule(cfg, step)
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     p_sh = None if mesh is None else shardings["params"]
-    if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, p_sh, mesh)
-    else:
-        gnorm = global_norm(grads, p_sh, mesh)
+    gnorm = global_norm(grads, p_sh, mesh)
+    # clip_by_global_norm's scale, applied leaf by leaf inside the update
+    # (no second tree of gradients alive at once)
+    scale = _clip_scale(gnorm, cfg.clip_norm) if cfg.clip_norm else None
     layouts = (q8_layouts(shardings, mesh) if cfg.moments_dtype == "int8" else None) \
         if mesh is not None else None
 
@@ -252,6 +256,8 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *, shardings=None, mesh
     c2 = 1 - b2 ** stepf
 
     def upd(p, g, m_s, v_s, lay=None):
+        if scale is not None:
+            g = g * scale
         m = b1 * _load(m_s, cfg.moments_dtype, lay) + (1 - b1) * g
         v = b2 * _load(v_s, cfg.moments_dtype, lay) + (1 - b2) * g * g
         mh, vh = m / c1, v / c2

@@ -49,7 +49,9 @@ def ef_state_init(grads) -> Any:
 
 @torch.no_grad()
 def ef_compress_update(grads, err, mesh=None) -> Tuple[Any, Any]:
-    """-> (compressed-then-decompressed grads, new error state).  On the
+    """-> (compressed-then-decompressed grads, new error state).  The new
+    error is written into ``err``'s tensors, which come back as the new
+    error state (no second set of error buffers is alive).  On the
     training mesh (``mesh``; ``grads`` and ``err`` this rank's shards) each
     leaf's scale is the whole leaf's: the shards' maxima go through one
     all-reduce (max) over the mesh (the copies of a shard on other ranks
@@ -66,7 +68,7 @@ def ef_compress_update(grads, err, mesh=None) -> Tuple[Any, Any]:
     def leaf(g, e):
         corrected = g.to(torch.float32) + e
         deq = decompress_int8(compress_int8(corrected, None if amax is None else next(amax)))
-        return deq, corrected - deq
+        return deq, torch.sub(corrected, deq, out=e)
 
     out = tree_map(leaf, grads, err)
     return (tree_map(lambda _g, o: o[0], grads, out),

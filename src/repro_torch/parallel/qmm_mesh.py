@@ -21,7 +21,11 @@ of the mesh (SPMD over ``torch.distributed``):
   ``k_valid=0`` (BNN then gives ``-2 * popcount``), and all-reduce the
   int32 partial counts over the k axis; BNN's ``+ k`` and the eq. (2)
   epilogue ``acc * row * col (+ bias)`` are applied once, after the sum.
-  No float output is ever summed across ranks.
+  No float output is ever summed across ranks.  The same k-sharded
+  matmul (:func:`k_sharded_matmul`) runs the training mesh's
+  row-parallel projections (``ops.quantized_matmul``), whose weights are
+  packed in the step and whose int32 counts are reduce-scattered into
+  sequence shards under sequence parallelism.
 
 Integer addition is associative and zero pad words contribute zero in
 every encoding, so the outputs are bit-identical to the single-device
@@ -55,7 +59,8 @@ from repro_torch.kernels.qtensor import PAYLOAD_KEYS, POS_PAYLOAD_KEYS, QTensor
 from repro_torch.parallel import sharding
 
 __all__ = ["ShardPlan", "shard_plan", "shard_plan_conv", "local_dims", "take_local",
-           "qmm_sharded", "qconv_sharded", "collectives", "reset_collectives"]
+           "qmm_sharded", "k_sharded_matmul", "qconv_sharded", "collectives",
+           "reset_collectives"]
 
 _PSUM_CTR = obs.get_registry().counter(
     "repro_mesh_psum_total",
@@ -273,26 +278,46 @@ def qmm_sharded(x: torch.Tensor, qt: QTensor, plan: ShardPlan, mesh, *,
         # its resident weight words
         w0 = mesh.axis_index(plan.k_axis) * kw_local
         a_loc = tuple(p[:, w0:w0 + kw_local].contiguous() for p in a_pl)
-        if backend == "dense":
-            part = _dense_partial(mode, a_loc, planes, w0 * 32, k)
-            correction = 0                   # a true signed dot, no popcount bias
-        else:
-            part = spec.fn(a_loc, planes, 0, tiles=tiles)
-            correction = k if mode == QuantMode.BNN else 0
-        # the cross-rank reduction moves integer partial counts
-        part = part.to(WIRE_DTYPE)
-        nbytes = part.numel() * part.element_size()
-        _PSUM_CTR.inc(mode=mode.value, acc_dtype=str(WIRE_DTYPE).replace("torch.", ""))
-        _PSUM_BYTES_CTR.inc(nbytes, mode=mode.value)
-        _COLLECTIVES["all_reduce"] += 1
-        _COLLECTIVES["all_reduce_bytes"] += nbytes
-        t0 = time.perf_counter()
-        acc = mesh.all_reduce_sum_(part, plan.k_axis)
-        _COLLECTIVES["all_reduce_s"] += time.perf_counter() - t0
-        if correction:
-            acc = correction + acc
-        out = scale_epilogue(acc, row, col, b2)          # eq. (2), once, after the sum
+
+        def psum(part):
+            # the cross-rank reduction moves integer partial counts
+            nbytes = part.numel() * part.element_size()
+            _PSUM_CTR.inc(mode=mode.value, acc_dtype=str(WIRE_DTYPE).replace("torch.", ""))
+            _PSUM_BYTES_CTR.inc(nbytes, mode=mode.value)
+            _COLLECTIVES["all_reduce"] += 1
+            _COLLECTIVES["all_reduce_bytes"] += nbytes
+            t0 = time.perf_counter()
+            acc = mesh.all_reduce_sum_(part, plan.k_axis)
+            _COLLECTIVES["all_reduce_s"] += time.perf_counter() - t0
+            return acc
+
+        out = k_sharded_matmul(a_loc, planes, mode=mode, backend=backend, spec=spec,
+                               tiles=tiles, bit0=w0 * 32, depth=k, k=k, reduce=psum,
+                               row=row, col=col, bias=b2)
     return _gather(out, mesh, plan.n_axis)
+
+
+def k_sharded_matmul(a_loc, planes, *, mode: QuantMode, backend: str, spec, tiles,
+                     bit0: int, depth: int, k: int, reduce, row, col, bias) -> torch.Tensor:
+    """The k-sharded (row-parallel) low-bit matmul of one rank: the int32
+    core of its activation words ``a_loc`` against its weight words
+    ``planes`` (the unfused kernel with ``k_valid=0``: BNN then gives
+    ``-2 * popcount``; on the dense backend a signed dot over the bits
+    ``bit0 .. depth`` of the whole depth), the partial counts reduced by
+    ``reduce`` (an all-reduce over the k axis here; a reduce-scatter of the
+    sequence under the training mesh's sequence parallelism,
+    ``ops.quantized_matmul``), then BNN's ``+ k`` and the eq. (2) epilogue,
+    once, on the reduced counts.  No float output is summed across ranks."""
+    if backend == "dense":
+        part = _dense_partial(mode, a_loc, planes, bit0, depth)
+        correction = 0                   # a true signed dot, no popcount bias
+    else:
+        part = spec.fn(a_loc, planes, 0, tiles=tiles)
+        correction = k if mode == QuantMode.BNN else 0
+    acc = reduce(part.to(WIRE_DTYPE))
+    if correction:
+        acc = correction + acc
+    return scale_epilogue(acc, row, col, bias)          # eq. (2), once, after the sum
 
 
 def _gather(out: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:

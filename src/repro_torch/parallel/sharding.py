@@ -14,23 +14,47 @@ dims with *logical* axes ("batch", "heads", "ffn", "fsdp", ...) and
 A spec is a plain tuple with one entry per dim: a mesh axis name, a tuple
 of them, or None (the reference's ``PartitionSpec``; ``tuple(P)`` of the
 reference equals the port's spec).  Parameters resolve by *path*
-(:func:`param_spec`), so models carry no annotation tree;
-:func:`payload_plane_axes` gives the (n, k-words) axes a packed QTensor
-records as its ``pspec`` (models/packing.py), through the same table.
+(:func:`param_spec`, :func:`param_logical`), so models carry no
+annotation tree; :func:`payload_plane_axes` gives the (n, k-words) axes a
+packed QTensor records as its ``pspec`` (models/packing.py), through the
+same table.
 
 Two meshes use the rules.  The serving mesh: each rank holds its own
 slice of the packed bit planes (``parallel/qmm_mesh.py``), every float
-leaf is replicated, activations too.  The training mesh: each rank
-holds the shard of every float32 master, moment and EF buffer that its
-coordinates name (:class:`LeafSharding`, from :func:`train_state_shardings` of a
+leaf is replicated, activations too, and :func:`constrain` is the
+identity.  The training mesh: each rank holds the shard of every float32
+master, moment and EF buffer that its coordinates name
+(:class:`LeafSharding`, from :func:`train_state_shardings` of a
 whole-shape state), and its share of the batch rows, split over
-:func:`batch_axes`.  :func:`constrain_spec` gathers a compute copy whole
-(:func:`gather_leaf`; its backward sums the cotangent over the batch axes
-and keeps the shard, the reference's ZeRO-3 reduce-scatter), and
-:func:`split_batch` tells the forward that its batch reductions span the
-ranks (:func:`sum_over_batch`).  Activations stay whole on every rank, so
-:func:`constrain` is the identity on both meshes: tensor-parallel
-activations are not ported (ROADMAP.md).
+:func:`batch_axes`.  :func:`split_batch` declares the step's split for
+its forward and backward:
+
+* reductions over the batch span the batch axes (:func:`sum_over_batch`);
+* on the tensor-parallel axis (:func:`tp_axis`: the mesh axis the rules
+  give "heads", "ffn" or "vocab" that does not split the batch; "model"
+  under ``TRAIN_RULES`` and ``TRAIN_RULES_HYBRID``, none under
+  ``TRAIN_RULES_FSDP``) a leaf keeps its chunk of every dim whose logical
+  axis is one of :data:`TP_LOGICAL` (:func:`leaf_plans`), and the compute
+  splits along it: column-parallel projections on their n slice,
+  row-parallel ones on their k slice, the vocab over the embedding and
+  the head.  Every other axis of a leaf's spec is gathered
+  (:func:`constrain_spec` -> :func:`gather_leaf`, whose backward sums the
+  cotangent and keeps the shard: the reference's ZeRO-3 reduce-scatter);
+* where the rules also map "seq" onto that axis (``TRAIN_RULES``), the
+  residual stream between blocks is sequence-parallel: each rank holds
+  its chunk of the sequence.  :func:`tp_enter` gathers the sequence before
+  a column-parallel region (its backward reduce-scatters the partial
+  cotangents in float32 and rounds their sum once), :func:`tp_reduce`
+  reduce-scatters the partial sums of a row-parallel one into sequence
+  shards (its backward all-gathers), and
+  :func:`constrain` slices a whole activation named with "seq" into its
+  shard.  Without "seq" on it (``TRAIN_RULES_HYBRID``) the two are the
+  all-reduce pair: :func:`tp_enter` all-reduces the cotangent,
+  :func:`tp_reduce` the partial sums.
+
+Configs with MoE or SSM layers take no tensor-parallel split
+(``train/train_step.py``): every leaf is gathered whole, as the axes of a
+:class:`LeafPlan` of :func:`whole_plans` say.
 """
 
 from __future__ import annotations
@@ -50,7 +74,10 @@ __all__ = ["Rules", "TRAIN_RULES", "SERVE_RULES", "SERVE_RULES_MOE", "SERVE_RULE
            "RULESETS", "use_mesh", "active", "spec_for", "constrain", "constrain_spec",
            "param_spec", "param_shardings", "payload_plane_axes", "spec_axes",
            "batch_axes", "mesh_coord", "holds_first_copy", "LeafSharding", "shard_leaf",
-           "gather_leaf", "split_batch", "batch_split", "sum_over_batch", "train_state_shardings"]
+           "gather_leaf", "split_batch", "batch_split", "sum_over_batch",
+           "train_state_shardings", "TP_LOGICAL", "tp_axis", "param_logical", "LeafPlan",
+           "leaf_plans", "whole_plans", "tp_split", "tp_size", "seq_parallel", "tp_enter",
+           "tp_reduce", "tp_reduce_partial", "tp_gather_rows", "sum_over_tp", "max_over_tp"]
 
 AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
@@ -198,24 +225,41 @@ def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],
 
 
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.Tensor:
-    """Sharding constraint on an activation by logical axes: the identity.
-    Activations stay whole on each rank: the serving mesh replicates them,
-    and the training mesh splits only the batch rows, which each rank holds
-    as its own batch (module docstring); tensor-parallel activations are
-    not ported."""
-    return x
+    """Sharding constraint on an activation by logical axes.  The identity
+    but on a sequence-parallel training split (:func:`split_batch` with
+    ``sp``), where a tensor named with "seq" is made this rank's sequence
+    shard: a whole one (its "seq" dim the step's length) is sliced, and its
+    backward all-gathers the cotangent; a shard passes.  The other logical
+    axes need no data movement here: a tensor split over "heads", "ffn" or
+    "vocab" comes out of a column-parallel projection already split, and
+    serving replicates every activation."""
+    split = batch_split()
+    if split is None or not split.sp or "seq" not in logical_axes:
+        return x
+    dim = list(logical_axes).index("seq")
+    size = x.shape[dim]
+    if size == split.seq // split.tp_size:
+        return x
+    if size != split.seq:
+        raise ValueError(f"constrain: dim {dim} of {tuple(x.shape)} is neither the step's "
+                         f"sequence ({split.seq}) nor its shard")
+    return _SeqSlice.apply(x, dim, split)
 
 
-def constrain_spec(x: torch.Tensor, spec: Spec) -> torch.Tensor:
-    """A parameter's compute copy constrained to its ``spec``: ``x`` is
-    this rank's shard and the result the whole leaf, gathered from the
-    shards (:func:`gather_leaf`, whose backward sums the cotangent over the
-    batch axes and keeps this rank's shard: the ZeRO-3 reduce-scatter).
-    Outside a training mesh (:func:`split_batch`), the identity."""
+def constrain_spec(x: torch.Tensor, spec: Spec,
+                   sum_axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """A parameter's compute copy constrained to ``spec``: ``x`` is this
+    rank's shard and the result gathered over every axis of ``spec``
+    (:func:`gather_leaf`, whose backward sums the cotangent over
+    ``sum_axes``, default the batch axes, and keeps this rank's shard: the
+    ZeRO-3 reduce-scatter).  The train step passes a :class:`LeafPlan`'s
+    ``gather`` spec, which leaves out the tensor-parallel axis of a leaf
+    whose compute splits along it.  Outside a training mesh
+    (:func:`split_batch`), the identity."""
     split = batch_split()
     if split is None:
         return x
-    return gather_leaf(x, spec, split.mesh, split.axes)
+    return gather_leaf(x, spec, split.mesh, split.axes if sum_axes is None else sum_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +308,110 @@ def holds_first_copy(spec: Spec, mesh) -> bool:
     norm)."""
     used = {a for e in spec for a in spec_axes(e)}
     return all(mesh.axis_index(ax) == 0 for ax in mesh.axis_names if ax not in used)
+
+
+# The logical axes whose compute a training step splits over its
+# tensor-parallel axis (:func:`leaf_plans`).
+TP_LOGICAL = ("heads", "kv_heads", "ffn", "vocab")
+
+
+def tp_axis(ctx: Optional[_Active] = None) -> Optional[str]:
+    """The tensor-parallel axis of a training step under the active rules:
+    the first mesh axis of size > 1 that the rules give one of
+    :data:`TP_LOGICAL` and that does not split the batch (:func:`batch_axes`);
+    None without one.  ``TRAIN_RULES`` and ``TRAIN_RULES_HYBRID``: "model";
+    ``TRAIN_RULES_FSDP``: None ("model" splits the batch there)."""
+    ctx = ctx or active()
+    if ctx is None:
+        return None
+    batch = set(batch_axes(ctx))
+    for logical in TP_LOGICAL:
+        for ax in ctx.rules.mesh_axes(logical):
+            if ax not in batch and ctx.axis_sizes.get(ax, 1) > 1:
+                return ax
+    return None
+
+
+def tp_size(ctx: Optional[_Active] = None) -> int:
+    """The size of :func:`tp_axis` (1 without one, and off the mesh): the
+    ``ShardLayout.tp`` of a training step."""
+    ctx = ctx or active()
+    ax = tp_axis(ctx)
+    return ctx.axis_sizes[ax] if ax else 1
+
+
+def seq_parallel(ctx: Optional[_Active] = None, tp: Optional[str] = None) -> bool:
+    """True when the rules map "seq" onto the tensor-parallel axis ``tp``
+    (default :func:`tp_axis`): the residual stream then holds sequence
+    shards between blocks (``TRAIN_RULES``)."""
+    ctx = ctx or active()
+    tp = tp if tp is not None else tp_axis(ctx)
+    return ctx is not None and tp is not None and tp in ctx.rules.mesh_axes("seq")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How a training step computes with one leaf: ``gather``, the spec
+    its compute copy is gathered over (the leaf's spec without the
+    tensor-parallel axis where the leaf keeps its chunk); ``sum_axes``,
+    the axes its gradient is summed over (the batch axes, and the
+    tensor-parallel axis where the leaf is whole on every rank of it but
+    each computes with a part: sequence shards, a rank's heads);
+    ``split``, the logical axis whose chunk the leaf keeps, or None."""
+    gather: Spec
+    sum_axes: Tuple[str, ...]
+    split: Optional[str] = None
+
+    @property
+    def gathered(self) -> bool:
+        return any(e is not None for e in self.gather)
+
+
+def whole_plans(p_sh, ctx: Optional[_Active] = None):
+    """The :class:`LeafPlan` tree of a step with no tensor-parallel split:
+    every leaf gathered over its whole spec, every gradient summed over
+    the batch axes."""
+    from repro_torch import tree
+
+    axes = batch_axes(ctx)
+    return tree.tree_map(lambda sh: LeafPlan(sh.spec, axes), p_sh)
+
+
+def leaf_plans(p_sh, ctx: Optional[_Active] = None, *, sp: bool):
+    """The :class:`LeafPlan` tree of a tensor-parallel step over the params'
+    :class:`LeafSharding` tree ``p_sh``: a leaf keeps its chunk on the
+    :func:`tp_axis` along every dim whose logical axis (:func:`param_logical`)
+    is in :data:`TP_LOGICAL` and whose spec entry leads with that axis,
+    and is gathered over every other axis of its spec; a leaf that keeps no
+    chunk sums its gradient over the tensor-parallel axis too when ``sp``
+    (each rank computes with its sequence shard or its heads).  Returns
+    (plans, the set of logical axes some leaf split)."""
+    from repro_torch import tree
+
+    ctx = ctx or active()
+    tp = tp_axis(ctx)
+    axes = batch_axes(ctx)
+    seen = set()
+
+    def plan(path, sh):
+        logical = param_logical(path, sh) or (None,) * len(sh.spec)
+        gather, split = [], None
+        for entry, lg in zip(sh.spec, logical):
+            ax = spec_axes(entry)
+            if tp in ax and lg in TP_LOGICAL:
+                if ax[0] != tp:
+                    raise NotImplementedError(f"{path}: spec entry {entry} splits "
+                                              f"{lg} with {tp} not its major axis")
+                split = lg
+                rest = ax[1:]
+                entry = None if not rest else rest[0] if len(rest) == 1 else rest
+            gather.append(entry)
+        if split is not None:
+            seen.add(split)
+            return LeafPlan(tuple(gather), axes, split)
+        return LeafPlan(tuple(gather), axes + ((tp,) if sp else ()))
+
+    return tree.map_with_paths(plan, p_sh), frozenset(seen)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -398,15 +546,43 @@ def gather_leaf(local: torch.Tensor, spec: Spec, mesh,
 class _BatchSplit:
     """The batch rows of the running forward are split over ``axes`` of
     ``mesh``: reductions over the batch (activation statistics, the MoE
-    load balance, the loss's token count) sum over them.  ``thread``: the
-    one that declared it."""
+    load balance, the loss's token count) sum over them.  ``tp``: the
+    tensor-parallel axis (or None), ``tp_size`` its size, ``split`` the
+    logical axes whose compute splits along it (:func:`leaf_plans`),
+    ``sp`` whether the residual stream holds sequence shards of the
+    step's ``seq`` tokens.  ``thread``: the one that declared it."""
 
-    def __init__(self, mesh, axes: Tuple[str, ...]):
+    def __init__(self, mesh, axes: Tuple[str, ...], tp: Optional[str] = None,
+                 split: Sequence[str] = (), sp: bool = False, seq: int = 0):
         self.mesh, self.axes = mesh, tuple(axes)
+        self.tp = tp
+        self.tp_size = mesh.axis_size(tp) if tp else 1
+        self.split = frozenset(split) if tp else frozenset()
+        self.sp = bool(sp and tp)
+        self.seq = int(seq)
         self.thread = threading.get_ident()
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's coordinate on the tensor-parallel axis."""
+        return self.mesh.axis_index(self.tp) if self.tp else 0
+
+    def splits(self, logical: str) -> bool:
+        """True when the compute of ``logical`` ("heads", "ffn", "vocab")
+        splits over the tensor-parallel axis."""
+        return logical in self.split
 
     def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         return self.mesh.all_reduce_axes_(t, self.axes, op)
+
+    def reduce_all(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Over the batch axes and the tensor-parallel axis: a reduction
+        whose elements the step splits over both (a row-parallel
+        projection's input, the residual stream's sequence shards)."""
+        return self.mesh.all_reduce_axes_(t, self.axes + ((self.tp,) if self.tp else ()), op)
+
+    def reduce_tp(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return self.mesh.all_reduce_axes_(t, (self.tp,), op) if self.tp else t
 
 
 # Process-wide, not a context variable: autograd runs a CUDA backward, and
@@ -418,13 +594,19 @@ _SPLIT: List[Optional[_BatchSplit]] = [None]
 
 
 @contextlib.contextmanager
-def split_batch(mesh, axes: Sequence[str]):
+def split_batch(mesh, axes: Sequence[str], *, tp: Optional[str] = None,
+                split: Sequence[str] = (), sp: bool = False, seq: int = 0):
     """Declare, for the block, that each rank's batch is its share of the
     global batch along the batch ``axes`` of ``mesh`` (the train step's
     forward and backward on the training mesh, the backward's threads
     included).  Axes of size 1 split nothing and are dropped: a batch no
     axis splits reduces as on one device.  ``mesh=None`` (one device) is a
     no-op context.
+
+    ``tp`` names the tensor-parallel axis of the step and ``split`` the
+    logical axes whose compute splits along it (:func:`leaf_plans`);
+    ``sp``: the residual stream holds sequence shards of ``seq`` tokens
+    (module docstring).  A ``tp`` of size 1 splits nothing.
 
     One caller at a time: the split is the process's, so any other thread
     that quantizes a projection or gathers a leaf while the block runs
@@ -438,7 +620,10 @@ def split_batch(mesh, axes: Sequence[str]):
     prev = _SPLIT[0]
     if prev is not None and prev.thread != threading.get_ident():
         raise RuntimeError("split_batch: another thread's training step is running")
-    _SPLIT[0] = _BatchSplit(mesh, tuple(ax for ax in axes if mesh.axis_size(ax) > 1))
+    if tp is not None and mesh.axis_size(tp) == 1:
+        tp = None
+    _SPLIT[0] = _BatchSplit(mesh, tuple(ax for ax in axes if mesh.axis_size(ax) > 1),
+                            tp=tp, split=split, sp=sp, seq=seq)
     try:
         yield
     finally:
@@ -448,6 +633,18 @@ def split_batch(mesh, axes: Sequence[str]):
 def batch_split() -> Optional[_BatchSplit]:
     """The active :func:`split_batch`, or None (one device, or serving)."""
     return _SPLIT[0]
+
+
+def tp_split(logical: Optional[str] = None) -> Optional[_BatchSplit]:
+    """The active split when it splits the compute of ``logical`` over a
+    tensor-parallel axis (any logical axis when None), else None: what
+    the models ask before they take the tensor-parallel path."""
+    split = _SPLIT[0]
+    if split is None or split.tp is None:
+        return None
+    if logical is not None and not split.splits(logical):
+        return None
+    return split
 
 
 class _SumOverBatch(torch.autograd.Function):
@@ -467,11 +664,195 @@ class _SumOverBatch(torch.autograd.Function):
 def sum_over_batch(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the batch axes of the active :func:`split_batch`
     (autograd: the identity backward of :class:`_SumOverBatch`); ``t``
-    itself outside one."""
+    itself outside one.  A reduction whose elements the tensor-parallel
+    axis splits too sums over both (``_BatchSplit.reduce_all``: a
+    row-parallel projection's statistics; the norm scales' gradients,
+    ``train_step._sum_replicated``)."""
     split = batch_split()
     if split is None or not split.axes:
         return t
     return _SumOverBatch.apply(t, split)
+
+
+class _SumOverTP(torch.autograd.Function):
+    """Forward: the sum over the tensor-parallel axis.  Backward: the
+    identity: every rank along it computes the same result from the sum,
+    so each one's cotangent is the cotangent of its own term."""
+
+    @staticmethod
+    def forward(ctx, t, split):
+        return split.reduce_tp(t.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_tp(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the tensor-parallel axis of the active split
+    (the identity backward): the vocab-parallel loss's sum of
+    exponentials and target logit."""
+    split = tp_split()
+    return t if split is None else _SumOverTP.apply(t, split)
+
+
+def max_over_tp(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the tensor-parallel axis (no gradient: the
+    loss takes it under ``detach``)."""
+    split = tp_split()
+    return t if split is None else split.reduce_tp(t.detach().contiguous(), "max")
+
+
+# ---------------------------------------------------------------------------
+# Tensor- and sequence-parallel boundaries
+# ---------------------------------------------------------------------------
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """float32 for a narrower float dtype (bf16), else ``dtype``: the dtype
+    a column-parallel region's input is handed on in (:func:`tp_enter`)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Sequence shards -> the whole sequence (all-gather over the
+    tensor-parallel axis, in ``x``'s dtype), handed on in float32 (or
+    wider); backward: the partial cotangents summed in that dtype and
+    scattered back into sequence shards (reduce-scatter), cast to ``x``'s
+    dtype once."""
+
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split, ctx.dtype = dim, split, x.dtype
+        return split.mesh.all_gather_axes(x.contiguous(), (split.tp,), dim).to(_wide(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.split.mesh.reduce_scatter_sum(g.to(_wide(ctx.dtype)).contiguous(),
+                                              (ctx.split.tp,), ctx.dim)
+        return g.to(ctx.dtype), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Partial sums over the tensor-parallel axis -> this rank's sequence
+    shard of their sum (reduce-scatter); backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return split.mesh.reduce_scatter_sum(x.contiguous(), (split.tp,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.mesh.all_gather_axes(g.contiguous(), (ctx.split.tp,), ctx.dim), \
+            None, None
+
+
+class _SeqSlice(torch.autograd.Function):
+    """A whole (replicated) activation -> this rank's sequence shard;
+    backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        chunk = x.shape[dim] // split.tp_size
+        return x.narrow(dim, split.tp_index * chunk, chunk).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.mesh.all_gather_axes(g.contiguous(), (ctx.split.tp,), ctx.dim), \
+            None, None
+
+
+class _TPCopy(torch.autograd.Function):
+    """The input of a column-parallel region without sequence shards:
+    forward ``x`` in float32 (or wider), backward the all-reduce of the
+    partial cotangents in that dtype, cast to ``x``'s dtype once."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split, ctx.dtype = split, x.dtype
+        wide = _wide(x.dtype)
+        return x.to(wide) if x.dtype != wide else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.reduce_tp(g.to(_wide(ctx.dtype)).contiguous(), "sum").to(ctx.dtype), None
+
+
+class _TPSum(torch.autograd.Function):
+    """Partial sums of a row-parallel region without sequence shards:
+    forward the all-reduce, backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        return split.reduce_tp(x.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_enter(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The input of a column-parallel region, the same on every rank of
+    the tensor-parallel axis: on a sequence-parallel split this rank's
+    sequence shard (``dim``) gathered whole (the wire in ``x``'s dtype),
+    else ``x`` itself; the backward sums the ranks' partial cotangents
+    (into sequence shards under ``sp``).  The result is float32 (or
+    ``x``'s wider dtype) with ``x``'s values, so each consumer's partial
+    cotangent stays float32: the partials are summed in float32, over the
+    region's projections and over the ranks, and cast to ``x``'s dtype
+    once (one device rounds each projection's cotangent of ``x`` and then
+    their sum; the two agree within that rounding).  A consumer casts what
+    it computes back to ``x``'s dtype where one device would.  ``x``
+    itself off a tensor-parallel split."""
+    split = tp_split()
+    if split is None:
+        return x
+    if split.sp:
+        return _SeqGather.apply(x, dim, split)
+    return _TPCopy.apply(x, split)
+
+
+def tp_reduce(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Partial sums over the tensor-parallel axis (a row-parallel
+    projection's float output, the vocab-parallel embedding) -> their sum:
+    this rank's sequence shard along ``dim`` under ``sp`` (reduce-scatter;
+    backward all-gather), else whole (all-reduce; backward the identity).
+    ``x`` itself off a tensor-parallel split."""
+    split = tp_split()
+    if split is None:
+        return x
+    if split.sp:
+        return _SeqScatter.apply(x, dim, split)
+    return _TPSum.apply(x, split)
+
+
+def tp_reduce_partial(part: torch.Tensor, lead: Sequence[int], split) -> torch.Tensor:
+    """No autograd: the partial (m, n) of a row-parallel projection whose
+    m rows are ``lead`` (the last lead dim the sequence) reduced over the
+    tensor-parallel axis -> (m / tp, n) under ``sp`` (reduce-scatter of
+    the sequence), (m, n) else (all-reduce).  ``ops.quantized_matmul``
+    reduces the int32 partial counts with it before the eq. (2)
+    epilogue."""
+    lead = tuple(int(d) for d in lead)
+    if split.sp:
+        t = part.reshape(lead + (part.shape[-1],))
+        t = split.mesh.reduce_scatter_sum(t, (split.tp,), len(lead) - 1)
+        return t.reshape(-1, part.shape[-1])
+    return split.reduce_tp(part.contiguous(), "sum")
+
+
+def tp_gather_rows(g: torch.Tensor, lead: Sequence[int], split) -> torch.Tensor:
+    """No autograd: the inverse of :func:`tp_reduce_partial`'s layout, for
+    its backward: the cotangent of this rank's (m / tp, n) sequence shard
+    gathered into the (m, n) of every row under ``sp``; ``g`` else."""
+    if not split.sp:
+        return g
+    lead = tuple(int(d) for d in lead)
+    local = lead[:-1] + (lead[-1] // split.tp_size,)
+    t = g.reshape(local + (g.shape[-1],))
+    t = split.mesh.all_gather_axes(t.contiguous(), (split.tp,), len(lead) - 1)
+    return t.reshape(-1, g.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -534,24 +915,37 @@ def _shape(leaf) -> Tuple[int, ...]:
     return tuple(int(d) for d in leaf.shape)
 
 
-def _match_rules(s: str, leaf, ndim: int, ctx) -> Optional[Spec]:
-    shape = _shape(leaf)
+def _match_logical(s: str, ndim: int) -> Optional[Tuple[Optional[str], ...]]:
+    """The logical axes of the leaf at path ``s`` of rank ``ndim`` by the
+    rule tables (a period-stacked leaf's leading dim None), or None."""
     if ndim == 3:
         for pat, axes in _PARAM_RULES_3D:
             if re.search(pat, s):
-                return spec_for(shape, axes, ctx)
+                return axes
     for pat, axes in _PARAM_RULES:
         if re.search(pat, s) and len(axes) == ndim:
-            return spec_for(shape, axes, ctx)
+            return axes
     # period-stacked params carry a leading period dim
     if ndim >= 1 and re.search(r"blocks/", s):
         for pat, axes in (_PARAM_RULES_3D if ndim == 4 else ()):
             if re.search(pat, s):
-                return (None,) + spec_for(shape[1:], axes, ctx)
+                return (None,) + axes
         for pat, axes in _PARAM_RULES:
             if re.search(pat, s) and len(axes) == ndim - 1:
-                return (None,) + spec_for(shape[1:], axes, ctx)
+                return (None,) + axes
     return None
+
+
+def _match_rules(s: str, leaf, ndim: int, ctx) -> Optional[Spec]:
+    logical = _match_logical(s, ndim)
+    return None if logical is None else spec_for(_shape(leaf), logical, ctx)
+
+
+def param_logical(path, leaf) -> Optional[Tuple[Optional[str], ...]]:
+    """The logical axes the rule tables give the parameter ``leaf`` at
+    ``path`` (None for a period-stacked leaf's leading dim), or None when
+    no rule matches."""
+    return _match_logical(_path_str(path), len(_shape(leaf)))
 
 
 def param_spec(path, leaf, ctx: Optional[_Active] = None) -> Spec:

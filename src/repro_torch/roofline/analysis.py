@@ -28,8 +28,11 @@ The work functions (:func:`gemm_work`, :func:`dense_gemm_work`,
 :class:`Work`: operations by class and the bytes the kernel must move
 (each input read once, each output written once).  ``chip_smoke.py``'s
 bound columns and the dry-run's kernel terms both come from them; so do
-:func:`lm_bounds` (an LM run's decode and prefill bounds) and
-:func:`train_step_flops` (the float products of one QAT step).
+:func:`lm_bounds` (an LM run's decode and prefill bounds),
+:func:`train_step_flops` (the float products of one QAT step, on one
+device or one rank of a tensor-parallel mesh) and
+:func:`train_mesh_collectives` (a training-mesh step's collectives per
+rank, from its shardings: the port's mesh code, imported when called).
 
 The module imports nothing at load time, so a script can load it from
 its file to bound another checkout's kernels with this checkout's
@@ -44,7 +47,8 @@ from typing import Dict, Optional, Tuple
 __all__ = ["HW", "Work", "RooflineTerms", "model_flops", "roofline_from_artifact",
            "NPOPC", "gemm_work", "dense_gemm_work", "affine_gemm_work", "conv_pack_work",
            "conv_work", "conv_fused_work", "kernel_work", "proj_shapes",
-           "kv_bytes_per_token", "lm_bounds", "train_step_flops", "DTYPE_CLASS"]
+           "kv_bytes_per_token", "lm_bounds", "train_step_flops", "train_mesh_collectives",
+           "DTYPE_CLASS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,19 +261,124 @@ def lm_bounds(cfg, batch: int, prompt: int, steps: int, packed_bytes: int,
     return decode.memory_s(hw) * 1e3, Work({"popc": float(popc)}).compute_s(hw) * 1e3
 
 
-def train_step_flops(cfg, batch: int, seq: int) -> float:
+def train_step_flops(cfg, batch: int, seq: int, tp: int = 1) -> float:
     """Float operations of one QAT step of ``cfg`` at (batch, seq), from
     shapes: per projection the STE backward's two products (gx, gw: 4 m n
     k; the forward is the popcount GeMM), the head forward and backward
     (6 m d V), and per attention layer and sequence QK^T and PV (4 S^2 d)
     in the forward, the remat recompute and twice in the backward
-    (16 S^2 d)."""
+    (16 S^2 d).  ``tp``: one rank of a tensor-parallel step over ``batch``
+    of its rows, which splits every product's heads, FFN or vocab ``tp``
+    ways (heads the axis divides: no padding heads)."""
     m = batch * seq
     proj = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, 0))
     head = 6 * m * cfg.d_model * cfg.vocab_size
     attn = sum(m_ in ("A", "AL") for m_, _ in cfg.layer_pattern) * cfg.num_periods
     hd = cfg.num_heads * cfg.head_dim_
-    return proj + head + attn * batch * 16 * seq * seq * hd
+    return (proj + head + attn * batch * 16 * seq * seq * hd) / tp
+
+
+# all-reduces of one quantized projection's statistics: the activations'
+# (a sum, then the kept sum) and a row-parallel weight's per channel
+_ACT_STAT_REDUCES = {"tnn": 2, "tbn": 2, "bnn": 1}
+_W_STAT_REDUCES = {"tnn": 2, "tbn": 1, "bnn": 1}
+
+
+def train_mesh_collectives(cfg, tcfg, shardings, mesh, policy: str, seq: int) -> Dict[str, int]:
+    """The training mesh's collectives per rank per step of ``cfg`` (every
+    layer attention with a dense FFN) on ``mesh`` under the active rules,
+    each counted once per mesh axis of size > 1 it runs over, as
+    ``launch.mesh.collectives`` counts them; predicted from the train
+    state's ``shardings`` and the rules:
+
+    * every leaf by its plan (``sharding.leaf_plans``, or ``whole_plans``
+      off a tensor-parallel split): per microbatch a gather per axis it
+      is gathered over, its gradient reduce-scattered over those of its
+      sum axes and all-reduced over the others; a leaf gathered over none
+      all-reduces its gradient over its sum axes once;
+    * an int8 moment whose shard cuts a 256-block: its block maxima
+      (all-reduce) and its scales (gather), for m and v;
+    * per forward (twice under remat) each quantized projection's
+      activation statistics over the batch axes (and the tensor-parallel
+      axis for a row-parallel one) and a row-parallel weight's channel
+      statistics over the tensor-parallel axis;
+    * tensor parallelism per layer and microbatch: each split region's
+      input gathered (sequence parallelism) in the forward and the
+      recompute and its backward's reduce-scatter, each row-parallel
+      output's reduce-scatter in the forward and the recompute and its
+      backward's gather (without sequence parallelism all-reduces in
+      their place: the input's backward, the output's forward), the
+      vocab-parallel embedding's and the head input's pair; the recompute
+      stops after the last op whose saved tensors the backward needs, so
+      under a float policy it skips each layer's last row-parallel
+      reduction; the loss's row max and its sums over the vocab, per
+      chunk;
+    * the loss's token count per microbatch, the loss shares, the global
+      norm and EF's absmax (one each over the whole mesh)."""
+    from repro_torch.optim.adamw import Q8Layout
+    from repro_torch.parallel import sharding
+    from repro_torch.train.train_step import tp_config
+    from repro_torch.tree import flatten_with_paths
+
+    if not tp_config(cfg):
+        raise NotImplementedError(f"{cfg.name}: layers other than attention and dense FFN")
+
+    def n(axes):
+        return sum(1 for a in axes if mesh.axis_size(a) > 1)
+
+    ctx = sharding.active()
+    batch = [a for a in sharding.batch_axes(ctx) if mesh.axis_size(a) > 1]
+    tp = sharding.tp_axis(ctx)
+    sp = tp is not None and sharding.seq_parallel(ctx, tp) and seq % mesh.axis_size(tp) == 0
+    if tp is None:
+        plans, split = sharding.whole_plans(shardings["params"], ctx), frozenset()
+    else:
+        plans, split = sharding.leaf_plans(shardings["params"], ctx, sp=sp)
+    plan_of = dict(flatten_with_paths(plans))
+    opt_m = dict(flatten_with_paths(shardings["opt"]["m"]))
+    micro = tcfg.microbatch
+    gathers = scatters = reduces = 0
+    for path, p in flatten_with_paths(shardings["params"]):
+        plan = plan_of[path]
+        axes = {a for e in plan.gather for a in sharding.spec_axes(e)}
+        if plan.gathered:
+            gathers += micro * n(axes)
+            scatters += micro * n([a for a in plan.sum_axes if a in axes])
+            reduces += micro * n([a for a in plan.sum_axes if a not in axes])
+        else:
+            reduces += n(plan.sum_axes)
+        if tcfg.optimizer.moments_dtype == "int8" and Q8Layout.cuts(p, mesh):
+            reduces += 2 * n(sharding.spec_axes(p.spec[-1]))
+            gathers += 2 * n(sharding.spec_axes(opt_m[f"{path}/scale"].spec[-1]))
+    layers = cfg.num_layers
+    fwd = 2 if cfg.remat else 1
+    heads, ffn, vocab = ("heads" in split), ("ffn" in split), ("vocab" in split)
+    # projections per layer: (whole, column-parallel, row-parallel)
+    col = 3 * heads + 2 * ffn
+    row = heads + ffn
+    whole = 7 - col - row
+    act = _ACT_STAT_REDUCES.get(policy, 0)
+    if act:
+        tp_axes = batch + ([tp] if tp else [])
+        reduces += micro * fwd * layers * (act * (whole + col) * n(batch)
+                                           + row * (act * n(tp_axes) + _W_STAT_REDUCES[policy]))
+    if tp is not None:
+        skipped = layers if (cfg.remat and row and act == 0) else 0
+        enters = heads + ffn
+        tokens = cfg.input_kind != "embeddings"
+        if sp:
+            gathers += micro * (layers * (enters * fwd + row) + vocab * (1 + tokens))
+            scatters += micro * (layers * (row * fwd + enters) - skipped
+                                 + vocab * (1 + tokens))
+        else:
+            reduces += micro * (layers * (enters + row * fwd) - skipped + vocab * (1 + tokens))
+        if vocab:
+            chunk = min(tcfg.seq_chunk, seq)
+            chunks = seq // chunk if seq % chunk == 0 else 1
+            reduces += micro * 2 * chunks
+    reduces += micro * n(batch) + n(batch) + (1 if mesh.size > 1 else 0) * (
+        1 + int(tcfg.ef_compression))
+    return {"all_gather": gathers, "reduce_scatter": scatters, "all_reduce": reduces}
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,9 @@ the mesh, whose constraints do nothing off the mesh:
   the reference's order, then divided by ``n_micro``;
 * error-feedback int8 compression of the gradients (optim/compression.py);
 * AdamW with float32 or int8 block-quantized moments, written into the
-  state's tensors in place (optim/adamw.py).  The returned state has the
-  reference's keys: ``params``, ``opt`` {``step``, ``m``, ``v``} and, with
-  compression, ``ef``.
+  state's tensors in place (optim/adamw.py), as are the EF buffers.  The
+  returned state has the reference's keys: ``params``, ``opt``
+  {``step``, ``m``, ``v``} and, with compression, ``ef``.
 
 On the training mesh (the step called inside ``sharding.use_mesh(mesh,
 TRAIN_RULES)``, or another training ruleset, on every rank) the state
@@ -25,22 +25,42 @@ and the batch this rank's rows, split over ``sharding.batch_axes``:
 
 * each compute copy is the local shard cast to bf16 (2-D float32 leaves
   under ``cast_params_bf16``, as on one device), then gathered
-  (``sharding.constrain_spec``): the wire carries bf16, and the backward
-  sums the bf16 cotangent over the batch axes onto this rank's shard (the
-  reference's ZeRO-3 reduce-scatter).  Leaves no axis shards are not
-  gathered; their float32 gradients are all-reduced over the batch axes;
+  (``sharding.constrain_spec``) over the axes of its
+  ``sharding.LeafPlan``: the wire carries bf16, and the backward sums the
+  bf16 cotangent over the plan's axes onto this rank's shard (the
+  reference's ZeRO-3 reduce-scatter).  Leaves no axis is gathered over
+  pass as they are; their float32 gradients are all-reduced over those
+  axes (:func:`_sum_replicated`);
+* tensor and sequence parallelism (``sharding.leaf_plans``), for configs
+  whose layers are all attention and dense FFN (:func:`tp_config`): a leaf
+  keeps its chunk on the tensor-parallel axis ("model" under
+  ``TRAIN_RULES`` and ``TRAIN_RULES_HYBRID``) along its "heads", "ffn"
+  and "vocab" dims and is gathered over the rest (its "fsdp" axes), and
+  the model computes on those chunks: column-parallel wq/wk/wv/gate/up,
+  row-parallel wo/down, the vocab-parallel embedding, head and loss.
+  Under ``TRAIN_RULES`` ("seq" on "model") the residual stream between
+  blocks holds this rank's sequence shard, and the leaves whole on every
+  rank of the axis (norm scales) sum their gradients over it as well.
+  ``ShardLayout.tp`` must give heads the axis divides
+  (``models.common.train_layout``).  Configs with MoE or SSM layers, and
+  ``TRAIN_RULES_FSDP`` (whose "model" axis splits the batch), gather every
+  leaf whole (``sharding.whole_plans``), so ranks along an axis that does
+  not split the batch repeat each other's work;
 * reductions over the batch inside the forward are the global batch's
   (``sharding.split_batch``): the activation statistics of every
-  quantized projection, the MoE load balance and the loss's token count,
-  so each rank's loss is its share of the global loss;
+  quantized projection (a row-parallel one's over the tensor-parallel
+  axis too), the MoE load balance and the loss's token count, so each
+  rank's loss is its share of the global loss;
 * microbatches split the rank's rows (the trainer deals them so that
   microbatch ``i`` holds the global batch's ``i``-th chunk);
 * EF compression takes each leaf's global absmax, AdamW the global norm
-  and, for int8 moments, the blocks of the unsharded last dim.
+  (each element counted once, ``sharding.holds_first_copy``) and, for
+  int8 moments, the blocks of the unsharded last dim.
 
 So a mesh step equals the one-device step up to the order of float sums
 (and, on the bf16 wire, one bf16 rounding of each rank's cotangent before
-the sum), and every integer core is the one-device core.
+the sum), and every integer core is the one-device core: a row-parallel
+projection's int32 partial counts sum to it exactly.
 """
 
 from __future__ import annotations
@@ -59,7 +79,7 @@ from repro_torch.train.loss import xent_loss
 from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map
 
 __all__ = ["TrainStepConfig", "make_train_step", "init_train_state",
-           "state_shardings", "make_loss_fn", "value_and_grad"]
+           "state_shardings", "make_loss_fn", "value_and_grad", "tp_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,40 +93,55 @@ class TrainStepConfig:
     cast_params_bf16: bool = True # mixed precision: bf16 compute params
 
 
-def _compute_copies(params, p_sh, cast_bf16: bool):
+def tp_config(cfg: ModelConfig) -> bool:
+    """True when every layer of ``cfg`` is attention with a dense FFN (or
+    none): the configs the tensor-parallel step runs (module docstring)."""
+    return all(m in ("A", "AL") and f in ("D", "-") for m, f in cfg.layer_pattern)
+
+
+def _compute_copies(params, plans, cast_bf16: bool):
     """The compute copies of the float32 masters, inside the autograd
     graph, so each gradient reaches its master through them: under
     ``cast_bf16`` every float32 leaf of two or more dims is cast to bf16
     (1-D params, norm scales and biases, stay f32: they are tiny and
-    precision-critical).  On the training mesh (``p_sh``, the params'
-    ``LeafSharding`` tree) each sharded leaf is then gathered whole
-    (``sharding.constrain_spec``), so the wire carries the cast copy;
-    leaves no axis shards pass as they are (:func:`_sum_replicated`)."""
-    def leaf(x, sh=None):
+    precision-critical).  On the training mesh (``plans``, the params'
+    ``sharding.LeafPlan`` tree) each leaf is then gathered over its plan's
+    axes (``sharding.constrain_spec``), so the wire carries the cast copy;
+    leaves gathered over none pass as they are (:func:`_sum_replicated`)."""
+    def leaf(x, plan=None):
         if cast_bf16 and x.dtype == torch.float32 and x.ndim >= 2:
             x = x.to(torch.bfloat16)
-        return sharding.constrain_spec(x, sh.spec) if sh is not None and sh.sharded else x
-    return tree_map(leaf, params) if p_sh is None else tree_map(leaf, params, p_sh)
+        if plan is None or not plan.gathered:
+            return x
+        return sharding.constrain_spec(x, plan.gather, plan.sum_axes)
+    return tree_map(leaf, params) if plans is None else tree_map(leaf, params, plans)
 
 
-def _sum_replicated(grads, p_sh):
-    """The gradients of leaves no mesh axis shards summed over the batch
-    axes of the active ``sharding.split_batch``: their copies are not
-    gathered, so no reduce-scatter reached them.  The identity off the
-    mesh (``p_sh`` None)."""
-    if p_sh is None:
+def _sum_replicated(grads, plans):
+    """The gradients of leaves gathered over no axis summed over their
+    plan's axes (the batch axes, and the tensor-parallel axis for a leaf
+    each rank of it computes with a part of): no reduce-scatter reached
+    them.  The identity off the mesh (``plans`` None)."""
+    if plans is None:
         return grads
-    return tree_map(lambda g, sh: g if sh.sharded else sharding.sum_over_batch(g), grads, p_sh)
+    split = sharding.batch_split()
+
+    def leaf(g, plan):
+        axes = [a for a in plan.sum_axes if split.mesh.axis_size(a) > 1]
+        if plan.gathered or not axes:
+            return g
+        return split.mesh.all_reduce_axes_(g.contiguous(), axes, "sum")
+    return tree_map(leaf, grads, plans)
 
 
-def make_loss_fn(cfg: ModelConfig, layout: ShardLayout, tcfg: TrainStepConfig, p_sh=None):
+def make_loss_fn(cfg: ModelConfig, layout: ShardLayout, tcfg: TrainStepConfig, plans=None):
     """loss_fn(params, batch) -> (loss + aux, metrics {"nll", "tokens",
     "aux", "share"}); ``share`` is the loss without the aux, on a split
-    batch this rank's rows' share of the global one.  ``p_sh``: the
-    params' ``LeafSharding`` tree on the training mesh (the compute copies
-    are then gathered, :func:`_compute_copies`)."""
+    batch this rank's rows' share of the global one.  ``plans``: the
+    params' ``sharding.LeafPlan`` tree on the training mesh (the compute
+    copies are then gathered, :func:`_compute_copies`)."""
     def loss_fn(params, batch):
-        params = _compute_copies(params, p_sh, tcfg.cast_params_bf16)
+        params = _compute_copies(params, plans, tcfg.cast_params_bf16)
         hidden, aux = model_mod.forward_hidden(params, batch, cfg, layout)
         loss, metrics = xent_loss(params, hidden, batch, cfg, layout,
                                   seq_chunk=tcfg.seq_chunk, z_loss=tcfg.z_loss)
@@ -216,31 +251,67 @@ def _accumulate_grads(loss_fn, params, batch, n_micro: int):
     return loss / n_micro, tree_map(lambda g: g / n_micro, grads), metrics
 
 
+def _check_tp_layout(cfg: ModelConfig, layout: ShardLayout, tp: int, split, sp: bool):
+    """Raise unless the parameters of ``layout`` split over ``tp`` ranks
+    as the tensor-parallel forward needs: whole kv slots with their q
+    groups on each rank, and q/k norms only under sequence parallelism
+    (their gradient sums over the axis with the norms')."""
+    from repro_torch.models.attention import head_layout
+
+    if "heads" not in split:
+        return
+    hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
+    if hl.kvp % tp:
+        raise ValueError(f"{cfg.name}: {hl.kvp} kv slots do not split over {tp} "
+                         f"tensor-parallel ranks; build the state with "
+                         f"ShardLayout(tp={tp}) (models.common.train_layout)")
+    if cfg.qk_norm and not sp:
+        raise NotImplementedError(f"{cfg.name}: q/k norms on heads split without "
+                                  f"sequence parallelism")
+
+
 def make_train_step(cfg: ModelConfig, layout: ShardLayout,
                     tcfg: TrainStepConfig):
     """Returns train_step(state, batch) -> (state, metrics {"loss", "nll",
-    "tokens", "aux", "lr", "grad_norm"}).  ``batch`` holds tensors on the
-    state's device; the state's tensors are updated in place.  Called
-    inside ``sharding.use_mesh`` the step runs on the training mesh
-    (module docstring): ``state`` then holds this rank's shards and
-    ``batch`` this rank's rows."""
+    "tokens", "aux", "lr", "grad_norm"}), with ``train_step.prepare(ctx,
+    seq)`` to build its mesh plans ahead of the first call.  ``batch``
+    holds tensors on the state's device; the state's tensors are updated
+    in place.  Called inside ``sharding.use_mesh`` the step runs on the
+    training mesh (module docstring): ``state`` then holds this rank's
+    shards and ``batch`` this rank's rows."""
     cache: Dict[Any, Any] = {}
+
+    def mesh_plan(ctx, seq: int):
+        """(state shardings, leaf plans, split kwargs) for the active mesh
+        and sequence length, cached per mesh and rules."""
+        key = (id(ctx.mesh), id(ctx.rules), seq)
+        if key not in cache:
+            cache.clear()
+            shardings = state_shardings(cfg, layout, tcfg, ctx)
+            tp = sharding.tp_axis(ctx) if tp_config(cfg) else None
+            if tp is None:
+                cache[key] = (shardings, sharding.whole_plans(shardings["params"], ctx), {})
+            else:
+                size = ctx.axis_sizes[tp]
+                sp = sharding.seq_parallel(ctx, tp) and seq % size == 0
+                plans, split = sharding.leaf_plans(shardings["params"], ctx, sp=sp)
+                _check_tp_layout(cfg, layout, size, split, sp)
+                cache[key] = (shardings, plans, {"tp": tp, "split": split, "sp": sp,
+                                                 "seq": seq})
+        return cache[key]
 
     def train_step(state, batch):
         ctx = sharding.active()
-        shardings = mesh = None
+        shardings = mesh = plans = None
+        kw: Dict[str, Any] = {}
         if ctx is not None:
-            key = (id(ctx.mesh), id(ctx.rules))
-            if key not in cache:
-                cache.clear()
-                cache[key] = state_shardings(cfg, layout, tcfg, ctx)
-            shardings, mesh = cache[key], ctx.mesh
-        p_sh = None if shardings is None else shardings["params"]
-        loss_fn = make_loss_fn(cfg, layout, tcfg, p_sh)
+            shardings, plans, kw = mesh_plan(ctx, int(batch["labels"].shape[1]))
+            mesh = ctx.mesh
+        loss_fn = make_loss_fn(cfg, layout, tcfg, plans)
         params = state["params"]
-        with sharding.split_batch(mesh, sharding.batch_axes(ctx)):
+        with sharding.split_batch(mesh, sharding.batch_axes(ctx), **kw):
             loss, grads, metrics = _accumulate_grads(loss_fn, params, batch, tcfg.microbatch)
-            grads = _sum_replicated(grads, p_sh)
+            grads = _sum_replicated(grads, plans)
 
         if tcfg.ef_compression:
             grads, new_ef = compression.ef_compress_update(grads, state["ef"], mesh=mesh)
@@ -252,4 +323,13 @@ def make_train_step(cfg: ModelConfig, layout: ShardLayout,
             new_state["ef"] = new_ef
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 
+    def prepare(ctx, seq: int) -> None:
+        """Build the step's shardings and plans for the mesh context ``ctx``
+        and sequence length ``seq`` ahead of its first call: host work on a
+        whole-shape ``meta`` skeleton, which the dry-run's count of live
+        bytes must not take for the step's memory."""
+        if ctx is not None:
+            mesh_plan(ctx, int(seq))
+
+    train_step.prepare = prepare
     return train_step

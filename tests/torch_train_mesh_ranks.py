@@ -11,6 +11,8 @@ readings).  The script imports neither JAX nor the JAX package:
     python tests/torch_train_mesh_ranks.py <dir>             (RANK, WORLD_SIZE, ... set)
     python tests/torch_train_mesh_ranks.py --launch <dir>    (2 ranks: launch.train,
                                                              saving its checkpoint)
+    python tests/torch_train_mesh_ranks.py --direct <dir>    (2 ranks: the same run
+                                                             as a Trainer)
 
 On 4 ranks:
 
@@ -19,8 +21,9 @@ On 4 ranks:
   reference's state carried across with ``interop.train_state_from_numpy``
   onto the shards; the updated state gathered whole and the metrics;
 * each rank's bytes of masters, moments and EF buffers;
-* the first quantized projection of case "A": its weight planes, this
-  rank's rows, their activation statistics and the int32 core;
+* the first quantized projection of each case: its weight planes (this
+  rank's n slice under tensor parallelism), this rank's rows, their
+  activation statistics and the int32 core, and the rank's coordinates;
 * EF compression and AdamW on shards against the same whole inputs;
 * an int8 moment whose shards cut its 256-blocks;
 * a checkpoint saved on (2, 2), restored onto (4, 1) and stepped once more,
@@ -55,7 +58,10 @@ from repro_torch.tree import flatten_with_paths, map_with_paths
 
 ARCH = "tinyllama-1.1b"
 TL = ShardLayout(tp=1)
-# name: (mesh shape, rules, policy, moments, ef, bf16 wire, microbatches, batch key)
+# name: (mesh shape, rules, policy, moments, ef, bf16 wire, microbatches, batch key);
+# under TRAIN_RULES the step splits heads, FFN, vocab and the sequence over
+# "model" (tensor and sequence parallelism), under TRAIN_RULES_FSDP it
+# gathers every leaf whole
 CASES = {
     "A": ((2, 2), "train", "tnn", "f32", False, False, 1, "batch"),
     "B": ((2, 2), "train", "tnn", "int8", True, True, 1, "batch"),
@@ -64,6 +70,14 @@ CASES = {
     "E": ((2, 2), "train_fsdp", "tnn", "f32", False, False, 1, "batch6"),
 }
 LR = 1e-3
+# cases whose state is built with another ShardLayout: (1, 4) splits the
+# smoke config's 2 kv heads over 4 ranks, so its layout pads them to 4
+LAYOUT_TP = {"C": 4}
+
+
+def layout_of(name):
+    """The ShardLayout of case ``name``'s state and step."""
+    return ShardLayout(tp=LAYOUT_TP.get(name, 1))
 
 
 def step_config(policy, moments, ef, wire, micro, clip=1.0, arch=ARCH):
@@ -75,8 +89,8 @@ def step_config(policy, moments, ef, wire, micro, clip=1.0, arch=ARCH):
     return cfg, tcfg
 
 
-def state_key(moments, ef):
-    return f"{moments}-{int(ef)}"
+def state_key(moments, ef, tp=1):
+    return f"{moments}-{int(ef)}" + (f"-tp{tp}" if tp != 1 else "")
 
 
 def local_rows(mesh, n, micro):
@@ -125,19 +139,21 @@ def step_cases(inp, out, mesh_of):
     for name, (shape, rules, policy, moments, ef, wire, micro, bkey) in CASES.items():
         mesh = mesh_of(shape)
         cfg, tcfg = step_config(policy, moments, ef, wire, micro)
+        layout = layout_of(name)
         with sharding.use_mesh(mesh, sharding.RULESETS[rules]):
-            sh = state_shardings(cfg, TL, tcfg)
-            state = interop.train_state_from_numpy(inp["states"][state_key(moments, ef)],
-                                                   "cpu", shardings=sh)
+            sh = state_shardings(cfg, layout, tcfg)
+            state = interop.train_state_from_numpy(
+                inp["states"][state_key(moments, ef, layout.tp)], "cpu", shardings=sh)
             out["bytes"][name] = local_bytes(state)
             batch = inp[bkey]
             rows = local_rows(mesh, batch["labels"].shape[0], micro)
             out["rows"][name] = rows.tolist()
+            out["coords"][name] = dict(mesh.coords)
             box = {}
             real, hooked = record_first_qmm(box)
             ops.qmm = hooked
             try:
-                state, met = make_train_step(cfg, TL, tcfg)(state, tensors(batch, rows))
+                state, met = make_train_step(cfg, layout, tcfg)(state, tensors(batch, rows))
             finally:
                 ops.qmm = real
             out["metrics"][name] = {k: float(v) for k, v in met.items()}
@@ -285,7 +301,7 @@ def main(d: str) -> int:
     rank = dist.get_rank()
     with open(os.path.join(d, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    out = {"rank": rank, "errors": [], "bytes": {}, "rows": {}, "metrics": {},
+    out = {"rank": rank, "errors": [], "bytes": {}, "rows": {}, "coords": {}, "metrics": {},
            "first_qmm": {}, "states": {}, "ef": {}, "adamw": {}}
     meshes = {}
 
@@ -319,22 +335,73 @@ def main(d: str) -> int:
     return 0
 
 
+LAUNCH_ARGS = ["--smoke", "--device", "cpu", "--quant", "tnn", "--steps", "6", "--batch", "4",
+               "--seq", "32", "--lr", "3e-3"]
+
+
+def record_grad_norms(norms):
+    """Make the Trainer's steps append each step's ``grad_norm`` to
+    ``norms``; returns the undo."""
+    from repro_torch.train import trainer as trainer_mod
+
+    real = trainer_mod.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recorded(state, batch):
+            out = step(state, batch)
+            norms.append(float(out[1]["grad_norm"]))
+            return out
+        recorded.prepare = step.prepare
+        return recorded
+
+    trainer_mod.make_train_step = make
+    return lambda: setattr(trainer_mod, "make_train_step", real)
+
+
 def launch_main(d: str) -> int:
     """2 ranks: ``launch.train.main`` on the (1, 2) host mesh; rank 0
-    saves the losses."""
+    saves the losses and each step's global gradient norm."""
     from repro_torch.launch import train as launch_train
 
     torch.set_num_threads(2)
-    res = launch_train.main(["--smoke", "--device", "cpu", "--quant", "tnn", "--steps", "6",
-                             "--batch", "4", "--seq", "32", "--lr", "3e-3",
-                             "--checkpoint-dir", os.path.join(d, "ckpt_launch")])
+    norms = []
+    record_grad_norms(norms)
+    res = launch_train.main(LAUNCH_ARGS + ["--checkpoint-dir", os.path.join(d, "ckpt_launch")])
     if int(os.environ["RANK"]) == 0:
-        torch.save({"losses": res.losses, "final_step": res.final_step},
+        torch.save({"losses": res.losses, "final_step": res.final_step, "grad_norms": norms},
                    os.path.join(d, "launch.pt"))
+    return 0
+
+
+def direct_main(d: str) -> int:
+    """2 ranks: what ``launch.train`` on :data:`LAUNCH_ARGS` runs, built here
+    by hand: a Trainer on the (1, 2) mesh under ``TRAIN_RULES`` with
+    ``train_layout()``; rank 0 saves the losses."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.common import train_layout
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.set_num_threads(2)
+    dev = mesh_mod.init_rank("cpu")
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device=dev)
+    cfg = get_smoke(ARCH, quant_policy="tnn")
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=3e-3, total_steps=6, warmup_steps=1))
+    source = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=0)
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        res = Trainer(cfg, train_layout(), tcfg, TrainerConfig(steps=6, log_every=10**9),
+                      source, device=dev, log_fn=lambda *_: None).run()
+    if mesh.rank == 0:
+        torch.save({"losses": res.losses}, os.path.join(d, "direct.pt"))
+    mesh.barrier()
+    mesh_mod.shutdown()
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "--launch":
         sys.exit(launch_main(sys.argv[2]))
+    if sys.argv[1] == "--direct":
+        sys.exit(direct_main(sys.argv[2]))
     sys.exit(main(sys.argv[1]))
