@@ -259,15 +259,16 @@ without printing a result:
     gloo (one card each over NCCL where the machine has them); every rank
     must exit 0:
     12a. a ``Trainer`` of QAT under ``tnn`` on TinyLlama-1.1B at its
-        published width and depth (remat, AdamW with int8 moments at lr
+        published width, ``TRAIN_MESH_LAYERS`` of its 22 layers (remat,
+        AdamW with int8 moments at lr
         ``TRAIN_MESH_LR``, EF compression, bf16 compute copies gathered
         over "data" and bf16 cotangents reduce-scattered) under
         ``TRAIN_RULES``: heads, FFN, vocab and the sequence split over
         "model" (``train_layout()``, tp 2), ``TRAIN_MESH_STEPS`` steps of
         ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, each rank the rows of its
         "data" coordinate; launch and collective counters zeroed just
-        before each step and read just after: exactly 2 x 5 x 22 fused and
-        2 x 2 x 22 int32 TNN GeMM launches per rank per step (the
+        before each step and read just after: exactly 2 x 5 x 11 fused and
+        2 x 2 x 11 int32 TNN GeMM launches per rank per step (the
         column-parallel wq/wk/wv/gate/up and the row-parallel wo/down, the
         remat recompute doubling the forward's) and nothing else; the
         collectives ``train_mesh_collectives`` predicts, exactly; the first
@@ -289,6 +290,24 @@ without printing a result:
         ``LM_CUT_LAYERS``-layer ``tnn`` run under ``TRAIN_RULES_FSDP``
         (every leaf gathered whole, 2 x 7 x 2 fused launches, planes equal
         to one device's whole);
+    12e / 12f. as 12a, Qwen2-MoE-A2.7B at its published widths (60 experts
+        top 4 of d_ff 1408, a shared expert of 5632, vocab 151936) cut to
+        ``MOE_MESH_LAYERS`` layers, and Mamba2-1.3B at its published width
+        and depth (48 layers, 64 SSD heads, 1 group, 2 chunks of 256): the
+        experts' FFN and the SSM heads split over "model"; per rank per
+        step the fused and int32 TNN launches ``train_mesh_launches``
+        predicts from the shapes (column-parallel wq/wk/wv, every expert's
+        and the shared expert's gate and up, in_proj on the rank's heads'
+        columns; row-parallel wo, every down, out_proj; 2 x 125 x 2 fused
+        and 2 x 62 x 2 int32 at 12e, 2 x 48 of each at 12f) and the
+        collectives ``train_mesh_collectives`` predicts, exactly; the
+        first forward's column-parallel planes equal to one device's rows
+        (an expert's n chunk, in_proj's heads' columns) and its first
+        ``TRAIN_MESH_KEEP`` column-parallel outputs ``torch.equal`` to one
+        device's rows of the same projection with the rank's statistics
+        passed to both; the readings within ``TRAIN_MESH_BOUNDS``, beside
+        one device's with its rows reversed; state bytes per rank against
+        one device's;
     12b. at ``LM_CUT_LAYERS`` layers: 12a's state saved on the mesh (whole
         leaves, the reference's format), restored onto (4, 1) equal to the
         saved state re-sharded in memory, and one more step from each
@@ -305,13 +324,17 @@ without printing a result:
         launches 7a and 10a counted on the card (154 per forward, 308 per
         step), the step's float operations equal to ``train_flops``;
     13b. 12a's configuration on a ``PlaceholderMesh`` (2, 2) under
-        ``TRAIN_RULES``: 220 fused and 88 int32 records, the collectives
+        ``TRAIN_RULES``: 110 fused and 44 int32 records, the collectives
         per rank per step equal to ``train_mesh_collectives`` and to 12a's
         rank 0, key by key (count and bytes per kind and dtype), the float
         operations per rank equal to ``train_step_flops(cfg, 4, 512, tp=2)``
-        and a quarter of 13a's within 1%; 11c's serving forward on a
+        and a quarter of one device's at that depth within 1%; 11c's serving forward on a
         placeholder (1, 4): 110 fused and 44 int32 records and 44
-        all-reduces, equal to 11c's counts;
+        all-reduces, equal to 11c's counts; 12e's and 12f's configurations
+        on the placeholder (2, 2): the records ``train_mesh_launches`` and
+        the collectives ``train_mesh_collectives`` predict, and in the full
+        script the collectives (count and bytes) and state bytes of 12e's
+        and 12f's rank 0;
     13c. the train state's bytes per rank equal to 12a's rank 0; the peak of
         live tensor bytes against ``max_memory_allocated`` of 10a and of
         12a's rank 0, each ratio within DRYRUN_PEAK_BAND;
@@ -332,6 +355,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -465,13 +489,26 @@ MESH_CASES = {"n": ("model", None), "k": (None, "model"), "nk": ("model", "data"
 # (the reference's arithmetic, which the JAX package shows too) an element
 # whose EF gradient rounds to 0 while its int8 v rounded to 0 and its m did
 # not takes a step of m / eps.
+# "12e" and "12f" train Qwen2-MoE-A2.7B at its published widths (60
+# experts top 4, d_ff 1408, shared 5632, vocab 151936), its depth cut to
+# MOE_MESH_LAYERS (one device holds the reference: ~0.57 B parameters a
+# layer and 0.62 B of embedding and head at ~27 bytes each, PERF.md §4),
+# and Mamba2-1.3B at its published width and depth (48 layers, 64 heads,
+# d_inner 4096, state 128, 1 group; 2 SSD chunks of 256), as 12a: the
+# experts' FFN and the SSM heads split over "model".
+# 12a runs TRAIN_MESH_LAYERS of TinyLlama's 22 layers and no rows-reversed
+# floor (TRAIN_MESH_FLOORS; PERF.md keeps the 22-layer floor): the cuts
+# that keep the whole script near 900 s with 12e and 12f beside it.
 TRAIN_MESH_WORLD, TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = 4, (2, 2), 2
 TRAIN_MESH_LR, TRAIN_MESH_TIMEOUT_S, TRAIN_MESH_MOVED_MAX = 3e-4, 900, 0.05
-# (name, layers, policy, ruleset, the one-device run it is held to)
-TRAIN_MESH_RUNS = (("12a", None, "tnn", "train", "12a"),
-                   ("12a_cut", LM_CUT_LAYERS, "tnn", "train", "12a_cut"),
-                   ("12a_f32", LM_CUT_LAYERS, "f32", "train", "12a_f32"),
-                   ("12d", LM_CUT_LAYERS, "tnn", "train_fsdp", "12a_cut"))
+TRAIN_MESH_LAYERS, MOE_MESH_LAYERS = 11, 2
+# (name, arch, layers, policy, ruleset, the one-device run it is held to)
+TRAIN_MESH_RUNS = (("12a", LM_ARCH, TRAIN_MESH_LAYERS, "tnn", "train", "12a"),
+                   ("12a_cut", LM_ARCH, LM_CUT_LAYERS, "tnn", "train", "12a_cut"),
+                   ("12a_f32", LM_ARCH, LM_CUT_LAYERS, "f32", "train", "12a_f32"),
+                   ("12d", LM_ARCH, LM_CUT_LAYERS, "tnn", "train_fsdp", "12a_cut"),
+                   ("12e", MOE_ARCH, MOE_MESH_LAYERS, "tnn", "train", "12e"),
+                   ("12f", SSM_ARCH, None, "tnn", "train", "12f"))
 TRAIN_MESH_BOUNDS = {
     "12a": ({"loss": 1e-2, "grad_norm": 7e-2, "sumsq": 1e-3, "grad_sumsq": 0.3},
             {"loss": 5e-3, "grad_norm": 0.15, "sumsq": None, "grad_sumsq": 0.38}),
@@ -481,10 +518,20 @@ TRAIN_MESH_BOUNDS = {
                 {"loss": 1e-4, "grad_norm": 1e-2, "sumsq": None, "grad_sumsq": 5e-2}),
     "12d": ({"loss": 1e-3, "grad_norm": 1e-3, "sumsq": 1e-3, "grad_sumsq": 0.1},
             {"loss": 2e-2, "grad_norm": 1e-1, "sumsq": None, "grad_sumsq": 0.3}),
+    # 12e, 12f: loss, grad_norm and sums of squares ~2x the larger of a
+    # sound step's reading and the rows-reversed floor's, the gradients' sums
+    # (and 12f's grad_norm) the geometric mean of sound and faulty (PERF.md)
+    "12e": ({"loss": 6e-3, "grad_norm": 1.5e-2, "sumsq": 2e-3, "grad_sumsq": 0.26},
+            {"loss": 2e-3, "grad_norm": 2e-2, "sumsq": None, "grad_sumsq": 0.23}),
+    "12f": ({"loss": 2e-3, "grad_norm": 1e-2, "sumsq": 8e-2, "grad_sumsq": 0.43},
+            {"loss": 6e-3, "grad_norm": 5e-3, "sumsq": None, "grad_sumsq": 0.38}),
 }
-# the column- and row-parallel projections of an attention + dense FFN
-# layer (the order of a block's qmm requests: wq, wk, wv, wo, gate, up, down)
-TP_COL, TP_ROW = (0, 1, 2, 4, 5), (3, 6)
+# the one-device references run a second time with their rows reversed
+TRAIN_MESH_FLOORS = ("12a_cut", "12a_f32", "12e", "12f")
+# the first forward's projections whose planes and operands each run keeps
+# (the first layer's first column-parallel ones on a tensor-parallel rank;
+# those and the first ones of its layer on one device)
+TRAIN_MESH_KEEP = 7
 # Phase 13, the dry-run against the card: TinyLlama-1.1B's production cells
 # DRYRUN_CELLS on the placeholder DRYRUN_MESHES (one subprocess each, at most
 # DRYRUN_CELL_TIMEOUT_S); a peak estimate within DRYRUN_PEAK_BAND of the
@@ -2503,17 +2550,17 @@ def phase11(torch, dev):
 # train_mesh_rank)
 # ---------------------------------------------------------------------------
 
-def train_mesh_config(num_layers=None, policy="tnn"):
-    """12a's configuration: TinyLlama-1.1B (or its first ``num_layers``
-    layers) under ``policy`` with remat, AdamW with int8 moments, EF on,
-    the bf16 wire; TRAIN_BATCH x TRAIN_SEQ tokens a step from SyntheticLM
-    seed 0.  -> (cfg, tcfg, source)."""
+def train_mesh_config(num_layers=None, policy="tnn", arch=LM_ARCH):
+    """12a's configuration: TinyLlama-1.1B (or ``arch``; its first
+    ``num_layers`` layers) under ``policy`` with remat, AdamW with int8
+    moments, EF on, the bf16 wire; TRAIN_BATCH x TRAIN_SEQ tokens a step
+    from SyntheticLM seed 0.  -> (cfg, tcfg, source)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainStepConfig
 
-    cfg = get_config(LM_ARCH, quant_policy=policy)
+    cfg = get_config(arch, quant_policy=policy)
     if num_layers:
         cfg = cfg.with_(num_layers=num_layers)
     tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR, warmup_steps=1,
@@ -2529,35 +2576,90 @@ def plane_digest(torch, t) -> int:
     return int((t.reshape(-1).to(torch.int64) * w).sum().item())
 
 
+def tp_first_forward(cfg):
+    """A tensor-parallel rank's column-parallel ``qmm`` calls of one forward
+    of ``cfg``, in its order: for each, one device's call index of the same
+    projection (one device's order: per layer wq, wk, wv, wo; in_proj,
+    out_proj; gate, up, down; an MoE layer's gates, ups and downs expert by
+    expert, then the shared expert's) and how the rank's rows of its
+    planes are taken from one device's: "chunk" (its n chunk) or "ssm"
+    (its heads' in_proj columns, ``models.ssm._tp_dims``).  -> (that list,
+    one device's calls per forward)."""
+    out, base = [], 0
+    for layer in range(cfg.num_layers):
+        mixer, ffn = cfg.layer_pattern[layer % cfg.period]
+        if mixer in ("A", "AL"):
+            out += [(base + i, "chunk") for i in range(3)]
+            base += 4
+        elif mixer == "M":
+            out.append((base, "ssm"))
+            base += 2
+        if ffn == "D":
+            out += [(base, "chunk"), (base + 1, "chunk")]
+            base += 3
+        elif ffn == "E":
+            e = cfg.num_experts
+            for i in range(e):
+                out += [(base + i, "chunk"), (base + e + i, "chunk")]
+            base += 3 * e
+            if cfg.shared_expert_d_ff:
+                out += [(base, "chunk"), (base + 1, "chunk")]
+                base += 3
+    return out, base
+
+
+def tp_rows(torch, cfg, kind, n, j, device="cpu"):
+    """The rows (output features) of one device's ``n``-row planes that a
+    column-parallel call of ``kind`` (:func:`tp_first_forward`) computes on
+    the rank at "model" coordinate ``j``."""
+    tp = TRAIN_MESH_SHAPE[1]
+    if kind == "ssm":
+        from repro_torch.models import ssm
+
+        return ssm._tp_dims(cfg, tp, j, torch.device(device))[1]
+    return torch.arange(j * n // tp, (j + 1) * n // tp, device=device)
+
+
+def tp_row_calls(cfg) -> int:
+    """The first layer's row-parallel projections that run
+    ``ops._qmm_row_parallel`` (wo, a dense FFN's down, out_proj; an MoE
+    layer's downs run ``ops.row_parallel_group``)."""
+    mixer, ffn = cfg.layer_pattern[0]
+    return int(mixer in ("A", "AL", "M")) + int(ffn == "D")
+
+
 @contextlib.contextmanager
-def record_planes(torch, box, n_keep: int, n_forward: int, slices: int = 1):
+def record_planes(torch, box, keep, n_forward: int, slices=None):
     """While active, the first ``n_forward`` low-bit ``qmm`` calls (the
-    first forward's projections that run ``qmm``: all seven a layer on one
-    device and under ``TRAIN_RULES_FSDP``, the five column-parallel ones
-    under tensor parallelism): each call's planes' digests (with
-    ``slices`` > 1 also the digests of each of its ``slices`` n chunks),
-    and the first ``n_keep`` calls' planes themselves (on the host) and
-    operands (``x``, the packed weight, the activation statistics the call
-    was given: a split batch's global ones on the mesh), for
-    :func:`operands_vs_plain`."""
+    first forward's projections that run ``qmm``: every one on one device
+    and under ``TRAIN_RULES_FSDP``, the column-parallel ones under tensor
+    parallelism): each call's planes' digests (with ``slices``, a function
+    of the call's index and row count giving the row selections of each
+    "model" coordinate, also the digests of each selection), and the
+    planes (with the weight's scale) and operands (``x``, the packed
+    weight, the activation statistics the call was given: a split batch's
+    global ones on the mesh) of the calls whose index is in ``keep``, for
+    :func:`operands_vs_plain` and :func:`outputs_vs_one_device`."""
     from repro_torch.kernels import ops
 
     real = ops.qmm
     for key in ("digests", "slice_digests", "planes", "operands"):
-        box.setdefault(key, [])
+        box.setdefault(key, [] if key != "planes" else {})
 
     def qmm(x, qt, *, backend=None, act_stats=None):
-        if qt.mode.is_lowbit and len(box["digests"]) < n_forward:
+        i = len(box["digests"])
+        if qt.mode.is_lowbit and i < n_forward:
             keys = sorted(qt.payload)
             box["digests"].append([plane_digest(torch, qt.payload[k]) for k in keys])
-            if slices > 1:
-                n = qt.payload[keys[0]].shape[-2] // slices
+            if slices is not None:
+                n = qt.payload[keys[0]].shape[-2]
                 box["slice_digests"].append(
-                    [[plane_digest(torch, qt.payload[k].narrow(-2, j * n, n).contiguous())
-                      for k in keys] for j in range(slices)])
-            if len(box["planes"]) < n_keep:
-                box["planes"].append({k: v.cpu() for k, v in qt.payload.items()})
-                box["operands"].append((x.detach().clone(), qt, act_stats))
+                    [[plane_digest(torch, qt.payload[k].index_select(-2, rows))
+                      for k in keys] for rows in slices(i, n)])
+            if i in keep:
+                box["planes"][i] = {**{k: v.cpu() for k, v in qt.payload.items()},
+                                    "scale": qt.scale.reshape(-1).cpu()}
+                box["operands"].append((i, x.detach().clone(), qt, act_stats))
         return real(x, qt, backend=backend, act_stats=act_stats)
 
     ops.qmm = qmm
@@ -2655,12 +2757,33 @@ def operands_vs_plain(torch, operands) -> dict:
 
     out = {"shapes": [], "equal": [], "max_abs_err": 0.0}
     with deterministic(torch):
-        for x, qt, stats in operands:
+        for _, x, qt, stats in operands:
             got = ops.qmm(x, qt, act_stats=stats)
             want = ops.qmm(x, qt, backend="torch", act_stats=stats)
             out["shapes"].append([int(x.shape[0]), int(qt.shape[1]), int(qt.shape[0])])
             out["equal"].append(bool(torch.equal(got, want)))
             out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
+    return out
+
+
+def outputs_vs_one_device(torch, operands, planes, rows) -> list:
+    """The rank's column-parallel outputs of its kept first-forward calls
+    against one device's n slice with the statistics passed in: ``qmm`` of
+    the rank's ``x`` on its packed slice, and on one device's whole planes
+    and scale of the same projection (``planes[i]``) at the rank's
+    ``rows[i]``, ``torch.equal``."""
+    from repro_torch.kernels import ops
+
+    out = []
+    with deterministic(torch):
+        for i, x, qt, stats in operands:
+            one = planes[i]
+            whole = qt.replace(payload={k: v.to(x.device) for k, v in one.items() if k != "scale"},
+                               scale=one["scale"].to(x.device),
+                               shape=(qt.shape[0], int(one["scale"].numel())))
+            got = ops.qmm(x, qt, act_stats=stats)
+            want = ops.qmm(x, whole, act_stats=stats).index_select(1, rows[i].to(x.device))
+            out.append(bool(torch.equal(got, want)))
     return out
 
 
@@ -2700,16 +2823,17 @@ def train_mesh_collectives(cfg, tcfg, sh, mesh, policy) -> dict:
 def train_mesh_launches(cfg, policy: str, tp: bool) -> dict:
     """Launches per rank per step of a training-mesh run (forward and remat
     recompute): under tensor parallelism the column-parallel projections'
-    fused TNN GeMMs and the row-parallel ones' int32 cores, else seven
-    fused a layer."""
+    fused TNN GeMMs and every other projection's int32 core (row-parallel:
+    wo, down, out_proj, an MoE layer's experts' and shared expert's
+    downs), else every projection's fused GeMM (:func:`tp_first_forward`)."""
     if policy != "tnn":
         return {}
     fwd = 2 if cfg.remat else 1
-    layers = cfg.num_layers
+    col, calls = tp_first_forward(cfg)
     if tp:
-        return {LM_POLICY_KERNELS["tnn"]: fwd * len(TP_COL) * layers,
-                "lowbit_gemm_tnn_i32": fwd * len(TP_ROW) * layers}
-    return {LM_POLICY_KERNELS["tnn"]: fwd * tnn_gemms_per_forward(cfg)}
+        return {LM_POLICY_KERNELS["tnn"]: fwd * len(col),
+                "lowbit_gemm_tnn_i32": fwd * (calls - len(col))}
+    return {LM_POLICY_KERNELS["tnn"]: fwd * calls}
 
 
 def state_bytes(state) -> dict:
@@ -2742,7 +2866,18 @@ def train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept, m
     tr = Trainer(cfg, layout, tcfg, TrainerConfig(steps=TRAIN_MESH_STEPS, log_every=10**9),
                  source, device=dev, log_fn=log)
     inner = tr.step_fn
-    per_layer = len(TP_COL) if tp else 7
+    # a rank keeps its first calls (column-parallel ones under tensor
+    # parallelism); one device its first and those a tensor-parallel rank
+    # keeps, and the digests of each rank's rows of every call
+    col, calls = tp_first_forward(cfg)
+    kept_calls, n_forward, slices = set(range(TRAIN_MESH_KEEP)), len(col) if tp else calls, None
+    if mesh is None:
+        kept_calls |= {i for i, _ in col[:TRAIN_MESH_KEEP]}
+        kinds = dict(col)
+
+        def slices(i, n):
+            return [tp_rows(torch, cfg, kinds.get(i, "chunk"), n, j, dev)
+                    for j in range(TRAIN_MESH_SHAPE[1])]
 
     def step(state, batch):
         grads = {}
@@ -2762,9 +2897,8 @@ def train_mesh_trainer(torch, dev, cfg, tcfg, source, layout, rows, box, kept, m
             mesh_mod.reset_collectives()
             t0 = time.perf_counter()
             if not rows and record:
-                with record_planes(torch, box, per_layer, per_layer * cfg.num_layers,
-                                   slices=1 if mesh is not None else TRAIN_MESH_SHAPE[1]), \
-                        record_row_parallel(torch, box, len(TP_ROW) if tp else 0):
+                with record_planes(torch, box, kept_calls, n_forward, slices), \
+                        record_row_parallel(torch, box, tp_row_calls(cfg) if tp else 0):
                     out = inner(state, batch)
             else:
                 out = inner(state, batch)
@@ -2851,10 +2985,11 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
     undo = fault_norm_sum() if fault else None
     j = mesh.axis_index("model")
 
-    # -- 12a: full width and depth, then LM_CUT_LAYERS layers; 12d -------------
-    for name, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
-        cfg, tcfg, source = train_mesh_config(layers, policy)
+    # -- 12a: full width and depth, then LM_CUT_LAYERS layers; 12d; 12e, 12f ---
+    for name, arch, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
+        cfg, tcfg, source = train_mesh_config(layers, policy, arch)
         state = None
+        gc.collect()            # the last run's trainer cycle (train_mesh_single)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
@@ -2878,30 +3013,44 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
         step_peak = max(row["peak"] for row in rows)
         ref = single[ref_name]
         # the one-device digests and planes this rank's first forward matches:
-        # the column-parallel projections' n chunk at its "model" coordinate
-        # under tensor parallelism, every projection whole else
+        # the column-parallel projections' rows at its "model" coordinate (the
+        # n chunk; an in_proj's heads' columns) under tensor parallelism,
+        # every projection whole else
+        col, _ = tp_first_forward(cfg)
+        outputs = None
         if tp:
-            want_d = [d[j] for i, d in enumerate(ref["slice_digests"]) if i % 7 in TP_COL]
-            want_p = []
-            for i in TP_COL if ref["planes"] else ():
-                n = next(iter(ref["planes"][i].values())).shape[-2] // TRAIN_MESH_SHAPE[1]
-                want_p.append({k: v.narrow(-2, j * n, n) for k, v in ref["planes"][i].items()})
+            want_d = [ref["slice_digests"][i][j] for i, _ in col] if ref["slice_digests"] else []
+            sel = {}
+            for i, kind in col[:TRAIN_MESH_KEEP] if ref["planes"] else ():
+                n = ref["planes"][i]["scale"].numel()
+                sel[i] = tp_rows(torch, cfg, kind, n, j)
+            want_p = [{k: v.index_select(0 if v.ndim == 1 else -2, sel[i])
+                       for k, v in ref["planes"][i].items()} for i in sel]
+            got_p = [box["planes"][k] for k in sorted(box["planes"])]
+            # the kept calls' outputs against one device's rows of the same
+            # projection, the rank's statistics passed to both
+            idx = [i for i, _ in col[:TRAIN_MESH_KEEP]]
+            outputs = outputs_vs_one_device(
+                torch, [(idx[c], *rest) for c, *rest in box["operands"]],
+                ref["planes"], sel) if ref["planes"] else []
         else:
-            want_d, want_p = ref["digests"], ref["planes"]
-        got_p = box["planes"]
+            want_d = ref["digests"]
+            want_p = [ref["planes"][i] for i in sorted(ref["planes"]) if i < TRAIN_MESH_KEEP]
+            got_p = [box["planes"][i] for i in sorted(box["planes"])]
         report[name] = {
             "rows": rows, "losses": res.losses, "init_s": init_s, "peak_memory_bytes": peak,
             "step_peak_memory_bytes": step_peak,
             "collectives_expected": expect, "launches_expected": train_mesh_launches(
                 cfg, policy, tp), "tp": tp,
             "vs_plain": operands_vs_plain(torch, box["operands"]),
+            "outputs_vs_one_device": outputs,
             "row_parallel": rp, "bytes": nbytes, "coords": mesh.coords,
             "n_digests": len(box["digests"]), "n_digests_expected": len(want_d),
             "first_differing_digest": next((k for k, (x, y) in enumerate(
                 zip(box["digests"], want_d)) if x != y), None),
             "digests_equal": box["digests"] == want_d,
             "planes_equal": len(got_p) == len(want_p) and all(
-                torch.equal(a[k], b[k]) for a, b in zip(got_p, want_p) for k in a)}
+                torch.equal(a[k], b[k]) for a, b in zip(got_p, want_p) for k in b)}
         del box
         if name == "12a_cut":
             cut = kept, tr.shardings, cfg, tcfg, source
@@ -2995,18 +3144,21 @@ def reversed_rows(source):
     return Reversed(**dataclasses.asdict(source))
 
 
-def train_mesh_single(torch, dev, name, layers, policy, out_dir, reverse=False):
+def train_mesh_single(torch, dev, name, layers, policy, out_dir, reverse=False, arch=LM_ARCH):
     """A run of TRAIN_MESH_RUNS on one device (the reference of the mesh
-    runs): the instrumented rows, the first forward's planes and their n
-    chunks' digests, peak memory, bytes; for "12a_cut" the masters after
-    the first step too.  ``reverse``: the same run with the rows of every
+    runs): the instrumented rows, the first forward's planes and the
+    digests of each rank's rows of them, peak memory, bytes; for "12a_cut"
+    the masters after the first step too.  ``reverse``: the same run with the rows of every
     batch in reverse order, its rows only (how far the device's own float
     sums move each reading: the noise floor of the mesh's differences)."""
     from repro_torch.models import ShardLayout
 
-    cfg, tcfg, source = train_mesh_config(layers, policy)
+    cfg, tcfg, source = train_mesh_config(layers, policy, arch)
     if reverse:
         source = reversed_rows(source)
+    # a run's trainer and its instrumented step refer to each other: the
+    # cycle holds the last state until the collector frees it
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rows, box, kept = [], {}, {"snapshot": name == "12a_cut" and not reverse}
@@ -3017,6 +3169,7 @@ def train_mesh_single(torch, dev, name, layers, policy, out_dir, reverse=False):
     res = tr.run(state, ds)
     if reverse:
         del state, kept, tr
+        gc.collect()
         torch.cuda.empty_cache()
         return {"rows": rows, "losses": res.losses}
     out = {"rows": rows, "losses": res.losses, "peak_memory_bytes":
@@ -3029,6 +3182,7 @@ def train_mesh_single(torch, dev, name, layers, policy, out_dir, reverse=False):
         torch.save({p: t.cpu() for p, t in kept["params_after_first"].items()},
                    os.path.join(out_dir, "single_cut_params.pt"))
     del state, kept, tr
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -3071,18 +3225,25 @@ def phase12(torch, dev, fault: bool = False):
     out_dir.mkdir(parents=True)
     key, key32 = LM_POLICY_KERNELS["tnn"], "lowbit_gemm_tnn_i32"
     single = {}
-    for _, layers, policy, _, ref in TRAIN_MESH_RUNS:
+    for _, arch, layers, policy, _, ref in TRAIN_MESH_RUNS:
         if ref not in single:
-            single[ref] = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir))
-            rev = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir), reverse=True)
-            single[ref]["floor"] = [step_diffs(row, srow) for row, srow in
-                                    zip(rev["rows"], single[ref]["rows"])]
+            single[ref] = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir),
+                                            arch=arch)
+            single[ref]["floor"] = []
+            if ref in TRAIN_MESH_FLOORS:
+                rev = train_mesh_single(torch, dev, ref, layers, policy, str(out_dir),
+                                        reverse=True, arch=arch)
+                single[ref]["floor"] = [step_diffs(row, srow) for row, srow in
+                                        zip(rev["rows"], single[ref]["rows"])]
     torch.save(single, out_dir / "single.pt")
     t0 = time.perf_counter()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
         p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     env.setdefault("OMP_NUM_THREADS", "2")      # 4 ranks on the host's 8 cores
+    # 4 ranks' caching allocators share the card: unallocated reserved
+    # blocks of one are memory the others lack (12f's AdamW)
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     res = mesh_mod.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
                               str(out_dir)] + (["--train-mesh-fault"] if fault else []),
                              TRAIN_MESH_WORLD, timeout_s=TRAIN_MESH_TIMEOUT_S,
@@ -3099,7 +3260,7 @@ def phase12(torch, dev, fault: bool = False):
     failures, diag = [], []
     for rep in reps:
         r = rep["rank"]
-        for name, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
+        for name, arch, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
             got, ref = rep[name], single[ref_name]
             for i, (row, srow) in enumerate(zip(got["rows"], ref["rows"])):
                 m, sm = row["metrics"], srow["metrics"]
@@ -3132,18 +3293,23 @@ def phase12(torch, dev, fault: bool = False):
             vp = got["vs_plain"]
             diag.append(f"{name} rank {r}: row 1 vs plain at the first forward's operands "
                         f"{vp['shapes']}: {vp['equal']}")
-            n_keep = (len(TP_COL) if got["tp"] else 7) if policy == "tnn" else 0
+            n_keep = min(TRAIN_MESH_KEEP, got["n_digests_expected"]) if policy == "tnn" else 0
             if len(vp["equal"]) != n_keep or not all(vp["equal"]):
                 failures.append(f"{name} rank {r}: row 1 differs from its plain version at the "
                                 f"mesh's operands: {vp}")
-            rp = got["row_parallel"]
+            rp, out_eq = got["row_parallel"], got["outputs_vs_one_device"]
             if got["tp"] and policy == "tnn":
+                cfg_r = train_mesh_config(layers, policy, arch)[0]
                 diag.append(f"{name} rank {r}: row 4a vs plain at the row-parallel operands "
                             f"{rp and rp['shapes']}: {rp and rp['vs_plain']}; reduced counts "
-                            f"== one device's core: {rp and rp['vs_one_device']}")
-                if rp is None or len(rp["vs_plain"]) != len(TP_ROW) or not (
+                            f"== one device's core: {rp and rp['vs_one_device']}; the first "
+                            f"column-parallel outputs == one device's rows: {out_eq}")
+                if rp is None or len(rp["vs_plain"]) != tp_row_calls(cfg_r) or not (
                         all(rp["vs_plain"]) and all(rp["vs_one_device"])):
                     failures.append(f"{name} rank {r}: row-parallel check failed: {rp}")
+                if out_eq is None or len(out_eq) != n_keep or not all(out_eq):
+                    failures.append(f"{name} rank {r}: the first column-parallel outputs differ "
+                                    f"from one device's rows: {out_eq}")
         el = rep["12a_cut"]["elementwise"]
         diag.append(f"12a_cut rank {r} masters after step 1: {el}")
         if el["max_abs_diff"] > el["bound"] + 1e-6:
@@ -3162,7 +3328,7 @@ def phase12(torch, dev, fault: bool = False):
                         f"(max {f['sumsq']:.2e}), gradients' sums of squares (max "
                         f"{f['grad_sumsq']:.2e}, {f['grad_sumsq_leaf']})")
         vp = one["vs_plain"]
-        if one["digests"] and (len(vp["equal"]) != 7 or not all(vp["equal"])):
+        if one["digests"] and (len(vp["equal"]) != len(one["planes"]) or not all(vp["equal"])):
             failures.append(f"{ref_name} one device: row 1 differs from its plain version: {vp}")
     for line in diag:
         log("[train mesh check] " + line)
@@ -3205,10 +3371,26 @@ def phase12(torch, dev, fault: bool = False):
                 "launches_per_step": r0["12d"]["rows"][-1]["launches"],
                 "collectives_per_step": r0["12d"]["rows"][-1]["collectives"],
                 "peak_memory_bytes": [rep["12d"]["peak_memory_bytes"] for rep in reps]},
+        **{name: {"losses": r0[name]["losses"], "single_losses": single[name]["losses"],
+                  "step_s": [row["s"] for row in r0[name]["rows"]],
+                  "rank_step_s": [[row["s"] for row in rep[name]["rows"]] for rep in reps],
+                  "single_step_s": [row["s"] for row in single[name]["rows"]],
+                  "launches_per_step": r0[name]["rows"][-1]["launches"],
+                  "launches_expected": r0[name]["launches_expected"],
+                  "collectives_per_step": r0[name]["rows"][-1]["collectives"],
+                  "peak_memory_bytes": [rep[name]["peak_memory_bytes"] for rep in reps],
+                  "single_peak_memory_bytes": single[name]["peak_memory_bytes"],
+                  "single_bytes": single[name]["bytes"],
+                  "rank_bytes": [rep[name]["bytes"] for rep in reps],
+                  "bytes_ratio": [{k: v / single[name]["bytes"][k] for k, v in
+                                   rep[name]["bytes"].items()} for rep in reps],
+                  "outputs_vs_one_device": r0[name]["outputs_vs_one_device"],
+                  "row_parallel": r0[name]["row_parallel"]}
+           for name in ("12e", "12f")},
         "rel_diff_vs_one_device": {
             name: [step_diffs(row, srow)
                    for row, srow in zip(r0[name]["rows"], single[ref]["rows"])]
-            for name, _, _, _, ref in TRAIN_MESH_RUNS},
+            for name, _, _, _, _, ref in TRAIN_MESH_RUNS},
         "one_device_rows_reversed": {ref: one["floor"] for ref, one in single.items()},
         "12b": {k: r0["12b"][k] for k in ("save_s", "restore_s", "loss_after_restore")},
     }
@@ -3235,7 +3417,7 @@ def phase12(torch, dev, fault: bool = False):
                      "s": time.perf_counter() - t0}
     report["phase_s"] = time.perf_counter() - t_phase
     launches = {k: {name: r0[name]["rows"][-1]["launches"].get(k, 0)
-                    for name in ("12a", "12a_cut", "12d")} for k in (key, key32)}
+                    for name in ("12a", "12a_cut", "12d", "12e", "12f")} for k in (key, key32)}
     return report, launches
 
 
@@ -3345,16 +3527,19 @@ def roofline_ms(stats, max_sm_mhz: float) -> dict:
 
 def card_readings(a7: dict, t10: dict, t12: dict = None, m11c: dict = None) -> dict:
     """What phase 13 holds the dry-run against, from the reports of phases
-    7a and 10a and, in the full script, 12a and 11c."""
+    7a and 10a and, in the full script, 12 (12a, 12e, 12f) and 11c."""
     out = {"forward_launches": {k: v // (1 + LM_STEPS) for k, v in a7["launches"].items()},
            "decode_ms": a7["tnn_decode_ms_per_token"],
            "step_launches": {LM_POLICY_KERNELS["tnn"]: t10["fused_tnn_launches_per_step"]},
            "step_ms": t10["mean_step_ms"], "step_peak_bytes": t10["peak_memory_bytes"]}
     if t12 is not None:
-        out["mesh12a"] = {"collectives": {k: v for k, v in t12["collectives_per_step"].items()
-                                          if not k.endswith("_s")},
-                          "state_bytes": sum(t12["rank_bytes"][0].values()),
-                          "peak_bytes": t12["peak_memory_bytes"][0]}
+        for name in ("12a", "12e", "12f"):
+            run = t12[name]
+            out[f"mesh{name}"] = {"collectives": {k: v for k, v in
+                                                  run["collectives_per_step"].items()
+                                                  if not k.endswith("_s")},
+                                  "state_bytes": sum(run["rank_bytes"][0].values()),
+                                  "peak_bytes": run["peak_memory_bytes"][0]}
     if m11c is not None:
         out["mesh11c"] = m11c["per_forward"]
     return out
@@ -3406,7 +3591,7 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
     log("[dryrun 13a] " + json.dumps(report["13a"]))
     # -- 13b. the placeholder meshes against the real ones ------------------------
     t0 = time.perf_counter()
-    cfg12, tcfg12, _ = train_mesh_config()
+    cfg12, tcfg12, _ = train_mesh_config(TRAIN_MESH_LAYERS)
     mesh = PlaceholderMesh(TRAIN_MESH_SHAPE, ("data", "model"))
     with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
         coord, shards = sharding.mesh_coord(mesh, sharding.batch_axes())
@@ -3421,9 +3606,9 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
         raise AssertionError(f"13b (2, 2): collectives {got}, records {mstep.kernels}; "
                              f"train_mesh_collectives {expect}, records {want_records}")
     # each rank's float products: its rows and its 1/tp of the heads, FFN and
-    # vocab, a quarter of 10a's whole step on (2, 2)
+    # vocab, a quarter of one device's step at 12a's depth on (2, 2)
     rank_flops = roofline().train_step_flops(cfg12, rows, TRAIN_SEQ, layout.tp)
-    share = mstep.dot_flops / flops
+    share = mstep.dot_flops / roofline().train_step_flops(cfg12, TRAIN_BATCH, TRAIN_SEQ)
     if mstep.dot_flops != rank_flops or abs(share - 0.25) > 0.01 * 0.25:
         raise AssertionError(f"13b (2, 2): {mstep.dot_flops} float operations per rank, "
                              f"train_step_flops {rank_flops}, {share:.4f} of one device's")
@@ -3431,6 +3616,29 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
     if m12 is not None and mcoll != m12["collectives"]:
         raise AssertionError(f"13b (2, 2): collectives {mcoll}, 12a's rank 0 "
                              f"{m12['collectives']}")
+    # 12e and 12f's configurations on the placeholder (2, 2): their
+    # predicted collectives and launches, and, in the full script, rank 0's
+    meshes = {}
+    for name, arch, layers in (("12e", MOE_ARCH, MOE_MESH_LAYERS), ("12f", SSM_ARCH, None)):
+        cfg_x, tcfg_x, _ = train_mesh_config(layers, "tnn", arch)
+        xstep, xbytes, xcoll, xsh = dry_train(torch, cfg_x, tcfg_x, layout, rows, mesh)
+        with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+            xexpect = train_mesh_collectives(cfg_x, tcfg_x, xsh, mesh, "tnn")
+        xrec = train_mesh_launches(cfg_x, "tnn", True)
+        if {k: xcoll.get(k, 0) for k in xexpect} != xexpect or xstep.kernels != xrec:
+            raise AssertionError(f"13b {name} (2, 2): collectives {xcoll}, records "
+                                 f"{xstep.kernels}; train_mesh_collectives {xexpect}, "
+                                 f"records {xrec}")
+        card = measured.get(f"mesh{name}")
+        if card is not None and (xcoll != card["collectives"]
+                                 or xbytes != card["state_bytes"]):
+            raise AssertionError(f"13b/13c {name} (2, 2): collectives {xcoll}, state bytes "
+                                 f"{xbytes}; {name}'s rank 0 {card['collectives']}, "
+                                 f"{card['state_bytes']}")
+        meshes[name] = {"collectives": xcoll, "state_bytes": xbytes, "records": xstep.kernels,
+                        "rank_flops": xstep.dot_flops,
+                        "card": None if card is None else
+                        {k: card[k] for k in ("collectives", "state_bytes")}}
     cfg11, serve, scoll = dry_serve_mesh(torch)
     want_l, want_c = mesh_expect(cfg11, 1, 5, 2, 5)
     got_c = {k: scoll.get(k, 0) for k in want_c}
@@ -3447,7 +3655,7 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
                      "card_12a": None if m12 is None else m12["collectives"],
                      "records_2x2": mstep.kernels, "serve_1x4_records": serve.kernels,
                      "serve_1x4_collectives": scoll, "card_11c": m11,
-                     "s": time.perf_counter() - t0}
+                     "moe_ssm_2x2": meshes, "s": time.perf_counter() - t0}
     log("[dryrun 13b] " + json.dumps(report["13b"]))
     # -- 13c. memory ---------------------------------------------------------------
     lo, hi = DRYRUN_PEAK_BAND
@@ -4027,7 +4235,7 @@ def main(argv=None) -> int:
     # -- 13. the dry-run against phases 7a, 10a, 11c and 12a (before any
     # profiler session) ---------------------------------------------------------
     dry_report = phase13(torch, dev, card_readings(
-        lm_report["7a"], train_report["10a"], tmesh_report["12a"], mesh_report["11c"]),
+        lm_report["7a"], train_report["10a"], tmesh_report, mesh_report["11c"]),
         max_sm_mhz)
     log(f"[dryrun] phase 13 {dry_report['phase_s']:.1f} s")
     log(card)

@@ -60,7 +60,7 @@ device; its cells read the weight QTensor's payload (``payload_aware``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,7 +92,8 @@ from repro_torch.tune.space import AFFINE_SPACE, AFFINE_TORCH_SPACE, GEMM_SPACE,
 __all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
            "quantize_activations", "packed_matmul", "has_conv_kernel",
            "lowbit_matmul", "int8_affine_matmul", "int4_affine_matmul",
-           "quantized_matmul", "DEFAULT_BACKEND"]
+           "quantized_matmul", "row_parallel_group", "split_batch_stats_many",
+           "split_weight_stats_many", "DEFAULT_BACKEND"]
 
 # Planes each mode consumes on the ACTIVATION side (weights use
 # qtensor.PAYLOAD_KEYS); TBN is ternary activations x binary weights.
@@ -567,55 +568,109 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
 # Float-facing quantized matmul with STE gradients (QAT)
 # ---------------------------------------------------------------------------
 
-def split_batch_stats(x: torch.Tensor, mode: QuantMode, split,
-                      over_tp: bool = False) -> Dict[str, Any]:
+def split_batch_stats_many(xs: Sequence[torch.Tensor], mode: QuantMode, split,
+                           over_tp: bool = False) -> List[Dict[str, Any]]:
     """The per-tensor activation statistics of the global batch whose rows
-    ``x`` (m, k) holds this rank's share of (``sharding.split_batch``):
-    the same formulas as :func:`quantize_activations` derives from a whole
-    ``x``, with every sum and count summed over the batch axes (float64
-    partial sums, so the result is the exact sum rounded once to float32,
-    a few ULPs from one device's float32 sum) and the affine range's
-    min / max reduced exactly.  ``over_tp``: over the tensor-parallel axis
-    too (a row-parallel projection's input, this rank's k slice)."""
-    x = x.to(torch.float32)
+    each ``x`` (m, k) of ``xs`` holds this rank's share of
+    (``sharding.split_batch``): the same formulas as
+    :func:`quantize_activations` derives from a whole ``x``, with every sum
+    and count summed over the batch axes (float64 partial sums, so the
+    result is the exact sum rounded once to float32, a few ULPs from one
+    device's float32 sum) and the affine range's min / max reduced exactly.
+    ``over_tp``: over the tensor-parallel axis too (a row-parallel
+    projection's input, this rank's k slice).  Every tensor's sums travel
+    in one collective per round (the ternary threshold needs two), so the
+    experts of an MoE layer reduce their statistics together."""
+    xs = [x.to(torch.float32) for x in xs]
     f64 = torch.float64
     red = split.reduce_all if over_tp else split.reduce
     if mode in (QuantMode.INT8, QuantMode.INT4):
-        r = red(torch.stack([x.amax(), -x.amin()]), "max")
-        q = quantize.affine_from_range(-r[1], r[0], 8 if mode == QuantMode.INT8 else 4)
-        return {"scale": q.scale, "zero": q.zero_point}
-    a = x.abs()
-    tot = red(torch.stack([a.sum(dtype=f64),
-                           torch.full((), a.numel(), dtype=f64, device=a.device)]))
-    mean = tot[0].to(torch.float32) / tot[1].to(torch.float32)
+        r = red(torch.stack([v for x in xs for v in (x.amax(), -x.amin())]), "max")
+        bits = 8 if mode == QuantMode.INT8 else 4
+        out = []
+        for i in range(len(xs)):
+            q = quantize.affine_from_range(-r[2 * i + 1], r[2 * i], bits)
+            out.append({"scale": q.scale, "zero": q.zero_point})
+        return out
+    a = [x.abs() for x in xs]
+    tot = red(torch.stack([v for t in a for v in (
+        t.sum(dtype=f64), torch.full((), t.numel(), dtype=f64, device=t.device))]))
+    means = [tot[2 * i].to(torch.float32) / tot[2 * i + 1].to(torch.float32)
+             for i in range(len(a))]
     if mode == QuantMode.BNN:
-        return {"scale": mean}
-    thr = 0.7 * mean
-    mask = a > thr
-    kept = red(torch.stack([(a * mask).sum(dtype=f64), mask.sum().to(f64)]))
-    return {"thr": thr,
-            "scale": kept[0].to(torch.float32) / kept[1].to(torch.float32).clamp(min=1)}
+        return [{"scale": mean} for mean in means]
+    thr = [0.7 * mean for mean in means]
+    kept = red(torch.stack([v for t, th in zip(a, thr) for v in (
+        (t * (t > th)).sum(dtype=f64), (t > th).sum().to(f64))]))
+    return [{"thr": thr[i], "scale": kept[2 * i].to(torch.float32)
+             / kept[2 * i + 1].to(torch.float32).clamp(min=1)} for i in range(len(a))]
+
+
+def split_batch_stats(x: torch.Tensor, mode: QuantMode, split,
+                      over_tp: bool = False) -> Dict[str, Any]:
+    """:func:`split_batch_stats_many` of the one tensor ``x``."""
+    return split_batch_stats_many([x], mode, split, over_tp)[0]
+
+
+def split_weight_stats_many(ws: Sequence[torch.Tensor], mode: QuantMode,
+                            split) -> List[Dict[str, torch.Tensor]]:
+    """The per-output-channel statistics of each (k, n) weight of ``ws``
+    whose k rows this rank holds a slice of along the tensor-parallel axis
+    (a row-parallel projection): ``QTensor.from_dense``'s TWN / mean-abs
+    formulas over the whole depth, with float64 partial sums over the
+    tensor-parallel axis (as :func:`split_batch_stats_many` sums rows),
+    each rounded once to float32; every weight's sums in one collective
+    per round.  -> the ``stats`` of ``QTensor.from_dense``, one per
+    weight."""
+    a = [w.to(torch.float32).abs() for w in ws]
+    f64 = torch.float64
+    widths = [t.shape[1] for t in a]
+
+    def parts(flat):
+        return list(torch.split(flat, widths))
+
+    sums = parts(split.reduce_tp(torch.cat([t.sum(dim=0, dtype=f64) for t in a])))
+    means = [v.to(torch.float32) / float(t.shape[0] * split.tp_size) for v, t in zip(sums, a)]
+    if mode in (QuantMode.TBN, QuantMode.BNN):
+        return [{"scale": mean} for mean in means]
+    thr = [0.7 * mean for mean in means]
+    masks = [t > th for t, th in zip(a, thr)]
+    kept = split.reduce_tp(torch.cat([torch.cat([(t * m).sum(dim=0, dtype=f64),
+                                                 m.sum(dim=0).to(f64)])
+                                      for t, m in zip(a, masks)]))
+    out, at = [], 0
+    for th, n in zip(thr, widths):
+        ks, kc = kept[at:at + n], kept[at + n:at + 2 * n]
+        at += 2 * n
+        out.append({"thr": th, "scale": ks.to(torch.float32) / kc.to(torch.float32).clamp(min=1)})
+    return out
 
 
 def split_weight_stats(w: torch.Tensor, mode: QuantMode, split) -> Dict[str, torch.Tensor]:
-    """The per-output-channel statistics of a (k, n) weight whose k rows
-    this rank holds a slice of along the tensor-parallel axis (a
-    row-parallel projection): ``QTensor.from_dense``'s TWN / mean-abs
-    formulas over the whole depth, with float64 partial sums over the
-    tensor-parallel axis (as :func:`split_batch_stats` sums rows), each
-    rounded once to float32.  -> the ``stats`` of ``QTensor.from_dense``."""
-    w = w.to(torch.float32)
-    f64 = torch.float64
-    a = w.abs()
-    k = a.shape[0] * split.tp_size
-    mean = split.reduce_tp(a.sum(dim=0, dtype=f64)).to(torch.float32) / float(k)
-    if mode in (QuantMode.TBN, QuantMode.BNN):
-        return {"scale": mean}
-    thr = 0.7 * mean
-    mask = a > thr
-    kept = split.reduce_tp(torch.stack([(a * mask).sum(dim=0, dtype=f64),
-                                        mask.sum(dim=0).to(f64)]))
-    return {"thr": thr, "scale": kept[0].to(torch.float32) / kept[1].to(torch.float32).clamp(min=1)}
+    """:func:`split_weight_stats_many` of the one weight ``w``."""
+    return split_weight_stats_many([w], mode, split)[0]
+
+
+def _row_operands(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend: str,
+                  split, stats: Dict[str, Any]):
+    """A row-parallel projection's operands on this rank's k slice: ``w``
+    packed with the whole depth's statistics, ``x`` quantized with the
+    global ones.  -> (activation words, weight words, the arguments of
+    ``qmm_mesh.k_sharded_partial``, those of ``qmm_mesh.k_sharded_finish``)."""
+    m, k_local = x.shape
+    qt = QTensor.from_dense(w, mode, stats=stats["w"])
+    n = qt.out_features
+    faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
+    spec = registry.lookup(mode, backend, fused=False)
+    tiles = _plan_tiles(spec, mode, backend, m, n, k_local, x.device, fused=False)
+    xa = quantize_activations(x.to(torch.float32), mode, stats=stats["act"])
+    row = _as_row_scale(xa["scale"], m, x)
+    col = _as_col_vec(qt.scale, n, x)
+    a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
+    return (a_pl, _b_planes(qt, mode),
+            dict(mode=mode, backend=backend, spec=spec, tiles=tiles, bit0=0, depth=k_local),
+            dict(mode=mode, backend=backend, k=k_local * split.tp_size, row=row, col=col,
+                 bias=None))
 
 
 def _qmm_row_parallel(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend: str,
@@ -627,21 +682,11 @@ def _qmm_row_parallel(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend
     epilogue (``qmm_mesh.k_sharded_matmul``)."""
     from repro_torch.parallel import qmm_mesh, sharding
 
-    m, k_local = x.shape
-    qt = QTensor.from_dense(w, mode, stats=stats["w"])
-    n = qt.out_features
-    faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
-    spec = registry.lookup(mode, backend, fused=False)
-    tiles = _plan_tiles(spec, mode, backend, m, n, k_local, x.device, fused=False)
-    xa = quantize_activations(x.to(torch.float32), mode, stats=stats["act"])
-    row = _as_row_scale(xa["scale"], m, x)
-    col = _as_col_vec(qt.scale, n, x)
-    a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
+    a_pl, planes, part_kw, fin_kw = _row_operands(x, w, mode, backend, split, stats)
     return qmm_mesh.k_sharded_matmul(
-        a_pl, _b_planes(qt, mode), mode=mode, backend=backend, spec=spec, tiles=tiles,
-        bit0=0, depth=k_local, k=k_local * split.tp_size,
+        a_pl, planes, **part_kw, k=fin_kw["k"],
         reduce=lambda part: sharding.tp_reduce_partial(part, lead, split),
-        row=row, col=col, bias=None)
+        row=fin_kw["row"], col=fin_kw["col"], bias=None)
 
 
 def _tp_stats(x, w, mode: QuantMode, role: Optional[str], split, stats):
@@ -727,6 +772,95 @@ class _QuantizedMatmul(torch.autograd.Function):
         if ctx.mode.is_lowbit:
             gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
         return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None, None
+
+
+class _RowParallelGroup(torch.autograd.Function):
+    """Row-parallel projections whose partial sums are reduced together
+    (:func:`row_parallel_group`); backward: each pair's straight-through
+    ``gx``, ``gw`` of :class:`_QuantizedMatmul` on its cotangent, which
+    every rank of the tensor-parallel axis holds whole."""
+
+    @staticmethod
+    def forward(ctx, mode, backend, split, stats, n, *tensors):
+        from repro_torch.core.conv import matmul_f32
+        from repro_torch.parallel import qmm_mesh
+
+        xs, ws = tensors[:n], tensors[n:]
+        ctx.save_for_backward(*tensors)
+        ctx.mode, ctx.n = mode, n
+        if mode.is_float:
+            ct = torch.bfloat16 if mode == QuantMode.BF16 else torch.float32
+            parts = [matmul_f32(x.to(ct), w.to(ct)) for x, w in zip(xs, ws)]
+            fins = None
+        else:
+            if stats is None:
+                stats = [{"act": a, "w": st} for a, st in zip(
+                    split_batch_stats_many(xs, mode, split, over_tp=True),
+                    split_weight_stats_many(ws, mode, split))]
+            ops_ = [_row_operands(x, w.to(torch.float32), mode, backend, split, st)
+                    for x, w, st in zip(xs, ws, stats)]
+            parts = [qmm_mesh.k_sharded_partial(a_pl, planes, **kw)
+                     for a_pl, planes, kw, _ in ops_]
+            fins = [fin for *_, fin in ops_]
+        flat = split.reduce_tp(torch.cat([p.reshape(-1) for p in parts]), "sum")
+        outs = [c.reshape(p.shape) for c, p in zip(torch.split(flat, [p.numel() for p in parts]),
+                                                   parts)]
+        if fins is not None:
+            outs = [qmm_mesh.k_sharded_finish(acc, **fin) for acc, fin in zip(outs, fins)]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.core.conv import matmul_f32
+
+        tensors = ctx.saved_tensors
+        xs, ws = tensors[:ctx.n], tensors[ctx.n:]
+        gxs, gws = [], []
+        for x, w, g in zip(xs, ws, gs):
+            if g is None:
+                gxs.append(None)
+                gws.append(None)
+                continue
+            g = g.to(torch.float32)
+            gx = matmul_f32(g, w.to(torch.float32).t())
+            if ctx.mode.is_lowbit:
+                gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
+            gxs.append(gx.to(x.dtype))
+            gws.append(matmul_f32(x.to(torch.float32).t(), g).to(w.dtype))
+        return (None, None, None, None, None, *gxs, *gws)
+
+
+def row_parallel_group(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                       mode: QuantMode, backend: str = DEFAULT_BACKEND,
+                       stats: Optional[Sequence[Dict[str, Any]]] = None) -> List[torch.Tensor]:
+    """Row-parallel projections of one region on a tensor-parallel training
+    split, reduced together: each ``xs[i]`` (m_i, k_i) is this rank's k
+    slice of an input, ``ws[i]`` (k_i, n_i) its slice of the float master
+    weight.  -> [(m_i, n_i) float32]: every row, the same on every rank of
+    the tensor-parallel axis.  Each pair is packed and quantized with its
+    own statistics over the whole depth (its activations' over the batch
+    axes and the tensor-parallel axis, every pair's in one collective per
+    round), its int32 partial counts are the int32 core of its words (row
+    4a), and the partials of all pairs are summed over the tensor-parallel
+    axis in one all-reduce before each pair's eq. (2) epilogue
+    (``qmm_mesh.k_sharded_finish``): each sum is one device's core
+    exactly.  Float policies sum their float32 partial products the same
+    way.  The MoE layer's experts and shared expert run their down
+    projections through it (``models/moe.py``); the backward is the
+    straight-through one of :func:`quantized_matmul` on the whole
+    cotangent, no collective.  ``stats`` ({"act", "w"} a pair) passes the
+    statistics in."""
+    from repro_torch.parallel import sharding
+
+    split = sharding.tp_split()
+    if split is None:
+        raise RuntimeError("row_parallel_group: no tensor-parallel split is active")
+    mode = QuantMode(mode)
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        raise NotImplementedError(f"{mode.value}: the affine grid is per tensor; the "
+                                  f"tensor-parallel training path runs tnn/tbn/bnn and the "
+                                  f"float modes")
+    return list(_RowParallelGroup.apply(mode, backend, split, stats, len(xs), *xs, *ws))
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,

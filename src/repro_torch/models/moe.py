@@ -17,6 +17,23 @@ Counterpart of ``repro/models/moe.py``:
   the global batch's token and probability fractions: the expert counts
   and probability sums are summed over the batch axes before the product.
 
+On a tensor-parallel split of "ffn" (the training mesh under
+``TRAIN_RULES`` or ``TRAIN_RULES_HYBRID``) each rank holds its ffn chunk
+of every expert and of the shared expert.  Capacity drops go by position
+within an example, so the layer works on the whole sequence: the router
+runs on this rank's sequence shard and its probabilities are gathered
+(``sharding.seq_gather``: routing, dispatch, combine and aux loss are the
+same on every rank, and the router's gradient sums over the axis as its
+plan says), the tokens are gathered once (``sharding.tp_enter``) for the
+dispatch and the shared expert, gate and up run column-parallel on the
+rank's ffn slice with each expert's activation statistics, and down runs
+row-parallel: every expert's and the shared expert's int32 partial
+counts, and their statistics, are reduced over the axis together
+(``ops.row_parallel_group``: one collective for the counts, one per
+statistics round) before each one's eq. (2) epilogue.  The combine is
+then the whole sequence's on every rank, and ``sharding.constrain``
+keeps this rank's shard.
+
 Determinism: a dispatch slot receives at most one kept token, so the
 dispatch is an index assignment (dropped tokens go to a scratch slot
 that is cut off).  The combine sums up to ``k`` contributions per token:
@@ -85,17 +102,57 @@ def _expert_matmul(w, h: torch.Tensor, mode: QuantMode, backend: str) -> torch.T
     return torch.stack(ys).to(h.dtype)
 
 
+def _experts_tp(params: Dict[str, Any], h_in: torch.Tensor, xw: torch.Tensor,
+                cfg: ModelConfig, policy: QuantPolicy, dt: torch.dtype):
+    """The expert products on a tensor-parallel split of "ffn": ``h_in``
+    (E, C', D) the dispatched rows and ``xw`` (B, S, D) the whole sequence
+    (float32 holding ``dt`` values, ``sharding.tp_enter``).  -> (y_e (E,
+    C', D), the shared expert's (B, S, D) or None), in ``dt``, whole on
+    every rank (module docstring)."""
+    e = h_in.shape[0]
+    mode, backend = policy.ffn_proj, policy.backend_for("ffn_proj")
+    shared = params["shared"] if cfg.shared_expert_d_ff else None
+    xs = list(h_in.unbind(0))
+    leaves = {k: list(params[k]["w"].unbind(0)) for k in ("gate", "up", "down")}
+    if shared is not None:
+        xs.append(xw.reshape(-1, xw.shape[-1]))
+        for k in leaves:
+            leaves[k].append(shared[k]["w"])
+    split = sharding.tp_split("ffn")
+    act = [None] * len(xs)
+    if mode.is_lowbit and split.axes:
+        # gate and up share their input: one set of statistics, one
+        # collective per round for every expert
+        act = ops.split_batch_stats_many(xs, mode, split)
+
+    def col(x, w, a):
+        return ops.quantized_matmul(x, w.to(torch.float32), mode, backend, role="col",
+                                    stats={"act": a}).to(dt)
+
+    hs = [(F.silu(col(x, g, a).to(torch.float32)) * col(x, u, a).to(torch.float32)).to(dt)
+          for x, g, u, a in zip(xs, leaves["gate"], leaves["up"], act)]
+    ys = ops.row_parallel_group(hs, leaves["down"], mode, backend)
+    y_e = torch.stack(ys[:e]).to(dt)
+    y_sh = ys[e].reshape(xw.shape[:-1] + (-1,)).to(dt) if shared is not None else None
+    return y_e, y_sh
+
+
 def moe_ffn(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
             policy: QuantPolicy) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (y (B, S, D), aux loss float32 scalar)."""
-    b, s, d = x.shape
+    """x (B, S, D) -> (y (B, S, D), aux loss float32 scalar).  On a
+    sequence-parallel split x and y are this rank's sequence shard."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    sk = s * k
-    cap = moe_capacity(cfg, s)
     dev = x.device
+    tp = sharding.tp_split("ffn")
 
     logits = einsum_f32("bsd,de->bse", x, params["router"])
-    probs = torch.softmax(logits, dim=-1)
+    probs = sharding.seq_gather(torch.softmax(logits, dim=-1))
+    # the whole sequence: the rows the dispatch reads (float32 holding x's
+    # values on a tensor-parallel split)
+    xw = sharding.tp_enter(x) if tp is not None else x
+    b, s, d = xw.shape
+    sk = s * k
+    cap = moe_capacity(cfg, s)
     # top-k as a stable descending sort: equal probabilities keep the
     # lower expert first, on any device (lax.top_k's order)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -113,17 +170,21 @@ def moe_ffn(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     dest = se * cap + pos.clamp(0, cap - 1)                          # (B, SK)
     tok = order // k
     rows = torch.arange(b, device=dev)[:, None]
-    buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf[rows, torch.where(keep, dest, e * cap)] = x[rows, tok]       # slot e*cap: scratch
+    buf = torch.zeros((b, e * cap + 1, d), dtype=xw.dtype, device=dev)
+    buf[rows, torch.where(keep, dest, e * cap)] = xw[rows, tok]      # slot e*cap: scratch
     buf = buf[:, :e * cap]
 
     # ---- expert products ----
     h_in = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    mode, backend = policy.ffn_proj, policy.backend_for("ffn_proj")
-    g = _expert_matmul(params["gate"], h_in, mode, backend)
-    u = _expert_matmul(params["up"], h_in, mode, backend)
-    h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
-    y_e = _expert_matmul(params["down"], h, mode, backend)            # (E, B*cap, D)
+    y_sh = None
+    if tp is not None:
+        y_e, y_sh = _experts_tp(params, h_in, xw, cfg, policy, x.dtype)
+    else:
+        mode, backend = policy.ffn_proj, policy.backend_for("ffn_proj")
+        g = _expert_matmul(params["gate"], h_in, mode, backend)
+        u = _expert_matmul(params["up"], h_in, mode, backend)
+        h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+        y_e = _expert_matmul(params["down"], h, mode, backend)        # (E, B*cap, D)
     y_buf = y_e.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
 
     # ---- combine, in a fixed order ----
@@ -140,8 +201,12 @@ def moe_ffn(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     for j in range(k):
         y = y + per_tok[:, :, j]
 
-    if cfg.shared_expert_d_ff:
+    if y_sh is not None:
+        y = y + y_sh
+    elif cfg.shared_expert_d_ff:
         y = y + ffn(params["shared"], x, policy)
+    if tp is not None:
+        y = sharding.constrain(y, ("batch", "seq", "embed"))
 
     # ---- load-balancing aux loss (Switch eq. 4) ----
     split = sharding.batch_split()

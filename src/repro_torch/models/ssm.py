@@ -13,6 +13,16 @@ steps; within a chunk the recurrence expands into a (Q x Q) masked
 "attention" form; across chunks a loop carries the (G, Hg, N, P) state
 (the reference's ``lax.scan``).  Every product is a float32 one
 (``einsum_f32``: TF32 off).
+
+On a tensor-parallel split of "ssm_heads" (the training mesh) each rank
+computes its heads (:func:`_tp_dims`): the sequence is gathered before
+``in_proj`` (the scan runs along all of it), ``in_proj`` runs
+column-parallel on the rank's columns (its heads' z, x and dt and the B
+and C of its heads' groups, taken from the whole weight), the conv on
+its channels, the scan and the D skip on its heads, the gated RMSNorm
+over all of d_inner with its sum of squares summed over the axis
+(``sharding.tp_all_reduce``, float32), and ``out_proj`` row-parallel back
+into sequence shards.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention import project
 from repro_torch.models.common import ModelConfig, einsum_f32, rms_norm
+from repro_torch.parallel import sharding
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode", "init_ssm_state"]
 
@@ -72,10 +83,31 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    din, g, n, p, h, conv_dim = _dims(cfg)
+def _split_proj(zxbcdt: torch.Tensor, dims):
+    din, g, n, p, h, conv_dim = dims
     return (zxbcdt[..., :din], zxbcdt[..., din:din + conv_dim],
             zxbcdt[..., din + conv_dim:])
+
+
+def _tp_dims(cfg: ModelConfig, tp: int, j: int, device):
+    """Rank ``j`` of ``tp``'s share of the mixer: its ``_dims`` (d_inner,
+    groups, state, head dim, heads, conv channels of its own), the columns
+    of ``in_proj`` it computes ([z | x | B | C | dt] of its heads and of
+    its heads' groups) and the conv channels ([x | B | C]).  Its heads are
+    the j-th ``h / tp``; its groups the j-th ``g / tp`` when the groups
+    split, else the one group its heads lie in."""
+    din, g, n, p, h, conv_dim = _dims(cfg)
+    hl = h // tp
+    gl = g // tp if g % tp == 0 else 1
+    g0 = j * gl if g % tp == 0 else (j * hl) // (h // g)
+    dl = hl * p
+
+    def rng(start, length):
+        return torch.arange(start, start + length, device=device)
+
+    xr, br, cr = rng(j * dl, dl), rng(din + g0 * n, gl * n), rng(din + g * n + g0 * n, gl * n)
+    cols = torch.cat([xr, din + xr, din + br, din + cr, rng(2 * din + 2 * g * n + j * hl, hl)])
+    return (dl, gl, n, p, hl, dl + 2 * gl * n), cols, torch.cat([xr, br, cr])
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy, *,
@@ -83,19 +115,32 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy, 
     """x (B, S, D) -> (B, S, D) by chunked SSD.  With ``return_state``
     also the decode state after position S-1 ({"conv", "h"}), so a
     prefill seeds decoding."""
+    mode, backend = policy.ssm_proj, policy.backend_for("ssm_proj")
+    f32 = torch.float32
+    dtype = x.dtype
+    tp = sharding.tp_split("ssm_heads")
+    if tp is None:
+        dims = _dims(cfg)
+        zxbcdt = project(params["in_proj"], x, mode, backend)
+        conv_w, conv_b = params["conv_w"], params["conv_b"]
+    else:
+        if return_state:
+            raise NotImplementedError("ssm_forward: return_state on a tensor-parallel split")
+        # the whole sequence (float32 holding x's values), this rank's heads
+        x = sharding.tp_enter(x)
+        dims, cols, chans = _tp_dims(cfg, tp.tp_size, tp.tp_index, x.device)
+        w = params["in_proj"]["w"].index_select(1, cols)
+        zxbcdt = project({"w": w}, x, mode, backend, "col").to(dtype)
+        conv_w, conv_b = params["conv_w"].index_select(1, chans), params["conv_b"][chans]
     b, s, d = x.shape
-    din, g, n, p, h, conv_dim = _dims(cfg)
+    din, g, n, p, h, conv_dim = dims
     hg = h // g
     q = min(cfg.ssm_chunk, s)
     assert s % q == 0, f"seq {s} must be a multiple of ssm_chunk {q}"
     nc = s // q
-    mode, backend = policy.ssm_proj, policy.backend_for("ssm_proj")
-    f32 = torch.float32
 
-    zxbcdt = project(params["in_proj"], x, mode, backend)
-    z, xbc_raw, dt = _split_proj(zxbcdt, cfg)
-    xbc = F.silu(_causal_conv(xbc_raw.to(f32), params["conv_w"].to(f32),
-                              params["conv_b"].to(f32)))
+    z, xbc_raw, dt = _split_proj(zxbcdt, dims)
+    xbc = F.silu(_causal_conv(xbc_raw.to(f32), conv_w.to(f32), conv_b.to(f32)))
     xin = xbc[..., :din].reshape(b, s, g, hg, p)
     bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
     cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
@@ -138,8 +183,15 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy, 
     y = (y_intra + y_inter).reshape(b, s, g, hg, p)
     y = y + xin * params["D"].reshape(g, hg)[None, None, :, :, None]
     y = y.reshape(b, s, din) * F.silu(z.to(f32))
-    y = rms_norm(y, params["norm"].to(f32), cfg.norm_eps)
-    out = project(params["out_proj"], y.to(x.dtype), mode, backend)
+    if tp is None:
+        y = rms_norm(y, params["norm"].to(f32), cfg.norm_eps)
+        role = None
+    else:
+        # the gated norm spans all of d_inner: its sum of squares over the axis
+        var = sharding.tp_all_reduce((y * y).sum(dim=-1, keepdim=True)) / (din * tp.tp_size)
+        y = (y * torch.rsqrt(var + cfg.norm_eps)) * params["norm"].to(f32)
+        role = "row"
+    out = project(params["out_proj"], y.to(dtype), mode, backend, role)
     if return_state:
         kc = cfg.ssm_conv - 1
         return out, {"conv": xbc_raw[:, s - kc:].to(f32), "h": hstate}
@@ -164,7 +216,7 @@ def ssm_decode(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy,
     f32 = torch.float32
 
     zxbcdt = project(params["in_proj"], x, mode, backend)
-    z, xbc, dt = _split_proj(zxbcdt[:, 0], cfg)                      # (B, ...)
+    z, xbc, dt = _split_proj(zxbcdt[:, 0], _dims(cfg))                      # (B, ...)
     window = torch.cat([state["conv"], xbc[:, None, :].to(state["conv"].dtype)], dim=1)
     conv_out = einsum_f32("bkc,kc->bc", window, params["conv_w"])
     xbc_t = F.silu(conv_out + params["conv_b"].to(f32))

@@ -15,7 +15,12 @@ optimizer memory 4x.
 tensors it is given (under ``torch.no_grad``) and returns them in fresh
 trees: at TinyLlama-1.1B width a functional copy of parameters and both
 moments would hold another 13 GB at the end of the step.  A caller that
-needs the old values clones them first.
+needs the old values clones them first.  A large leaf is updated a slice
+of its leading dim at a time (:data:`_UPDATE_ELEMS`): every op of the
+update is elementwise or within a block of the last dim, so the result is
+the whole leaf's, with one slice's float32 temporaries alive (a
+period-stacked Mamba2-1.3B ``in_proj`` holds 837 M elements: ~8
+temporaries of 3.35 GB each done whole).
 
 Division: a float32 scalar divided by a tensor is written as a tensor
 division (``f32_scalar(a) / t``); PyTorch's ``a / t`` multiplies by the
@@ -38,6 +43,8 @@ __all__ = ["AdamWConfig", "Q8", "Q8Layout", "q8_layouts", "adamw_init", "adamw_u
            "cosine_schedule", "global_norm", "clip_by_global_norm"]
 
 _BLOCK = 256  # int8 moment quantization block (over the last dim)
+# the most elements of a leaf one step of the update touches at once
+_UPDATE_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +214,12 @@ class Q8:
         return self
 
 
+def _rows(s, sl: slice):
+    """Rows ``sl`` of the leading dim of a moment (a view: a ``Q8``'s
+    values and its blocks' scales alike)."""
+    return Q8(s.q[sl], s.scale[sl]) if isinstance(s, Q8) else s[sl]
+
+
 def _store(x: torch.Tensor, dtype: str, layout=None):
     return Q8.quantize(x, layout) if dtype == "int8" else x
 
@@ -256,13 +269,33 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *, shardings=None, mesh
     c2 = 1 - b2 ** stepf
 
     def upd(p, g, m_s, v_s, lay=None):
+        if lay is None and p.ndim >= 2 and p.numel() > _UPDATE_ELEMS:
+            rows = max(1, _UPDATE_ELEMS // (p.numel() // p.shape[0]))
+            for i in range(0, p.shape[0], rows):
+                sl = slice(i, i + rows)
+                upd_slice(p[sl], g[sl], _rows(m_s, sl), _rows(v_s, sl))
+            return p, m_s, v_s
+        return upd_slice(p, g, m_s, v_s, lay)
+
+    def upd_slice(p, g, m_s, v_s, lay=None):
+        # m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g g, delta = (m / c1) /
+        # (sqrt(v / c2) + eps) + wd p, p -= lr delta: the reference's ops
+        # and order, each result written over a temporary of the same
+        # rounding (float32 moments are updated in their own tensors), so
+        # a few leaf-sized temporaries are alive at once, not eight
         if scale is not None:
             g = g * scale
-        m = b1 * _load(m_s, cfg.moments_dtype, lay) + (1 - b1) * g
-        v = b2 * _load(v_s, cfg.moments_dtype, lay) + (1 - b2) * g * g
-        mh, vh = m / c1, v / c2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+        m = _load(m_s, cfg.moments_dtype, lay).mul_(b1).add_((1 - b1) * g)
+        v = _load(v_s, cfg.moments_dtype, lay).mul_(b2).add_(((1 - b2) * g).mul_(g))
+        den = torch.div(v, c2).sqrt_().add_(cfg.eps)
+        delta = torch.div(m, c1).div_(den)
+        del den
+        delta.add_(cfg.weight_decay * p.to(torch.float32)).mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(delta)
+        else:
+            p.copy_((p.to(torch.float32) - delta).to(p.dtype))
+        del delta
         m_s.copy_(_store(m, cfg.moments_dtype, lay))
         v_s.copy_(_store(v, cfg.moments_dtype, lay))
         return p, m_s, v_s

@@ -59,7 +59,8 @@ from repro_torch.kernels.qtensor import PAYLOAD_KEYS, POS_PAYLOAD_KEYS, QTensor
 from repro_torch.parallel import sharding
 
 __all__ = ["ShardPlan", "shard_plan", "shard_plan_conv", "local_dims", "take_local",
-           "qmm_sharded", "k_sharded_matmul", "qconv_sharded", "collectives",
+           "qmm_sharded", "k_sharded_matmul", "k_sharded_partial", "k_sharded_finish",
+           "qconv_sharded", "collectives",
            "reset_collectives"]
 
 _PSUM_CTR = obs.get_registry().counter(
@@ -297,27 +298,40 @@ def qmm_sharded(x: torch.Tensor, qt: QTensor, plan: ShardPlan, mesh, *,
     return _gather(out, mesh, plan.n_axis)
 
 
+def k_sharded_partial(a_loc, planes, *, mode: QuantMode, backend: str, spec, tiles,
+                      bit0: int, depth: int) -> torch.Tensor:
+    """One rank's int32 partial counts of a k-sharded (row-parallel) low-bit
+    matmul: the int32 core of its activation words ``a_loc`` against its
+    weight words ``planes`` (the unfused kernel with ``k_valid=0``: BNN then
+    gives ``-2 * popcount``; on the dense backend a signed dot over the bits
+    ``bit0 .. depth`` of the whole depth), in :data:`WIRE_DTYPE`."""
+    if backend == "dense":
+        return _dense_partial(mode, a_loc, planes, bit0, depth).to(WIRE_DTYPE)
+    return spec.fn(a_loc, planes, 0, tiles=tiles).to(WIRE_DTYPE)
+
+
+def k_sharded_finish(acc: torch.Tensor, *, mode: QuantMode, backend: str, k: int, row, col,
+                     bias) -> torch.Tensor:
+    """The reduced counts ``acc`` of :func:`k_sharded_partial` -> the float
+    output: BNN's ``+ k`` (not on the dense backend, whose dot is signed)
+    and the eq. (2) epilogue, once, after the sum."""
+    if mode == QuantMode.BNN and backend != "dense":
+        acc = k + acc
+    return scale_epilogue(acc, row, col, bias)
+
+
 def k_sharded_matmul(a_loc, planes, *, mode: QuantMode, backend: str, spec, tiles,
                      bit0: int, depth: int, k: int, reduce, row, col, bias) -> torch.Tensor:
-    """The k-sharded (row-parallel) low-bit matmul of one rank: the int32
-    core of its activation words ``a_loc`` against its weight words
-    ``planes`` (the unfused kernel with ``k_valid=0``: BNN then gives
-    ``-2 * popcount``; on the dense backend a signed dot over the bits
-    ``bit0 .. depth`` of the whole depth), the partial counts reduced by
-    ``reduce`` (an all-reduce over the k axis here; a reduce-scatter of the
-    sequence under the training mesh's sequence parallelism,
-    ``ops.quantized_matmul``), then BNN's ``+ k`` and the eq. (2) epilogue,
-    once, on the reduced counts.  No float output is summed across ranks."""
-    if backend == "dense":
-        part = _dense_partial(mode, a_loc, planes, bit0, depth)
-        correction = 0                   # a true signed dot, no popcount bias
-    else:
-        part = spec.fn(a_loc, planes, 0, tiles=tiles)
-        correction = k if mode == QuantMode.BNN else 0
-    acc = reduce(part.to(WIRE_DTYPE))
-    if correction:
-        acc = correction + acc
-    return scale_epilogue(acc, row, col, bias)          # eq. (2), once, after the sum
+    """The k-sharded (row-parallel) low-bit matmul of one rank:
+    :func:`k_sharded_partial`, the partial counts reduced by ``reduce`` (an
+    all-reduce over the k axis here; a reduce-scatter of the sequence under
+    the training mesh's sequence parallelism, ``ops.quantized_matmul``),
+    then :func:`k_sharded_finish`.  No float output is summed across
+    ranks."""
+    part = k_sharded_partial(a_loc, planes, mode=mode, backend=backend, spec=spec, tiles=tiles,
+                             bit0=bit0, depth=depth)
+    return k_sharded_finish(reduce(part), mode=mode, backend=backend, k=k, row=row, col=col,
+                            bias=bias)
 
 
 def _gather(out: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:

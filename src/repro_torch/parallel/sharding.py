@@ -52,8 +52,20 @@ its forward and backward:
   all-reduce pair: :func:`tp_enter` all-reduces the cotangent,
   :func:`tp_reduce` the partial sums.
 
-Configs with MoE or SSM layers take no tensor-parallel split
-(``train/train_step.py``): every leaf is gathered whole, as the axes of a
+MoE and SSM layers split on the same axis (:func:`leaf_plans`): an
+expert's FFN keeps its "ffn" chunk, as a dense FFN does, and the Mamba2
+mixer its "ssm_heads" chunk (``out_proj``'s rows, ``A_log``, ``D``,
+``dt_bias``, the gated norm's scale).  ``in_proj``, ``conv_w`` and
+``conv_b`` interleave the heads with B, C and dt along their "conv_dim",
+so a contiguous chunk does not fall on head boundaries: they keep the
+reference's layout in the state, are gathered whole and each rank
+computes with its heads' part (:data:`_SSM_PARTIAL`).  Both layers need
+the whole sequence (capacity drops go by position within an example; the
+chunked scan runs along it): they gather it (:func:`tp_enter`, and
+:func:`seq_gather` for the router's probabilities).
+:func:`tp_all_reduce` sums a value each rank's own part of a split
+computation reads (the gated norm's sum of squares).  Without a
+tensor-parallel axis every leaf is gathered whole, as the axes of a
 :class:`LeafPlan` of :func:`whole_plans` say.
 """
 
@@ -77,7 +89,8 @@ __all__ = ["Rules", "TRAIN_RULES", "SERVE_RULES", "SERVE_RULES_MOE", "SERVE_RULE
            "gather_leaf", "split_batch", "batch_split", "sum_over_batch",
            "train_state_shardings", "TP_LOGICAL", "tp_axis", "param_logical", "LeafPlan",
            "leaf_plans", "whole_plans", "tp_split", "tp_size", "seq_parallel", "tp_enter",
-           "tp_reduce", "tp_reduce_partial", "tp_gather_rows", "sum_over_tp", "max_over_tp"]
+           "tp_reduce", "tp_reduce_partial", "tp_gather_rows", "sum_over_tp", "max_over_tp",
+           "seq_gather", "tp_all_reduce"]
 
 AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
@@ -312,7 +325,16 @@ def holds_first_copy(spec: Spec, mesh) -> bool:
 
 # The logical axes whose compute a training step splits over its
 # tensor-parallel axis (:func:`leaf_plans`).
-TP_LOGICAL = ("heads", "kv_heads", "ffn", "vocab")
+TP_LOGICAL = ("heads", "kv_heads", "ffn", "vocab", "ssm_heads")
+
+# Mamba2 leaves the rules name "conv_dim" that a tensor-parallel step
+# treats otherwise (module docstring): the gated norm's scale spans
+# d_inner, whose chunks fall on head boundaries, so it keeps its chunk as
+# "ssm_heads"; in_proj's columns [z | x | B | C | dt] and the conv's
+# channels [x | B | C] are gathered whole, and each rank computes with
+# its heads' part of them (their gradients sum over the axis).
+_SSM_HEAD_NORM = re.compile(r"mixer/norm$")
+_SSM_PARTIAL = re.compile(r"mixer/(in_proj/w|conv_w|conv_b)$")
 
 
 def tp_axis(ctx: Optional[_Active] = None) -> Optional[str]:
@@ -380,21 +402,25 @@ def whole_plans(p_sh, ctx: Optional[_Active] = None):
 def leaf_plans(p_sh, ctx: Optional[_Active] = None, *, sp: bool):
     """The :class:`LeafPlan` tree of a tensor-parallel step over the params'
     :class:`LeafSharding` tree ``p_sh``: a leaf keeps its chunk on the
-    :func:`tp_axis` along every dim whose logical axis (:func:`param_logical`)
-    is in :data:`TP_LOGICAL` and whose spec entry leads with that axis,
-    and is gathered over every other axis of its spec; a leaf that keeps no
+    :func:`tp_axis` along every dim whose logical axis (:func:`param_logical`;
+    the Mamba2 norm's "conv_dim" read as "ssm_heads") is in
+    :data:`TP_LOGICAL` and whose spec entry leads with that axis, and is
+    gathered over every other axis of its spec.  A leaf that keeps no
     chunk sums its gradient over the tensor-parallel axis too when ``sp``
-    (each rank computes with its sequence shard or its heads).  Returns
-    (plans, the set of logical axes some leaf split)."""
+    (each rank computes with its sequence shard), and so do the Mamba2
+    leaves of :data:`_SSM_PARTIAL` when the heads split (each rank
+    computes with its heads' columns).  Returns (plans, the set of
+    logical axes some leaf split)."""
     from repro_torch import tree
 
     ctx = ctx or active()
     tp = tp_axis(ctx)
     axes = batch_axes(ctx)
-    seen = set()
 
-    def plan(path, sh):
+    def chunk(path, sh):
         logical = param_logical(path, sh) or (None,) * len(sh.spec)
+        if _SSM_HEAD_NORM.search(path):
+            logical = tuple("ssm_heads" if lg == "conv_dim" else lg for lg in logical)
         gather, split = [], None
         for entry, lg in zip(sh.spec, logical):
             ax = spec_axes(entry)
@@ -406,12 +432,19 @@ def leaf_plans(p_sh, ctx: Optional[_Active] = None, *, sp: bool):
                 rest = ax[1:]
                 entry = None if not rest else rest[0] if len(rest) == 1 else rest
             gather.append(entry)
-        if split is not None:
-            seen.add(split)
-            return LeafPlan(tuple(gather), axes, split)
-        return LeafPlan(tuple(gather), axes + ((tp,) if sp else ()))
+        return tuple(gather), split
 
-    return tree.map_with_paths(plan, p_sh), frozenset(seen)
+    chunks = {path: chunk(path, sh) for path, sh in tree.flatten_with_paths(p_sh)}
+    seen = frozenset(split for _, split in chunks.values() if split is not None)
+
+    def plan(path, sh):
+        gather, split = chunks[path]
+        if split is not None:
+            return LeafPlan(gather, axes, split)
+        partial = sp or ("ssm_heads" in seen and _SSM_PARTIAL.search(path) is not None)
+        return LeafPlan(gather, axes + ((tp,) if partial else ()))
+
+    return tree.map_with_paths(plan, p_sh), seen
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -825,6 +858,58 @@ def tp_reduce(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     if split.sp:
         return _SeqScatter.apply(x, dim, split)
     return _TPSum.apply(x, split)
+
+
+class _SeqGatherSame(torch.autograd.Function):
+    """Sequence shards -> the whole sequence (all-gather over the
+    tensor-parallel axis), for consumers that compute the same thing on
+    every rank of it; backward: this rank's shard of the cotangent, which
+    every rank holds whole and alike."""
+
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return split.mesh.all_gather_axes(x.contiguous(), (split.tp,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        chunk = g.shape[ctx.dim] // ctx.split.tp_size
+        return g.narrow(ctx.dim, ctx.split.tp_index * chunk, chunk).contiguous(), None, None
+
+
+def seq_gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's sequence shard (``dim``) gathered whole, in ``x``'s
+    dtype, for consumers that compute the same on every rank of the
+    tensor-parallel axis (the MoE router's probabilities: routing,
+    dispatch, combine and aux loss alike on every rank); the backward keeps
+    this rank's shard of the cotangent, no collective.  ``x`` itself off a
+    sequence-parallel split."""
+    split = tp_split()
+    if split is None or not split.sp:
+        return x
+    return _SeqGatherSame.apply(x, dim, split)
+
+
+class _TPAllReduce(torch.autograd.Function):
+    """Forward and backward: the sum over the tensor-parallel axis."""
+
+    @staticmethod
+    def forward(ctx, t, split):
+        ctx.split = split
+        return split.reduce_tp(t.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.reduce_tp(g.contiguous(), "sum"), None
+
+
+def tp_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the tensor-parallel axis where each rank's own part
+    of a split computation reads the sum (the Mamba2 gated norm's sum of
+    squares over d_inner): the backward sums the ranks' cotangents too.
+    ``t`` itself off a tensor-parallel split."""
+    split = tp_split()
+    return t if split is None else _TPAllReduce.apply(t, split)
 
 
 def tp_reduce_partial(part: torch.Tensor, lead: Sequence[int], split) -> torch.Tensor:

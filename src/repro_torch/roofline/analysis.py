@@ -261,21 +261,60 @@ def lm_bounds(cfg, batch: int, prompt: int, steps: int, packed_bytes: int,
     return decode.memory_s(hw) * 1e3, Work({"popc": float(popc)}).compute_s(hw) * 1e3
 
 
+def _ssm_tp_dims(cfg, tp: int):
+    """(d_inner, groups, heads) one rank of ``tp`` computes with
+    (``models.ssm._tp_dims``): its heads, and its groups when they split,
+    else the one group its heads lie in."""
+    g, h = cfg.ssm_ngroups, cfg.ssm_nheads
+    return cfg.ssm_d_inner // tp, g // tp if g % tp == 0 else 1, h // tp
+
+
 def train_step_flops(cfg, batch: int, seq: int, tp: int = 1) -> float:
     """Float operations of one QAT step of ``cfg`` at (batch, seq), from
     shapes: per projection the STE backward's two products (gx, gw: 4 m n
-    k; the forward is the popcount GeMM), the head forward and backward
-    (6 m d V), and per attention layer and sequence QK^T and PV (4 S^2 d)
-    in the forward, the remat recompute and twice in the backward
-    (16 S^2 d).  ``tp``: one rank of a tensor-parallel step over ``batch``
-    of its rows, which splits every product's heads, FFN or vocab ``tp``
-    ways (heads the axis divides: no padding heads)."""
+    k; the forward is the popcount GeMM; an MoE expert's m its slots,
+    ``batch * moe_capacity``), the head forward and backward (6 m d V),
+    per attention layer and sequence QK^T and PV (4 S^2 d) in the forward,
+    the remat recompute and twice in the backward (16 S^2 d), and the
+    same four passes (forward, recompute, two backward products) of the
+    MoE router (2 m d E) and of the chunked SSD scan's four float products
+    per chunk (C B^T per group, the intra-chunk mix, the chunk states and
+    the inter-chunk term per head).  ``tp``: one rank of a
+    tensor-parallel step (``TRAIN_RULES``) over ``batch`` of its rows,
+    which splits every product's heads, FFN, vocab, sequence (the
+    router) or SSM heads ``tp`` ways (heads the axis divides: no padding
+    heads) but for what each rank repeats: the B and C columns of
+    ``in_proj`` and C B^T of the groups its heads lie in when the groups
+    do not split."""
+    from repro_torch.models.moe import moe_capacity
+
     m = batch * seq
-    proj = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, 0))
-    head = 6 * m * cfg.d_model * cfg.vocab_size
-    attn = sum(m_ in ("A", "AL") for m_, _ in cfg.layer_pattern) * cfg.num_periods
-    hd = cfg.num_heads * cfg.head_dim_
-    return (proj + head + attn * batch * 16 * seq * seq * hd) / tp
+    m_exp = batch * moe_capacity(cfg, seq) if cfg.num_experts else 0
+    split = sum(4 * mm * n * k for mm, n, k in proj_shapes(cfg, m, m_exp))
+    split += 6 * m * cfg.d_model * cfg.vocab_size
+    din, g, n, h, p = (cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
+                       cfg.ssm_headdim)
+    q = min(cfg.ssm_chunk, seq)
+    chunks = batch * (seq // q) if cfg.ssm_state else 0
+    _, gl, _ = _ssm_tp_dims(cfg, tp)
+    # one forward's float products of each block kind, split and repeated
+    fwd = {"A": 4 * batch * seq * seq * cfg.num_heads * cfg.head_dim_,
+           "M": chunks * (2 * h * q * q * p + 4 * q * h * n * p),
+           "E": 2 * m * cfg.d_model * cfg.num_experts}
+    cb = chunks * 2 * g * q * q * n
+    bc = 4 * m * cfg.d_model * 2 * g * n      # in_proj's B and C columns (in proj_shapes)
+    repeated = 0.0
+    # with remat_block every block but a period's last runs a third forward
+    nested = cfg.remat and cfg.remat_block and cfg.period > 1
+    for i, (mixer, ffn_kind) in enumerate(cfg.layer_pattern):
+        runs = 4 + (nested and i < cfg.period - 1)
+        kinds = ["A" if mixer in ("A", "AL") else mixer] + (["E"] if ffn_kind == "E" else [])
+        for kind in kinds:
+            split += cfg.num_periods * runs * fwd.get(kind, 0)
+        if mixer == "M":
+            split -= cfg.num_periods * bc
+            repeated += cfg.num_periods * (bc + runs * cb)
+    return split / tp + repeated * gl / g
 
 
 # all-reduces of one quantized projection's statistics: the activations'
@@ -284,12 +323,74 @@ _ACT_STAT_REDUCES = {"tnn": 2, "tbn": 2, "bnn": 1}
 _W_STAT_REDUCES = {"tnn": 2, "tbn": 1, "bnn": 1}
 
 
+def _block_collectives(cfg, mixer: str, ffn_kind: str, split, sp: bool, policy: str,
+                       nb: int, nbt: int) -> Dict[str, int]:
+    """One block's collectives per microbatch on the training mesh:
+    ``fwd_*`` those of one forward (twice under remat), ``bwd_*`` those of
+    the backward, by kind (``ag``, ``rs``, ``ar``), and ``tail``: the kind
+    of a float row-parallel reduction that ends the block (a separate op
+    after its product, which the remat recompute stops short of), or None.
+    ``nb`` / ``nbt``: the batch axes of size > 1, and with the
+    tensor-parallel axis."""
+    act = _ACT_STAT_REDUCES.get(policy, 0)
+    w_st = _W_STAT_REDUCES.get(policy, 0)
+    c = {f"{ph}_{k}": 0 for ph in ("fwd", "bwd") for k in ("ag", "rs", "ar")}
+    c["tail"] = None
+
+    def dense(n_proj, n_col, tp_on):
+        # n_proj projections: n_col column-parallel sharing one entered
+        # input, one row-parallel back into the residual stream
+        if not tp_on:
+            c["fwd_ar"] += act * nb * n_proj
+            return
+        c["fwd_ar"] += act * nb * n_col + act * nbt + w_st
+        if sp:
+            c["fwd_ag"] += 1
+            c["fwd_rs"] += 1
+            c["bwd_rs"] += 1
+            c["bwd_ag"] += 1
+        else:
+            c["fwd_ar"] += 1
+            c["bwd_ar"] += 1
+        c["tail"] = ("rs" if sp else "ar") if act == 0 else None
+
+    if mixer in ("A", "AL"):
+        dense(4, 3, "heads" in split)
+    elif mixer == "M":
+        dense(2, 1, "ssm_heads" in split)
+        if "ssm_heads" in split:              # the gated norm's sum of squares
+            c["fwd_ar"] += 1
+            c["bwd_ar"] += 1
+    if ffn_kind == "D":
+        dense(3, 2, "ffn" in split)
+    elif ffn_kind == "E":
+        shared = 1 if cfg.shared_expert_d_ff else 0
+        if "ffn" in split:
+            # every expert's and the shared expert's statistics stacked: the
+            # column-parallel inputs over the batch axes, the row-parallel
+            # ones over the batch axes and the tensor-parallel axis, the
+            # down weights' over the latter; their int32 counts in one
+            # all-reduce; the router's probabilities and the tokens
+            # gathered, the combine's shard taken
+            c["fwd_ar"] += act * nb + act * nbt + w_st + 1
+            if sp:
+                c["fwd_ag"] += 2
+                c["bwd_rs"] += 1
+                c["bwd_ag"] += 1
+            else:
+                c["bwd_ar"] += 1
+        else:
+            c["fwd_ar"] += act * nb * 3 * (cfg.num_experts + shared)
+        c["fwd_ar"] += 3 * nb                  # the aux loss's counts over the batch
+        c["tail"] = None
+    return c
+
+
 def train_mesh_collectives(cfg, tcfg, shardings, mesh, policy: str, seq: int) -> Dict[str, int]:
-    """The training mesh's collectives per rank per step of ``cfg`` (every
-    layer attention with a dense FFN) on ``mesh`` under the active rules,
-    each counted once per mesh axis of size > 1 it runs over, as
-    ``launch.mesh.collectives`` counts them; predicted from the train
-    state's ``shardings`` and the rules:
+    """The training mesh's collectives per rank per step of ``cfg`` on
+    ``mesh`` under the active rules, each counted once per mesh axis of
+    size > 1 it runs over, as ``launch.mesh.collectives`` counts them;
+    predicted from the train state's ``shardings`` and the rules:
 
     * every leaf by its plan (``sharding.leaf_plans``, or ``whole_plans``
       off a tensor-parallel split): per microbatch a gather per axis it
@@ -298,30 +399,31 @@ def train_mesh_collectives(cfg, tcfg, shardings, mesh, policy: str, seq: int) ->
       all-reduces its gradient over its sum axes once;
     * an int8 moment whose shard cuts a 256-block: its block maxima
       (all-reduce) and its scales (gather), for m and v;
-    * per forward (twice under remat) each quantized projection's
-      activation statistics over the batch axes (and the tensor-parallel
-      axis for a row-parallel one) and a row-parallel weight's channel
-      statistics over the tensor-parallel axis;
-    * tensor parallelism per layer and microbatch: each split region's
-      input gathered (sequence parallelism) in the forward and the
-      recompute and its backward's reduce-scatter, each row-parallel
-      output's reduce-scatter in the forward and the recompute and its
-      backward's gather (without sequence parallelism all-reduces in
-      their place: the input's backward, the output's forward), the
-      vocab-parallel embedding's and the head input's pair; the recompute
-      stops after the last op whose saved tensors the backward needs, so
-      under a float policy it skips each layer's last row-parallel
-      reduction; the loss's row max and its sums over the vocab, per
-      chunk;
+    * per block and microbatch (:func:`_block_collectives`), per forward
+      (twice under remat): each quantized projection's activation
+      statistics over the batch axes (and the tensor-parallel axis for a
+      row-parallel one) and a row-parallel weight's channel statistics
+      over the tensor-parallel axis (an MoE layer's experts stacked: one
+      collective per round); tensor parallelism's boundaries: each split
+      region's input gathered (sequence parallelism) in the forward and
+      its backward's reduce-scatter, each row-parallel output's
+      reduce-scatter in the forward and its backward's gather (without
+      sequence parallelism all-reduces in their place: the input's
+      backward, the output's forward); the Mamba2 norm's sum of squares
+      (forward and backward); an MoE layer's gathered router
+      probabilities, its experts' counts in one all-reduce, the combine's
+      shard (backward gather) and its aux loss's three sums over the
+      batch.  The recompute stops after the last op whose saved tensors
+      the backward needs, so under a float policy it skips the last
+      row-parallel reduction of what it recomputes (a period, or with
+      ``remat_block`` each block) when one ends it;
+    * the vocab-parallel embedding's and the head input's pair, the
+      loss's row max and its sums over the vocab, per chunk;
     * the loss's token count per microbatch, the loss shares, the global
       norm and EF's absmax (one each over the whole mesh)."""
     from repro_torch.optim.adamw import Q8Layout
     from repro_torch.parallel import sharding
-    from repro_torch.train.train_step import tp_config
     from repro_torch.tree import flatten_with_paths
-
-    if not tp_config(cfg):
-        raise NotImplementedError(f"{cfg.name}: layers other than attention and dense FFN")
 
     def n(axes):
         return sum(1 for a in axes if mesh.axis_size(a) > 1)
@@ -350,32 +452,32 @@ def train_mesh_collectives(cfg, tcfg, shardings, mesh, policy: str, seq: int) ->
         if tcfg.optimizer.moments_dtype == "int8" and Q8Layout.cuts(p, mesh):
             reduces += 2 * n(sharding.spec_axes(p.spec[-1]))
             gathers += 2 * n(sharding.spec_axes(opt_m[f"{path}/scale"].spec[-1]))
-    layers = cfg.num_layers
-    fwd = 2 if cfg.remat else 1
-    heads, ffn, vocab = ("heads" in split), ("ffn" in split), ("vocab" in split)
-    # projections per layer: (whole, column-parallel, row-parallel)
-    col = 3 * heads + 2 * ffn
-    row = heads + ffn
-    whole = 7 - col - row
-    act = _ACT_STAT_REDUCES.get(policy, 0)
-    if act:
-        tp_axes = batch + ([tp] if tp else [])
-        reduces += micro * fwd * layers * (act * (whole + col) * n(batch)
-                                           + row * (act * n(tp_axes) + _W_STAT_REDUCES[policy]))
-    if tp is not None:
-        skipped = layers if (cfg.remat and row and act == 0) else 0
-        enters = heads + ffn
+    nb, nbt = n(batch), n(batch + ([tp] if tp else []))
+    # remat: each period's forward runs again in the backward; with
+    # remat_block each block is checkpointed inside it too, so every
+    # block runs a third time (its own recompute) but the period's last,
+    # whose input the period's recompute already holds
+    nested = cfg.remat and cfg.remat_block and cfg.period > 1
+    for i, (mixer, ffn_kind) in enumerate(cfg.layer_pattern):
+        c = _block_collectives(cfg, mixer, ffn_kind, split, sp, policy, nb, nbt)
+        runs = 1 + cfg.remat + (nested and i < cfg.period - 1)
+        per = {k: runs * c[f"fwd_{k}"] + c[f"bwd_{k}"] for k in ("ag", "rs", "ar")}
+        if c["tail"] and (nested or (cfg.remat and i == cfg.period - 1)):
+            per[c["tail"]] -= 1
+        gathers += micro * cfg.num_periods * per["ag"]
+        scatters += micro * cfg.num_periods * per["rs"]
+        reduces += micro * cfg.num_periods * per["ar"]
+    vocab = "vocab" in split
+    if tp is not None and vocab:
         tokens = cfg.input_kind != "embeddings"
         if sp:
-            gathers += micro * (layers * (enters * fwd + row) + vocab * (1 + tokens))
-            scatters += micro * (layers * (row * fwd + enters) - skipped
-                                 + vocab * (1 + tokens))
+            gathers += micro * (1 + tokens)
+            scatters += micro * (1 + tokens)
         else:
-            reduces += micro * (layers * (enters + row * fwd) - skipped + vocab * (1 + tokens))
-        if vocab:
-            chunk = min(tcfg.seq_chunk, seq)
-            chunks = seq // chunk if seq % chunk == 0 else 1
-            reduces += micro * 2 * chunks
+            reduces += micro * (1 + tokens)
+        chunk = min(tcfg.seq_chunk, seq)
+        chunks = seq // chunk if seq % chunk == 0 else 1
+        reduces += micro * 2 * chunks
     reduces += micro * n(batch) + n(batch) + (1 if mesh.size > 1 else 0) * (
         1 + int(tcfg.ef_compression))
     return {"all_gather": gathers, "reduce_scatter": scatters, "all_reduce": reduces}

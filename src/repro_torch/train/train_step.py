@@ -31,21 +31,22 @@ and the batch this rank's rows, split over ``sharding.batch_axes``:
   reference's ZeRO-3 reduce-scatter).  Leaves no axis is gathered over
   pass as they are; their float32 gradients are all-reduced over those
   axes (:func:`_sum_replicated`);
-* tensor and sequence parallelism (``sharding.leaf_plans``), for configs
-  whose layers are all attention and dense FFN (:func:`tp_config`): a leaf
+* tensor and sequence parallelism (``sharding.leaf_plans``): a leaf
   keeps its chunk on the tensor-parallel axis ("model" under
-  ``TRAIN_RULES`` and ``TRAIN_RULES_HYBRID``) along its "heads", "ffn"
-  and "vocab" dims and is gathered over the rest (its "fsdp" axes), and
-  the model computes on those chunks: column-parallel wq/wk/wv/gate/up,
-  row-parallel wo/down, the vocab-parallel embedding, head and loss.
-  Under ``TRAIN_RULES`` ("seq" on "model") the residual stream between
-  blocks holds this rank's sequence shard, and the leaves whole on every
-  rank of the axis (norm scales) sum their gradients over it as well.
+  ``TRAIN_RULES`` and ``TRAIN_RULES_HYBRID``) along its "heads", "ffn",
+  "vocab" and "ssm_heads" dims and is gathered over the rest (its "fsdp"
+  axes), and the model computes on those chunks: column-parallel
+  wq/wk/wv/gate/up (the experts' and the shared expert's too) and the
+  rank's heads' columns of the Mamba2 ``in_proj``, row-parallel wo/down
+  and ``out_proj``, the vocab-parallel embedding, head and loss.  Under
+  ``TRAIN_RULES`` ("seq" on "model") the residual stream between blocks
+  holds this rank's sequence shard, and the leaves whole on every rank of
+  the axis (norm scales, the router) sum their gradients over it as well.
   ``ShardLayout.tp`` must give heads the axis divides
-  (``models.common.train_layout``).  Configs with MoE or SSM layers, and
-  ``TRAIN_RULES_FSDP`` (whose "model" axis splits the batch), gather every
-  leaf whole (``sharding.whole_plans``), so ranks along an axis that does
-  not split the batch repeat each other's work;
+  (``models.common.train_layout``), and the SSM heads and every FFN width
+  of an MoE layer must divide it (:func:`_check_tp_layout`).
+  ``TRAIN_RULES_FSDP`` (whose "model" axis splits the batch) gathers every
+  leaf whole (``sharding.whole_plans``);
 * reductions over the batch inside the forward are the global batch's
   (``sharding.split_batch``): the activation statistics of every
   quantized projection (a row-parallel one's over the tensor-parallel
@@ -79,7 +80,7 @@ from repro_torch.train.loss import xent_loss
 from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map
 
 __all__ = ["TrainStepConfig", "make_train_step", "init_train_state",
-           "state_shardings", "make_loss_fn", "value_and_grad", "tp_config"]
+           "state_shardings", "make_loss_fn", "value_and_grad"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +92,6 @@ class TrainStepConfig:
     z_loss: float = 0.0
     seq_chunk: int = 1024         # loss head chunking
     cast_params_bf16: bool = True # mixed precision: bf16 compute params
-
-
-def tp_config(cfg: ModelConfig) -> bool:
-    """True when every layer of ``cfg`` is attention with a dense FFN (or
-    none): the configs the tensor-parallel step runs (module docstring)."""
-    return all(m in ("A", "AL") and f in ("D", "-") for m, f in cfg.layer_pattern)
 
 
 def _compute_copies(params, plans, cast_bf16: bool):
@@ -255,19 +250,36 @@ def _check_tp_layout(cfg: ModelConfig, layout: ShardLayout, tp: int, split, sp: 
     """Raise unless the parameters of ``layout`` split over ``tp`` ranks
     as the tensor-parallel forward needs: whole kv slots with their q
     groups on each rank, and q/k norms only under sequence parallelism
-    (their gradient sums over the axis with the norms')."""
+    (their gradient sums over the axis with the norms'); the Mamba2 heads
+    split (their groups split too, or each rank's heads lie in one
+    group); every FFN width of an MoE layer split.  Under sequence
+    parallelism an MoE or SSM layer that kept its leaves whole would run
+    on a sequence shard, whose capacity drops and scan are not the whole
+    sequence's."""
     from repro_torch.models.attention import head_layout
 
-    if "heads" not in split:
-        return
-    hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
-    if hl.kvp % tp:
-        raise ValueError(f"{cfg.name}: {hl.kvp} kv slots do not split over {tp} "
-                         f"tensor-parallel ranks; build the state with "
-                         f"ShardLayout(tp={tp}) (models.common.train_layout)")
-    if cfg.qk_norm and not sp:
-        raise NotImplementedError(f"{cfg.name}: q/k norms on heads split without "
-                                  f"sequence parallelism")
+    mixers = {m for m, _ in cfg.layer_pattern}
+    if "heads" in split and mixers & {"A", "AL"}:
+        hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
+        if hl.kvp % tp:
+            raise ValueError(f"{cfg.name}: {hl.kvp} kv slots do not split over {tp} "
+                             f"tensor-parallel ranks; build the state with "
+                             f"ShardLayout(tp={tp}) (models.common.train_layout)")
+        if cfg.qk_norm and not sp:
+            raise NotImplementedError(f"{cfg.name}: q/k norms on heads split without "
+                                      f"sequence parallelism")
+    if "M" in mixers:
+        h, g = cfg.ssm_nheads, cfg.ssm_ngroups
+        if "ssm_heads" not in split or h % tp or (g % tp and tp % g):
+            raise ValueError(f"{cfg.name}: {h} SSM heads in {g} groups do not split over "
+                             f"{tp} tensor-parallel ranks (the heads and the groups must "
+                             f"divide the axis, or the axis the groups)")
+    if any(f == "E" for _, f in cfg.layer_pattern):
+        widths = (cfg.d_ff, cfg.shared_expert_d_ff or tp)
+        if "ffn" not in split or any(w % tp for w in widths):
+            raise ValueError(f"{cfg.name}: the expert FFN (d_ff {cfg.d_ff}, shared "
+                             f"{cfg.shared_expert_d_ff}) does not split over {tp} "
+                             f"tensor-parallel ranks")
 
 
 def make_train_step(cfg: ModelConfig, layout: ShardLayout,
@@ -288,14 +300,13 @@ def make_train_step(cfg: ModelConfig, layout: ShardLayout,
         if key not in cache:
             cache.clear()
             shardings = state_shardings(cfg, layout, tcfg, ctx)
-            tp = sharding.tp_axis(ctx) if tp_config(cfg) else None
+            tp = sharding.tp_axis(ctx)
             if tp is None:
                 cache[key] = (shardings, sharding.whole_plans(shardings["params"], ctx), {})
             else:
                 size = ctx.axis_sizes[tp]
                 sp = sharding.seq_parallel(ctx, tp) and seq % size == 0
                 plans, split = sharding.leaf_plans(shardings["params"], ctx, sp=sp)
-                _check_tp_layout(cfg, layout, size, split, sp)
                 cache[key] = (shardings, plans, {"tp": tp, "split": split, "sp": sp,
                                                  "seq": seq})
         return cache[key]
@@ -307,6 +318,8 @@ def make_train_step(cfg: ModelConfig, layout: ShardLayout,
         if ctx is not None:
             shardings, plans, kw = mesh_plan(ctx, int(batch["labels"].shape[1]))
             mesh = ctx.mesh
+            if kw:
+                _check_tp_layout(cfg, layout, ctx.axis_sizes[kw["tp"]], kw["split"], kw["sp"])
         loss_fn = make_loss_fn(cfg, layout, tcfg, plans)
         params = state["params"]
         with sharding.split_batch(mesh, sharding.batch_axes(ctx), **kw):

@@ -795,3 +795,39 @@ def test_k_sharded_qmm_on_two_ranks_equals_single_device(cuda_device, tmp_path):
         assert rep["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
         assert rep["local_words"] == 88
         assert rep["launches"] == {"lowbit_gemm_tnn_i32": 1}, rep["launches"]
+
+
+def test_moe_ssm_tensor_parallel_forward_on_card_matches_plain(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (one card each over NCCL where
+    the machine has them) on a (1, 2) mesh under TRAIN_RULES' split: the
+    small Qwen2-MoE layer (8 experts top 4, d_ff 128 and a shared expert
+    of 256 cut in two) and the small Mamba2 mixer (8 heads cut in two)
+    forward under ``tnn`` on the card's kernels ``torch.equal`` to their
+    plain versions, finite, with the launches the shapes give: the
+    column-parallel gates and ups fused (8 + 8 experts, 2 shared), the
+    downs' int32 cores (8 + 1); in_proj fused, out_proj int32."""
+    import json
+    import os
+    import sys
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    _build.build()            # the ranks load the libraries, never compile
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(os.path.dirname(here), "src")]
+                                        + [p for p in env.get("PYTHONPATH", "").split(
+                                            os.pathsep) if p])
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    res = mesh_mod.run_ranks([sys.executable, os.path.join(here, "torch_train_tp_moe_ssm_ranks.py"),
+                              "--gpu", str(tmp_path)], 2, timeout_s=300, env=env,
+                             log_dir=str(tmp_path / "logs"))
+    assert [r["returncode"] for r in res] == [0, 0], mesh_mod.rank_logs(res)
+    for r in range(2):
+        rep = json.loads((tmp_path / f"gpu_rank{r}.json").read_text())
+        assert rep["moe_equal"] and rep["ssm_equal"], rep
+        assert rep["moe_finite"] and rep["ssm_finite"], rep
+        assert rep["moe_launches"] == {"lowbit_gemm_tnn_fused": 18,
+                                       "lowbit_gemm_tnn_i32": 9}, rep
+        assert rep["ssm_launches"] == {"lowbit_gemm_tnn_fused": 1,
+                                       "lowbit_gemm_tnn_i32": 1}, rep

@@ -380,10 +380,11 @@ def test_mesh_engine_one_rank_failure_raises_within_timeout(quarantine):
     """``device.loss`` armed on rank 1 only: rank 1 fails the tick, rank 0
     waits in a collective rank 1 never joins.  Both ranks' ``run()`` raise
     (``MeshDesyncError`` or the collective's timeout error) within a few
-    of the group's 5 s timeouts, never hang."""
+    of the group's 5 s timeouts after the tick of the fault, never hang
+    (``secs``: from that tick's fault site; ``total``: from ``run()``)."""
     from torch_mesh_ranks import QUARANTINE_TIMEOUT_S
 
     for rep in quarantine:
-        kind, msg, secs = rep["one_rank"]
+        kind, msg, secs, total = rep["one_rank"]
         assert kind in ("MeshDesyncError", "RuntimeError", "DistBackendError"), (kind, msg)
-        assert secs < 4 * QUARANTINE_TIMEOUT_S, (kind, msg, secs)
+        assert secs < 4 * QUARANTINE_TIMEOUT_S, (kind, msg, secs, total)

@@ -146,6 +146,30 @@ def test_adamw_update_matches_reference(moments, clip, wd):
                                            err_msg=f"step {step} {k}")
 
 
+@pytest.mark.parametrize("moments", ["f32", "int8"])
+def test_adamw_update_by_slices_equals_whole(monkeypatch, moments):
+    """A leaf larger than ``_UPDATE_ELEMS`` is updated a slice of its
+    leading dim at a time: params and moments ``torch.equal`` to the
+    whole-leaf update, a period-stacked 3-D leaf and a 2-D one, rows that
+    do not divide the slices, over three steps."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10, clip_norm=1.0,
+                      weight_decay=0.1, moments_dtype=moments)
+    params = {"s": _x((5, 6, 512), 30, 0.5), "w": _x((7, 512), 31, 0.5), "b": _x((512,), 32)}
+    outs = []
+    for limit in (adamw_mod._UPDATE_ELEMS, 1024):
+        monkeypatch.setattr(adamw_mod, "_UPDATE_ELEMS", limit)
+        p = _torch(params)
+        state = adamw_init(p, cfg)
+        for step in range(3):
+            grads = {k: _x(v.shape, 40 + step) for k, v in params.items()}
+            p, state, _ = adamw_update(_torch(grads), state, p, cfg)
+        outs.append(flatten_with_paths({"p": p, "m": state["m"], "v": state["v"]}))
+    for (k, a), (_, b) in zip(*outs):
+        assert torch.equal(a, b), k
+
+
 def _quadratic_losses(cfg, steps=60):
     target = torch.tensor([1.5, -2.0, 0.5])
     params = {"w": torch.zeros(3)}
