@@ -16,7 +16,8 @@ checkout's GeMM kernels, e.g. the parent commit's, on the same card.
 The third runs phases 1, 2 and 11 only, the fourth phases 1, 2 and 12
 (with ``--train-mesh-fault`` its ranks run the faulty step the bounds of
 ``TRAIN_MESH_BOUNDS`` must reject: norm scales that sum their gradients
-over the batch axes only; the phase prints the readings and fails),
+over the batch axes only, and under int8 / int4 a weight's grid
+calibrated on the rank's chunk; the phase prints the readings and fails),
 the fifth phases 1, 2, 7a, 10a and 13 (13b and 13c then hold the
 placeholder meshes to the formulas, not to 11c and 12a).
 Phases 11 and 12 start this script again as each of their ranks
@@ -308,6 +309,21 @@ without printing a result:
         passed to both; the readings within ``TRAIN_MESH_BOUNDS``, beside
         one device's with its rows reversed; state bytes per rank against
         one device's;
+    12g / 12h. as 12a, TinyLlama-1.1B at its published width under the
+        affine policies, ``int8`` at ``TRAIN_MESH_LAYERS`` layers and
+        ``int4`` at ``LM_CUT_LAYERS`` (f32 moments, no EF): every
+        projection's per-tensor grid over the whole weight (a max over
+        "model"), the column-parallel ones on the rank's n slice and the
+        row-parallel ones' eq. (3) int32 cores reduce-scattered; per rank
+        per step exactly 2 x 7 x 11 ``affine_gemm_u8`` (2 x 7 x 2
+        ``affine_gemm_u4``) launches, as on one device, and the
+        collectives ``train_mesh_collectives`` predicts; the first
+        forward's column-parallel grids equal to one device's columns,
+        its first ``TRAIN_MESH_KEEP`` column-parallel outputs equal to
+        one device's, rows 8 / 9 ``torch.equal`` to their plain versions
+        at the rank's operands (column- and row-parallel), the reduced
+        cores equal to one device's core; the readings within
+        ``TRAIN_MESH_BOUNDS``, beside one device with its rows reversed;
     12b. at ``LM_CUT_LAYERS`` layers: 12a's state saved on the mesh (whole
         leaves, the reference's format), restored onto (4, 1) equal to the
         saved state re-sharded in memory, and one more step from each
@@ -330,11 +346,12 @@ without printing a result:
         operations per rank equal to ``train_step_flops(cfg, 4, 512, tp=2)``
         and a quarter of one device's at that depth within 1%; 11c's serving forward on a
         placeholder (1, 4): 110 fused and 44 int32 records and 44
-        all-reduces, equal to 11c's counts; 12e's and 12f's configurations
-        on the placeholder (2, 2): the records ``train_mesh_launches`` and
-        the collectives ``train_mesh_collectives`` predict, and in the full
-        script the collectives (count and bytes) and state bytes of 12e's
-        and 12f's rank 0;
+        all-reduces, equal to 11c's counts; 12e's, 12f's, 12g's and 12h's
+        configurations on the placeholder (2, 2): the records
+        ``train_mesh_launches`` and the collectives
+        ``train_mesh_collectives`` predict, and in the full script the
+        launches, collectives (count and bytes) and state bytes of their
+        rank 0;
     13c. the train state's bytes per rank equal to 12a's rank 0; the peak of
         live tensor bytes against ``max_memory_allocated`` of 10a and of
         12a's rank 0, each ratio within DRYRUN_PEAK_BAND;
@@ -343,7 +360,8 @@ without printing a result:
         roofline must be at least 1, and the step's measured / float32
         bound is reported;
     13e. ``launch.dryrun.run_cell`` for DRYRUN_CELLS on both placeholder
-        DRYRUN_MESHES: every cell PASS, seconds per cell;
+        DRYRUN_MESHES, the six subprocesses at once: every cell PASS,
+        seconds per cell;
     13f. the three examples on the card (``repro_torch.examples``):
         quickstart's exact TBN core, serve_batch ``EXAMPLE_SERVE_ARGS``
         all "ok", train_tinylm ``EXAMPLE_TRAIN_ARGS`` below ln(V); the
@@ -420,7 +438,8 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "tinyllama-1.1b", 4, 128, 16
 LM_CUT_LAYERS, LM_CUT_STEPS = 2, 2
 # policy -> the GeMM kernel its projections launch
 LM_POLICY_KERNELS = {"tnn": "lowbit_gemm_tnn_fused", "bnn": "lowbit_gemm_bnn_fused",
-                     "tnn_dense": "dense_gemm_tnn", "int8": "affine_gemm_u8"}
+                     "tnn_dense": "dense_gemm_tnn", "int8": "affine_gemm_u8",
+                     "int4": "affine_gemm_u4"}
 PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "in_proj", "out_proj")
 # Phase 8, the rest of the model layer at published width: Qwen2-MoE-A2.7B
 # (MOE_STEPS greedy steps after 4 x 128), Mamba2-1.3B (4 x SSM_PROMPT, two
@@ -499,16 +518,25 @@ MESH_CASES = {"n": ("model", None), "k": (None, "model"), "nk": ("model", "data"
 # 12a runs TRAIN_MESH_LAYERS of TinyLlama's 22 layers and no rows-reversed
 # floor (TRAIN_MESH_FLOORS; PERF.md keeps the 22-layer floor): the cuts
 # that keep the whole script near 900 s with 12e and 12f beside it.
+# "12g" and "12h" train TinyLlama-1.1B at its published width under the
+# affine policies (AFFINE_POLICIES: f32 moments, no EF), int8 at
+# TRAIN_MESH_LAYERS layers and int4 at LM_CUT_LAYERS: every projection's
+# per-tensor grid spans its whole weight, so a column-parallel one's
+# takes a max over "model" too, and the row-parallel eq. (3) cores are
+# summed over "model" as int32.
 TRAIN_MESH_WORLD, TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = 4, (2, 2), 2
 TRAIN_MESH_LR, TRAIN_MESH_TIMEOUT_S, TRAIN_MESH_MOVED_MAX = 3e-4, 900, 0.05
 TRAIN_MESH_LAYERS, MOE_MESH_LAYERS = 11, 2
+AFFINE_POLICIES = ("int8", "int4")
 # (name, arch, layers, policy, ruleset, the one-device run it is held to)
 TRAIN_MESH_RUNS = (("12a", LM_ARCH, TRAIN_MESH_LAYERS, "tnn", "train", "12a"),
                    ("12a_cut", LM_ARCH, LM_CUT_LAYERS, "tnn", "train", "12a_cut"),
                    ("12a_f32", LM_ARCH, LM_CUT_LAYERS, "f32", "train", "12a_f32"),
                    ("12d", LM_ARCH, LM_CUT_LAYERS, "tnn", "train_fsdp", "12a_cut"),
                    ("12e", MOE_ARCH, MOE_MESH_LAYERS, "tnn", "train", "12e"),
-                   ("12f", SSM_ARCH, None, "tnn", "train", "12f"))
+                   ("12f", SSM_ARCH, None, "tnn", "train", "12f"),
+                   ("12g", LM_ARCH, TRAIN_MESH_LAYERS, "int8", "train", "12g"),
+                   ("12h", LM_ARCH, LM_CUT_LAYERS, "int4", "train", "12h"))
 TRAIN_MESH_BOUNDS = {
     "12a": ({"loss": 1e-2, "grad_norm": 7e-2, "sumsq": 1e-3, "grad_sumsq": 0.3},
             {"loss": 5e-3, "grad_norm": 0.15, "sumsq": None, "grad_sumsq": 0.38}),
@@ -525,9 +553,15 @@ TRAIN_MESH_BOUNDS = {
             {"loss": 2e-3, "grad_norm": 2e-2, "sumsq": None, "grad_sumsq": 0.23}),
     "12f": ({"loss": 2e-3, "grad_norm": 1e-2, "sumsq": 8e-2, "grad_sumsq": 0.43},
             {"loss": 6e-3, "grad_norm": 5e-3, "sumsq": None, "grad_sumsq": 0.38}),
+    # 12g, 12h: as 12e's and 12f's were set; the first step's loss is one
+    # device's to the bit (every integer core and statistic exact)
+    "12g": ({"loss": 1e-5, "grad_norm": 1e-4, "sumsq": 1.5e-6, "grad_sumsq": 4e-3},
+            {"loss": 2.5e-4, "grad_norm": 2.5e-3, "sumsq": None, "grad_sumsq": 1.7e-2}),
+    "12h": ({"loss": 1e-5, "grad_norm": 2e-5, "sumsq": 4e-6, "grad_sumsq": 6e-3},
+            {"loss": 3.5e-3, "grad_norm": 3e-3, "sumsq": None, "grad_sumsq": 7e-2}),
 }
 # the one-device references run a second time with their rows reversed
-TRAIN_MESH_FLOORS = ("12a_cut", "12a_f32", "12e", "12f")
+TRAIN_MESH_FLOORS = ("12a_cut", "12a_f32", "12e", "12f", "12g", "12h")
 # the first forward's projections whose planes and operands each run keeps
 # (the first layer's first column-parallel ones on a tensor-parallel rank;
 # those and the first ones of its layer on one device)
@@ -2553,8 +2587,9 @@ def phase11(torch, dev):
 def train_mesh_config(num_layers=None, policy="tnn", arch=LM_ARCH):
     """12a's configuration: TinyLlama-1.1B (or ``arch``; its first
     ``num_layers`` layers) under ``policy`` with remat, AdamW with int8
-    moments, EF on, the bf16 wire; TRAIN_BATCH x TRAIN_SEQ tokens a step
-    from SyntheticLM seed 0.  -> (cfg, tcfg, source)."""
+    moments, EF on (under AFFINE_POLICIES float32 moments, no EF), the
+    bf16 wire; TRAIN_BATCH x TRAIN_SEQ tokens a step from SyntheticLM
+    seed 0.  -> (cfg, tcfg, source)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import AdamWConfig
@@ -2563,8 +2598,10 @@ def train_mesh_config(num_layers=None, policy="tnn", arch=LM_ARCH):
     cfg = get_config(arch, quant_policy=policy)
     if num_layers:
         cfg = cfg.with_(num_layers=num_layers)
+    affine = policy in AFFINE_POLICIES
     tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=TRAIN_MESH_LR, warmup_steps=1,
-                                                 moments_dtype="int8"), ef_compression=True)
+                                                 moments_dtype="f32" if affine else "int8"),
+                           ef_compression=not affine)
     return cfg, tcfg, SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH, seed=0)
 
@@ -2628,18 +2665,47 @@ def tp_row_calls(cfg) -> int:
     return int(mixer in ("A", "AL", "M")) + int(ffn == "D")
 
 
+def kept_planes(qt) -> dict:
+    """A packed weight's planes (bit planes (n, kw), or the affine grid
+    "q" (k, n)) with its scale, and an affine grid's zero point, on the
+    host."""
+    out = {**{k: v.cpu() for k, v in qt.payload.items()}, "scale": qt.scale.reshape(-1).cpu()}
+    if qt.zero is not None:
+        out["zero"] = qt.zero.reshape(-1).cpu()
+    return out
+
+
+def plane_outputs(planes) -> int:
+    """The output features of :func:`kept_planes`' weight."""
+    return planes["q"].shape[-1] if "q" in planes else planes["scale"].numel()
+
+
+def planes_at(planes, rows) -> dict:
+    """:func:`kept_planes` at the output features ``rows``: a bit plane's
+    rows, the affine grid's columns, a per-channel scale's elements; an
+    affine grid's per-tensor scale and zero point whole."""
+    def take(key, v):
+        if key == "q":
+            return v.index_select(-1, rows)
+        if "q" in planes:
+            return v
+        return v.index_select(0 if v.ndim == 1 else -2, rows)
+    return {k: take(k, v) for k, v in planes.items()}
+
+
 @contextlib.contextmanager
 def record_planes(torch, box, keep, n_forward: int, slices=None):
-    """While active, the first ``n_forward`` low-bit ``qmm`` calls (the
+    """While active, the first ``n_forward`` quantized ``qmm`` calls (the
     first forward's projections that run ``qmm``: every one on one device
     and under ``TRAIN_RULES_FSDP``, the column-parallel ones under tensor
     parallelism): each call's planes' digests (with ``slices``, a function
-    of the call's index and row count giving the row selections of each
-    "model" coordinate, also the digests of each selection), and the
-    planes (with the weight's scale) and operands (``x``, the packed
-    weight, the activation statistics the call was given: a split batch's
-    global ones on the mesh) of the calls whose index is in ``keep``, for
-    :func:`operands_vs_plain` and :func:`outputs_vs_one_device`."""
+    of the call's index and output features giving the features of each
+    "model" coordinate, also the digests of each selection:
+    :func:`planes_at`), and the planes (:func:`kept_planes`) and operands
+    (``x``, the packed weight, the activation statistics the call was
+    given: a split batch's global ones on the mesh) of the calls whose
+    index is in ``keep``, for :func:`operands_vs_plain` and
+    :func:`outputs_vs_one_device`."""
     from repro_torch.kernels import ops
 
     real = ops.qmm
@@ -2648,17 +2714,16 @@ def record_planes(torch, box, keep, n_forward: int, slices=None):
 
     def qmm(x, qt, *, backend=None, act_stats=None):
         i = len(box["digests"])
-        if qt.mode.is_lowbit and i < n_forward:
+        if not qt.mode.is_float and i < n_forward:
             keys = sorted(qt.payload)
             box["digests"].append([plane_digest(torch, qt.payload[k]) for k in keys])
             if slices is not None:
-                n = qt.payload[keys[0]].shape[-2]
+                n = qt.out_features
                 box["slice_digests"].append(
-                    [[plane_digest(torch, qt.payload[k].index_select(-2, rows))
-                      for k in keys] for rows in slices(i, n)])
+                    [[plane_digest(torch, planes_at(qt.payload, rows)[k]) for k in keys]
+                     for rows in slices(i, n)])
             if i in keep:
-                box["planes"][i] = {**{k: v.cpu() for k, v in qt.payload.items()},
-                                    "scale": qt.scale.reshape(-1).cpu()}
+                box["planes"][i] = kept_planes(qt)
                 box["operands"].append((i, x.detach().clone(), qt, act_stats))
         return real(x, qt, backend=backend, act_stats=act_stats)
 
@@ -2687,7 +2752,7 @@ def record_row_parallel(torch, box, n_keep: int):
         keep = len(box["row"]) < n_keep
         if keep:
             box["row"].append({"x": x.detach().clone(), "w": w.detach().clone(),
-                               "stats": stats, "lead": lead})
+                               "stats": stats, "lead": lead, "mode": mode})
         return real_row(x, w, mode, backend, lead, split, stats)
 
     def k_sharded(a_loc, planes, **kw):
@@ -2712,33 +2777,39 @@ def record_row_parallel(torch, box, n_keep: int):
 
 
 def row_parallel_checks(torch, records, mesh) -> dict:
-    """Row 4a at this rank's own operands of the first forward's
-    row-parallel projections (the int32 core on the card ``torch.equal``
-    to its plain version), and their reduced int32 counts against one
-    device's core on the whole matrices: the rank's input gathered over
-    "model" (its rows, every feature), the whole weight gathered, both
-    packed with the rank's statistics, the plain core, this rank's
-    sequence shard of it ``torch.equal`` to the counts.  Collective:
-    every rank of the mesh calls it."""
+    """The int32 core (row 4a; under INT8/INT4 the u8 / u4 kernel's eq. (3)
+    core of the rank's k slice, rows 8 / 9) at this rank's own operands of
+    the first forward's row-parallel projections, on the card
+    ``torch.equal`` to its plain version, and their reduced int32 counts
+    against one device's core on the whole matrices: the rank's input
+    gathered over "model" (its rows, every feature), the whole weight
+    gathered, both packed with the rank's statistics, the plain core, this
+    rank's sequence shard of it ``torch.equal`` to the counts.
+    Collective: every rank of the mesh calls it."""
     from repro_torch.kernels import ops, registry
     from repro_torch.kernels.modes import QuantMode
     from repro_torch.kernels.qtensor import QTensor
+    from repro_torch.parallel import qmm_mesh
 
-    mode = QuantMode.TNN
     out = {"vs_plain": [], "vs_one_device": [], "shapes": []}
     j, tp = mesh.axis_index("model"), mesh.axis_size("model")
     for rec in records:
+        mode = QuantMode(rec["mode"])
         cuda = registry.lookup(mode, "cuda", fused=False)
         plain = registry.lookup(mode, "torch", fused=False)
+        part = dict(mode=mode, bit0=0, depth=int(rec["x"].shape[1]))
         with deterministic(torch):
-            got = cuda.fn(rec["a_loc"], rec["planes"], 0, tiles=rec["tiles"])
-        want = plain.fn(rec["a_loc"], rec["planes"], 0)
+            got = qmm_mesh.k_sharded_partial(rec["a_loc"], rec["planes"], backend="cuda",
+                                             spec=cuda, tiles=rec["tiles"], **part)
+        want = qmm_mesh.k_sharded_partial(rec["a_loc"], rec["planes"], backend="torch",
+                                          spec=plain, tiles=None, **part)
         out["vs_plain"].append(bool(torch.equal(got, want)))
         x = mesh.all_gather_axes(rec["x"].contiguous(), ("model",), 1)
         w = mesh.all_gather_axes(rec["w"].contiguous(), ("model",), 0)
         qt = QTensor.from_dense(w, mode, stats=rec["stats"]["w"])
         xa = ops.quantize_activations(x.to(torch.float32), mode, stats=rec["stats"]["act"])
-        core = ops.packed_matmul({k: xa[k] for k in ("plus", "minus")}, qt, backend="torch")
+        core = plain.fn(tuple(xa[k] for k in ops._A_KEYS[mode]), ops._b_planes(qt, mode),
+                        qt.k_valid)
         lead = tuple(rec["lead"])
         core = core.reshape(lead + (core.shape[-1],))
         n = lead[-1] // tp
@@ -2777,10 +2848,12 @@ def outputs_vs_one_device(torch, operands, planes, rows) -> list:
     out = []
     with deterministic(torch):
         for i, x, qt, stats in operands:
-            one = planes[i]
-            whole = qt.replace(payload={k: v.to(x.device) for k, v in one.items() if k != "scale"},
-                               scale=one["scale"].to(x.device),
-                               shape=(qt.shape[0], int(one["scale"].numel())))
+            one = {k: v.to(x.device) for k, v in planes[i].items()}
+            affine = "zero" in one
+            whole = qt.replace(payload={k: v for k, v in one.items() if k not in ("scale", "zero")},
+                               scale=one["scale"].reshape(()) if affine else one["scale"],
+                               zero=one["zero"].reshape(()) if affine else None,
+                               shape=(qt.shape[0], plane_outputs(one)))
             got = ops.qmm(x, qt, act_stats=stats)
             want = ops.qmm(x, whole, act_stats=stats).index_select(1, rows[i].to(x.device))
             out.append(bool(torch.equal(got, want)))
@@ -2825,11 +2898,14 @@ def train_mesh_launches(cfg, policy: str, tp: bool) -> dict:
     recompute): under tensor parallelism the column-parallel projections'
     fused TNN GeMMs and every other projection's int32 core (row-parallel:
     wo, down, out_proj, an MoE layer's experts' and shared expert's
-    downs), else every projection's fused GeMM (:func:`tp_first_forward`)."""
-    if policy != "tnn":
-        return {}
+    downs), else every projection's fused GeMM (:func:`tp_first_forward`);
+    under AFFINE_POLICIES one u8 / u4 kernel a projection either way."""
     fwd = 2 if cfg.remat else 1
     col, calls = tp_first_forward(cfg)
+    if policy in AFFINE_POLICIES:
+        return {LM_POLICY_KERNELS[policy]: fwd * calls}
+    if policy != "tnn":
+        return {}
     if tp:
         return {LM_POLICY_KERNELS["tnn"]: fwd * len(col),
                 "lowbit_gemm_tnn_i32": fwd * (calls - len(col))}
@@ -2956,12 +3032,37 @@ def fault_norm_sum():
     return undo
 
 
+def fault_chunk_grid():
+    """``--train-mesh-fault`` under AFFINE_POLICIES: each rank calibrates
+    an affine weight's grid on its own "model" chunk, with no max over the
+    axis: the faulty step 12g's and 12h's bounds must reject.  Returns the
+    undo."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.modes import QuantMode
+
+    real = ops.split_weight_stats_many
+
+    def faulty(ws, mode, split):
+        mode = QuantMode(mode)
+        if mode.value not in AFFINE_POLICIES:
+            return real(ws, mode, split)
+        return [ops.affine_weight_stats(w, mode) for w in ws]
+
+    ops.split_weight_stats_many = faulty
+
+    def undo():
+        ops.split_weight_stats_many = real
+    return undo
+
+
 def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
     """One rank of phase 12 (``--train-mesh-rank``): 12a on (2, 2) at full
     depth and at LM_CUT_LAYERS under TRAIN_RULES, 12d at LM_CUT_LAYERS under
     TRAIN_RULES_FSDP, 12b at LM_CUT_LAYERS; writes ``rank<r>.json`` into
     ``out_dir``.  ``fault``: the norm scales' gradients skip the "model"
-    sum (:func:`fault_norm_sum`).  Any failure raises."""
+    sum (:func:`fault_norm_sum`), and under AFFINE_POLICIES each rank
+    calibrates a weight's grid on its chunk instead
+    (:func:`fault_chunk_grid`).  Any failure raises."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointConfig, Checkpointer
@@ -2982,16 +3083,23 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
     log(f"[train mesh] rank {rank}: {mesh!r}")
     report = {"rank": rank, "backend": mesh.backend, "fault": fault}
     single = torch.load(os.path.join(out_dir, "single.pt"), weights_only=False)
-    undo = fault_norm_sum() if fault else None
     j = mesh.axis_index("model")
 
     # -- 12a: full width and depth, then LM_CUT_LAYERS layers; 12d; 12e, 12f ---
     for name, arch, layers, policy, rules, ref_name in TRAIN_MESH_RUNS:
+        undo = None
+        if fault:
+            undo = fault_chunk_grid() if policy in AFFINE_POLICIES else fault_norm_sum()
         cfg, tcfg, source = train_mesh_config(layers, policy, arch)
-        state = None
-        gc.collect()            # the last run's trainer cycle (train_mesh_single)
+        # the last run's trainer, its result and its kept final state (but
+        # 12a_cut's, kept for 12b in ``cut``), and their cycle
+        # (train_mesh_single), are freed before this run's peak is read
+        state = tr = res = kept = None
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # what earlier runs leave on the card: 12a_cut's state, kept for 12b
+        start_bytes = torch.cuda.memory_allocated()
         rows, box, kept = [], {}, {"snapshot": name == "12a_cut"}
         t0 = time.perf_counter()
         with sharding.use_mesh(mesh, sharding.RULESETS[rules]):
@@ -3022,10 +3130,8 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
             want_d = [ref["slice_digests"][i][j] for i, _ in col] if ref["slice_digests"] else []
             sel = {}
             for i, kind in col[:TRAIN_MESH_KEEP] if ref["planes"] else ():
-                n = ref["planes"][i]["scale"].numel()
-                sel[i] = tp_rows(torch, cfg, kind, n, j)
-            want_p = [{k: v.index_select(0 if v.ndim == 1 else -2, sel[i])
-                       for k, v in ref["planes"][i].items()} for i in sel]
+                sel[i] = tp_rows(torch, cfg, kind, plane_outputs(ref["planes"][i]), j)
+            want_p = [planes_at(ref["planes"][i], sel[i]) for i in sel]
             got_p = [box["planes"][k] for k in sorted(box["planes"])]
             # the kept calls' outputs against one device's rows of the same
             # projection, the rank's statistics passed to both
@@ -3039,7 +3145,7 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
             got_p = [box["planes"][i] for i in sorted(box["planes"])]
         report[name] = {
             "rows": rows, "losses": res.losses, "init_s": init_s, "peak_memory_bytes": peak,
-            "step_peak_memory_bytes": step_peak,
+            "step_peak_memory_bytes": step_peak, "start_allocated_bytes": start_bytes,
             "collectives_expected": expect, "launches_expected": train_mesh_launches(
                 cfg, policy, tp), "tp": tp,
             "vs_plain": operands_vs_plain(torch, box["operands"]),
@@ -3057,8 +3163,8 @@ def train_mesh_rank(torch, out_dir: str, fault: bool = False) -> int:
         log(f"[train mesh {name}] rank {rank}: steps {[round(r['s'], 3) for r in rows]} s, "
             f"losses {res.losses}, peak {peak / 2**30:.2f} GiB (steps "
             f"{step_peak / 2**30:.2f} GiB)")
-    if undo is not None:
-        undo()
+        if undo is not None:
+            undo()
     kept, sh, cfg, tcfg, source = cut
     state = kept["state"]
     by = dict(flatten_with_paths(sh))
@@ -3291,16 +3397,16 @@ def phase12(torch, dev, fault: bool = False):
                 failures.append(f"{name} rank {r}: {got['n_digests']} qmm projections in the "
                                 f"first forward, expected {got['n_digests_expected']}")
             vp = got["vs_plain"]
-            diag.append(f"{name} rank {r}: row 1 vs plain at the first forward's operands "
-                        f"{vp['shapes']}: {vp['equal']}")
-            n_keep = min(TRAIN_MESH_KEEP, got["n_digests_expected"]) if policy == "tnn" else 0
+            diag.append(f"{name} rank {r}: the GeMM (row 1; rows 8 / 9 under int8 / int4) vs "
+                        f"plain at the first forward's operands {vp['shapes']}: {vp['equal']}")
+            n_keep = min(TRAIN_MESH_KEEP, got["n_digests_expected"])
             if len(vp["equal"]) != n_keep or not all(vp["equal"]):
-                failures.append(f"{name} rank {r}: row 1 differs from its plain version at the "
-                                f"mesh's operands: {vp}")
+                failures.append(f"{name} rank {r}: the GeMM differs from its plain version at "
+                                f"the mesh's operands: {vp}")
             rp, out_eq = got["row_parallel"], got["outputs_vs_one_device"]
-            if got["tp"] and policy == "tnn":
+            if got["tp"] and policy != "f32":
                 cfg_r = train_mesh_config(layers, policy, arch)[0]
-                diag.append(f"{name} rank {r}: row 4a vs plain at the row-parallel operands "
+                diag.append(f"{name} rank {r}: the int32 core vs plain at the row-parallel operands "
                             f"{rp and rp['shapes']}: {rp and rp['vs_plain']}; reduced counts "
                             f"== one device's core: {rp and rp['vs_one_device']}; the first "
                             f"column-parallel outputs == one device's rows: {out_eq}")
@@ -3379,6 +3485,9 @@ def phase12(torch, dev, fault: bool = False):
                   "launches_expected": r0[name]["launches_expected"],
                   "collectives_per_step": r0[name]["rows"][-1]["collectives"],
                   "peak_memory_bytes": [rep[name]["peak_memory_bytes"] for rep in reps],
+                  "step_peak_memory_bytes": [rep[name]["step_peak_memory_bytes"]
+                                             for rep in reps],
+                  "start_allocated_bytes": [rep[name]["start_allocated_bytes"] for rep in reps],
                   "single_peak_memory_bytes": single[name]["peak_memory_bytes"],
                   "single_bytes": single[name]["bytes"],
                   "rank_bytes": [rep[name]["bytes"] for rep in reps],
@@ -3386,7 +3495,7 @@ def phase12(torch, dev, fault: bool = False):
                                    rep[name]["bytes"].items()} for rep in reps],
                   "outputs_vs_one_device": r0[name]["outputs_vs_one_device"],
                   "row_parallel": r0[name]["row_parallel"]}
-           for name in ("12e", "12f")},
+           for name in ("12e", "12f", "12g", "12h")},
         "rel_diff_vs_one_device": {
             name: [step_diffs(row, srow)
                    for row, srow in zip(r0[name]["rows"], single[ref]["rows"])]
@@ -3418,6 +3527,9 @@ def phase12(torch, dev, fault: bool = False):
     report["phase_s"] = time.perf_counter() - t_phase
     launches = {k: {name: r0[name]["rows"][-1]["launches"].get(k, 0)
                     for name in ("12a", "12a_cut", "12d", "12e", "12f")} for k in (key, key32)}
+    for name, policy in (("12g", "int8"), ("12h", "int4")):
+        k = LM_POLICY_KERNELS[policy]
+        launches[k] = {name: r0[name]["rows"][-1]["launches"].get(k, 0)}
     return report, launches
 
 
@@ -3527,17 +3639,18 @@ def roofline_ms(stats, max_sm_mhz: float) -> dict:
 
 def card_readings(a7: dict, t10: dict, t12: dict = None, m11c: dict = None) -> dict:
     """What phase 13 holds the dry-run against, from the reports of phases
-    7a and 10a and, in the full script, 12 (12a, 12e, 12f) and 11c."""
+    7a and 10a and, in the full script, 12 (12a, 12e to 12h) and 11c."""
     out = {"forward_launches": {k: v // (1 + LM_STEPS) for k, v in a7["launches"].items()},
            "decode_ms": a7["tnn_decode_ms_per_token"],
            "step_launches": {LM_POLICY_KERNELS["tnn"]: t10["fused_tnn_launches_per_step"]},
            "step_ms": t10["mean_step_ms"], "step_peak_bytes": t10["peak_memory_bytes"]}
     if t12 is not None:
-        for name in ("12a", "12e", "12f"):
+        for name in ("12a", "12e", "12f", "12g", "12h"):
             run = t12[name]
             out[f"mesh{name}"] = {"collectives": {k: v for k, v in
                                                   run["collectives_per_step"].items()
                                                   if not k.endswith("_s")},
+                                  "launches": run["launches_per_step"],
                                   "state_bytes": sum(run["rank_bytes"][0].values()),
                                   "peak_bytes": run["peak_memory_bytes"][0]}
     if m11c is not None:
@@ -3616,29 +3729,33 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
     if m12 is not None and mcoll != m12["collectives"]:
         raise AssertionError(f"13b (2, 2): collectives {mcoll}, 12a's rank 0 "
                              f"{m12['collectives']}")
-    # 12e and 12f's configurations on the placeholder (2, 2): their
+    # 12e's to 12h's configurations on the placeholder (2, 2): their
     # predicted collectives and launches, and, in the full script, rank 0's
     meshes = {}
-    for name, arch, layers in (("12e", MOE_ARCH, MOE_MESH_LAYERS), ("12f", SSM_ARCH, None)):
-        cfg_x, tcfg_x, _ = train_mesh_config(layers, "tnn", arch)
+    for name, arch, layers, policy in (("12e", MOE_ARCH, MOE_MESH_LAYERS, "tnn"),
+                                       ("12f", SSM_ARCH, None, "tnn"),
+                                       ("12g", LM_ARCH, TRAIN_MESH_LAYERS, "int8"),
+                                       ("12h", LM_ARCH, LM_CUT_LAYERS, "int4")):
+        cfg_x, tcfg_x, _ = train_mesh_config(layers, policy, arch)
         xstep, xbytes, xcoll, xsh = dry_train(torch, cfg_x, tcfg_x, layout, rows, mesh)
         with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
-            xexpect = train_mesh_collectives(cfg_x, tcfg_x, xsh, mesh, "tnn")
-        xrec = train_mesh_launches(cfg_x, "tnn", True)
+            xexpect = train_mesh_collectives(cfg_x, tcfg_x, xsh, mesh, policy)
+        xrec = train_mesh_launches(cfg_x, policy, True)
         if {k: xcoll.get(k, 0) for k in xexpect} != xexpect or xstep.kernels != xrec:
             raise AssertionError(f"13b {name} (2, 2): collectives {xcoll}, records "
                                  f"{xstep.kernels}; train_mesh_collectives {xexpect}, "
                                  f"records {xrec}")
         card = measured.get(f"mesh{name}")
-        if card is not None and (xcoll != card["collectives"]
-                                 or xbytes != card["state_bytes"]):
+        if card is not None and (xcoll != card["collectives"] or xbytes != card["state_bytes"]
+                                 or xstep.kernels != card["launches"]):
             raise AssertionError(f"13b/13c {name} (2, 2): collectives {xcoll}, state bytes "
-                                 f"{xbytes}; {name}'s rank 0 {card['collectives']}, "
-                                 f"{card['state_bytes']}")
+                                 f"{xbytes}, records {xstep.kernels}; {name}'s rank 0 "
+                                 f"{card['collectives']}, {card['state_bytes']}, launches "
+                                 f"{card['launches']}")
         meshes[name] = {"collectives": xcoll, "state_bytes": xbytes, "records": xstep.kernels,
                         "rank_flops": xstep.dot_flops,
                         "card": None if card is None else
-                        {k: card[k] for k in ("collectives", "state_bytes")}}
+                        {k: card[k] for k in ("collectives", "state_bytes", "launches")}}
     cfg11, serve, scoll = dry_serve_mesh(torch)
     want_l, want_c = mesh_expect(cfg11, 1, 5, 2, 5)
     got_c = {k: scoll.get(k, 0) for k in want_c}
@@ -3691,20 +3808,29 @@ def phase13(torch, dev, measured: dict, max_sm_mhz: float) -> dict:
                      "step_measured_over_float32_bound": meas["10a_step"] / f32_ms}
     log("[dryrun 13d] " + json.dumps(report["13d"]))
     # -- 13e. the production cells -------------------------------------------------
+    # one subprocess a cell (host work on meta tensors), all at once
+    from concurrent.futures import ThreadPoolExecutor
+
     out_dir = str(ROOT / "build" / "chip_smoke" / "dryrun")
+
+    def cell(mesh_name, shape):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(LM_ARCH, shape, mesh_name, out_dir, force=True,
+                              timeout=DRYRUN_CELL_TIMEOUT_S)
+        return mesh_name, shape, rec, time.perf_counter() - t0
+
+    grid = list(itertools.product(DRYRUN_MESHES, DRYRUN_CELLS))
+    with ThreadPoolExecutor(len(grid)) as ex:
+        done = list(ex.map(lambda args: cell(*args), grid))
     cells = {}
-    for mesh_name in DRYRUN_MESHES:
-        for shape in DRYRUN_CELLS:
-            t0 = time.perf_counter()
-            rec = dryrun.run_cell(LM_ARCH, shape, mesh_name, out_dir, force=True,
-                                  timeout=DRYRUN_CELL_TIMEOUT_S)
-            if rec["status"] != "PASS":
-                raise AssertionError(f"13e {mesh_name} {shape}: {rec.get('error')}")
-            cells[f"{mesh_name}/{shape}"] = {
-                "s": time.perf_counter() - t0, "trace_s": rec["trace_s"],
-                "flops": rec["cost"]["flops"], "bytes_accessed": rec["cost"]["bytes accessed"],
-                "peak_live_bytes": rec["memory"]["peak_live_bytes"],
-                "collective_bytes": rec["collectives"]["total"]}
+    for mesh_name, shape, rec, secs in done:
+        if rec["status"] != "PASS":
+            raise AssertionError(f"13e {mesh_name} {shape}: {rec.get('error')}")
+        cells[f"{mesh_name}/{shape}"] = {
+            "s": secs, "trace_s": rec["trace_s"],
+            "flops": rec["cost"]["flops"], "bytes_accessed": rec["cost"]["bytes accessed"],
+            "peak_live_bytes": rec["memory"]["peak_live_bytes"],
+            "collective_bytes": rec["collectives"]["total"]}
     report["13e"] = cells
     log("[dryrun 13e] " + json.dumps(cells))
     # -- 13f. the examples on the card ----------------------------------------------
@@ -3872,8 +3998,10 @@ def main(argv=None) -> int:
     parser.add_argument("--train-mesh-rank", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--train-mesh-fault", action="store_true",
                         help="with --train-mesh: the ranks' norm scales sum their gradients "
-                             "over the batch axes only (the faulty step TRAIN_MESH_BOUNDS "
-                             "must reject); the phase prints its readings and fails")
+                             "over the batch axes only, and under int8 / int4 each rank "
+                             "calibrates a weight's grid on its chunk (the faulty steps "
+                             "TRAIN_MESH_BOUNDS must reject); the phase prints its readings "
+                             "and fails")
     parser.add_argument("--dryrun", action="store_true",
                         help="run only the device and build phases, 7a, 10a and "
                              "phase 13")

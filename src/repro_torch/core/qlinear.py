@@ -73,7 +73,8 @@ class QuantLinear:
     # -- QAT / training forward --------------------------------------------
 
     def apply(self, params: Dict[str, Any], x: torch.Tensor,
-              role: Optional[str] = None) -> torch.Tensor:
+              role: Optional[str] = None,
+              stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """The QAT forward.  ``role`` is the projection's place on a
         tensor-parallel training split (the model reads it off the leaf's
         spec, ``sharding.tp_split``): "col" when ``params["w"]`` is this
@@ -82,7 +83,8 @@ class QuantLinear:
         tensor-parallel axis into the rows this rank keeps (its sequence
         shard under sequence parallelism: the output has ``x``'s leading
         dims with the last one, the sequence, cut by the axis' size).
-        None: the whole matrix."""
+        None: the whole matrix.  ``stats`` ({"act", "w"}, either optional)
+        replaces the statistics ``ops.quantized_matmul`` would derive."""
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         w = params["w"]
@@ -93,7 +95,7 @@ class QuantLinear:
                 y = sharding.tp_reduce(y.reshape(*lead, self.d_out), dim=len(lead) - 1)
         else:
             y = ops.quantized_matmul(x2, w.to(torch.float32), self.mode, self.backend,
-                                     role=role, lead=lead)
+                                     role=role, lead=lead, stats=stats)
         if self.use_bias:
             y = y + params["b"]
         out = lead if role != "row" else (*lead[:-1], -1)
@@ -122,10 +124,11 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
 
 def linear_apply(params: Dict[str, Any], x: torch.Tensor,
                  mode: QuantMode = QuantMode.BF16,
-                 backend: str = DEFAULT_BACKEND, role: Optional[str] = None) -> torch.Tensor:
+                 backend: str = DEFAULT_BACKEND, role: Optional[str] = None,
+                 stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """:meth:`QuantLinear.apply` of the layer ``params`` describes (its
     shapes are this rank's slice's on a tensor-parallel split, ``role``)."""
     d_in, d_out = params["w"].shape
     layer = QuantLinear(d_in, d_out, mode=mode, use_bias="b" in params,
                         backend=backend)
-    return layer.apply(params, x, role)
+    return layer.apply(params, x, role, stats)

@@ -93,7 +93,7 @@ __all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
            "quantize_activations", "packed_matmul", "has_conv_kernel",
            "lowbit_matmul", "int8_affine_matmul", "int4_affine_matmul",
            "quantized_matmul", "row_parallel_group", "split_batch_stats_many",
-           "split_weight_stats_many", "DEFAULT_BACKEND"]
+           "split_weight_stats_many", "affine_weight_stats", "DEFAULT_BACKEND"]
 
 # Planes each mode consumes on the ACTIVATION side (weights use
 # qtensor.PAYLOAD_KEYS); TBN is ternary activations x binary weights.
@@ -568,6 +568,31 @@ def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
 # Float-facing quantized matmul with STE gradients (QAT)
 # ---------------------------------------------------------------------------
 
+def _affine_ranges(ts: Sequence[torch.Tensor], mode: QuantMode,
+                   reduce) -> List[Dict[str, torch.Tensor]]:
+    """The per-tensor affine grid ({"scale", "zero"}) of each whole tensor
+    of which each of ``ts`` holds a part: every part's max and -min in one
+    collective, ``reduce(t, "max")``, then ``quantize.affine_from_range``.
+    Max and min do not depend on the order, so each grid is
+    ``affine_calibrate``'s of the whole tensor exactly."""
+    r = reduce(torch.stack([v for t in ts for v in (t.amax(), -t.amin())]).to(torch.float32),
+               "max")
+    bits = 8 if mode == QuantMode.INT8 else 4
+    out = []
+    for i in range(len(ts)):
+        q = quantize.affine_from_range(-r[2 * i + 1], r[2 * i], bits)
+        out.append({"scale": q.scale, "zero": q.zero_point})
+    return out
+
+
+def affine_weight_stats(w: torch.Tensor, mode: QuantMode) -> Dict[str, torch.Tensor]:
+    """The INT8/INT4 grid of the whole weight ``w`` a rank holds, for a
+    projection that computes with a part of it (Mamba2's ``in_proj`` on a
+    rank's heads' columns): no collective."""
+    q = quantize.affine_calibrate(w, 8 if mode == QuantMode.INT8 else 4)
+    return {"scale": q.scale, "zero": q.zero_point}
+
+
 def split_batch_stats_many(xs: Sequence[torch.Tensor], mode: QuantMode, split,
                            over_tp: bool = False) -> List[Dict[str, Any]]:
     """The per-tensor activation statistics of the global batch whose rows
@@ -585,13 +610,7 @@ def split_batch_stats_many(xs: Sequence[torch.Tensor], mode: QuantMode, split,
     f64 = torch.float64
     red = split.reduce_all if over_tp else split.reduce
     if mode in (QuantMode.INT8, QuantMode.INT4):
-        r = red(torch.stack([v for x in xs for v in (x.amax(), -x.amin())]), "max")
-        bits = 8 if mode == QuantMode.INT8 else 4
-        out = []
-        for i in range(len(xs)):
-            q = quantize.affine_from_range(-r[2 * i + 1], r[2 * i], bits)
-            out.append({"scale": q.scale, "zero": q.zero_point})
-        return out
+        return _affine_ranges(xs, mode, red)
     a = [x.abs() for x in xs]
     tot = red(torch.stack([v for t in a for v in (
         t.sum(dtype=f64), torch.full((), t.numel(), dtype=f64, device=t.device))]))
@@ -614,14 +633,19 @@ def split_batch_stats(x: torch.Tensor, mode: QuantMode, split,
 
 def split_weight_stats_many(ws: Sequence[torch.Tensor], mode: QuantMode,
                             split) -> List[Dict[str, torch.Tensor]]:
-    """The per-output-channel statistics of each (k, n) weight of ``ws``
-    whose k rows this rank holds a slice of along the tensor-parallel axis
-    (a row-parallel projection): ``QTensor.from_dense``'s TWN / mean-abs
-    formulas over the whole depth, with float64 partial sums over the
-    tensor-parallel axis (as :func:`split_batch_stats_many` sums rows),
-    each rounded once to float32; every weight's sums in one collective
-    per round.  -> the ``stats`` of ``QTensor.from_dense``, one per
-    weight."""
+    """The statistics of each (k, n) weight of ``ws`` whose "model" chunk
+    this rank holds along the tensor-parallel axis.  TNN/TBN/BNN: per
+    output channel, for a row-parallel projection (its k rows split):
+    ``QTensor.from_dense``'s TWN / mean-abs formulas over the whole depth,
+    with float64 partial sums over the tensor-parallel axis (as
+    :func:`split_batch_stats_many` sums rows), each rounded once to
+    float32.  INT8/INT4: the per-tensor grid of the whole weight, for a
+    column- or a row-parallel projection alike: each chunk's max and
+    -min, their max over the tensor-parallel axis (exact).  Every weight's
+    values in one collective per round.  -> the ``stats`` of
+    ``QTensor.from_dense``, one per weight."""
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        return _affine_ranges(ws, mode, split.reduce_tp)
     a = [w.to(torch.float32).abs() for w in ws]
     f64 = torch.float64
     widths = [t.shape[1] for t in a]
@@ -654,12 +678,15 @@ def split_weight_stats(w: torch.Tensor, mode: QuantMode, split) -> Dict[str, tor
 def _row_operands(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend: str,
                   split, stats: Dict[str, Any]):
     """A row-parallel projection's operands on this rank's k slice: ``w``
-    packed with the whole depth's statistics, ``x`` quantized with the
-    global ones.  -> (activation words, weight words, the arguments of
+    packed with the whole depth's statistics (an INT8/INT4 weight onto the
+    whole weight's grid), ``x`` quantized with the global ones.  ->
+    (activation words or grid, weight words or grid, the arguments of
     ``qmm_mesh.k_sharded_partial``, those of ``qmm_mesh.k_sharded_finish``)."""
     m, k_local = x.shape
     qt = QTensor.from_dense(w, mode, stats=stats["w"])
     n = qt.out_features
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        backend = _affine_backend(mode, backend, fused=False)
     faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
     spec = registry.lookup(mode, backend, fused=False)
     tiles = _plan_tiles(spec, mode, backend, m, n, k_local, x.device, fused=False)
@@ -692,12 +719,15 @@ def _qmm_row_parallel(x: torch.Tensor, w: torch.Tensor, mode: QuantMode, backend
 def _tp_stats(x, w, mode: QuantMode, role: Optional[str], split, stats):
     """The statistics of one quantized projection on a split batch:
     ``stats`` ({"act", "w"}) where given, else the activations' over the
-    batch axes (and the tensor-parallel axis for a row-parallel input) and,
-    for a row-parallel weight, its channels' over the whole depth."""
+    batch axes (and the tensor-parallel axis for a row-parallel input) and
+    the weight's over the tensor-parallel axis: a row-parallel weight's
+    channels' over the whole depth, an INT8/INT4 weight's per-tensor grid
+    whatever its role (:func:`split_weight_stats_many`)."""
     stats = dict(stats or {})
     if "act" not in stats and split is not None and (split.axes or role == "row"):
         stats["act"] = split_batch_stats(x, mode, split, over_tp=role == "row")
-    if role == "row" and stats.get("w") is None:
+    affine = mode in (QuantMode.INT8, QuantMode.INT4)
+    if (role == "row" or (affine and role == "col")) and stats.get("w") is None:
         stats["w"] = split_weight_stats(w, mode, split)
     return stats
 
@@ -714,11 +744,13 @@ def _qmm_fwd_value(x: torch.Tensor, w: torch.Tensor, mode: QuantMode,
 
     ``role`` "col" (column-parallel: ``w`` this rank's n slice, ``x`` the
     same on every rank of the tensor-parallel axis): the fused kernel on
-    the slice, the weight's statistics local.  "row" (row-parallel: ``x``
-    and ``w`` this rank's k slice): statistics over the whole depth, the
-    partial sums (int32 counts, or float32 products for the float modes)
-    reduced over the tensor-parallel axis into the rows of ``lead`` this
-    rank keeps (:func:`~repro_torch.parallel.sharding.tp_reduce_partial`).
+    the slice, the weight's statistics local (per channel), or for
+    INT8/INT4 the whole weight's grid (a max over the tensor-parallel
+    axis).  "row" (row-parallel: ``x`` and ``w`` this rank's k slice):
+    statistics over the whole depth, the partial sums (int32 counts, the
+    eq. (3) cores of the affine modes, or float32 products for the float
+    modes) reduced over the tensor-parallel axis into the rows of ``lead``
+    this rank keeps (:func:`~repro_torch.parallel.sharding.tp_reduce_partial`).
     ``stats`` ({"act": ..., "w": ...}) replaces the statistics derived
     here."""
     from repro_torch.core.conv import matmul_f32   # core.conv imports ops
@@ -732,10 +764,6 @@ def _qmm_fwd_value(x: torch.Tensor, w: torch.Tensor, mode: QuantMode,
         y = matmul_f32(x, w) if mode == QuantMode.F32 else \
             matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
         return sharding.tp_reduce_partial(y, lead, tp) if role == "row" else y
-    if role is not None and mode in (QuantMode.INT8, QuantMode.INT4):
-        raise NotImplementedError(f"{mode.value}: the affine grid is per tensor; the "
-                                  f"tensor-parallel training path runs tnn/tbn/bnn and the "
-                                  f"float modes")
     stats = _tp_stats(x, w, mode, role, split, stats)
     if role == "row":
         return _qmm_row_parallel(x, w, mode, backend, lead, tp, stats)
@@ -841,8 +869,9 @@ def row_parallel_group(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     own statistics over the whole depth (its activations' over the batch
     axes and the tensor-parallel axis, every pair's in one collective per
     round), its int32 partial counts are the int32 core of its words (row
-    4a), and the partials of all pairs are summed over the tensor-parallel
-    axis in one all-reduce before each pair's eq. (2) epilogue
+    4a; for INT8/INT4 the eq. (3) core of its k slice, rows 8 / 9), and
+    the partials of all pairs are summed over the tensor-parallel axis in
+    one all-reduce before each pair's eq. (2) epilogue
     (``qmm_mesh.k_sharded_finish``): each sum is one device's core
     exactly.  Float policies sum their float32 partial products the same
     way.  The MoE layer's experts and shared expert run their down
@@ -855,12 +884,8 @@ def row_parallel_group(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     split = sharding.tp_split()
     if split is None:
         raise RuntimeError("row_parallel_group: no tensor-parallel split is active")
-    mode = QuantMode(mode)
-    if mode in (QuantMode.INT8, QuantMode.INT4):
-        raise NotImplementedError(f"{mode.value}: the affine grid is per tensor; the "
-                                  f"tensor-parallel training path runs tnn/tbn/bnn and the "
-                                  f"float modes")
-    return list(_RowParallelGroup.apply(mode, backend, split, stats, len(xs), *xs, *ws))
+    return list(_RowParallelGroup.apply(QuantMode(mode), backend, split, stats, len(xs),
+                                        *xs, *ws))
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,

@@ -215,10 +215,12 @@ class QTensor:
         matrix itself.  Low-bit conv weights (``geometry`` given) whose
         ``cin % 32 != 0`` also store the positional planes.
 
-        ``stats`` supplies the per-channel statistics of a low-bit mode in
-        place of ``w``'s own ({"thr", "scale"} for TNN, {"scale"} for
-        TBN/BNN, each of shape (n,)): a row-parallel shard of a weight
-        whose statistics span the whole depth (``ops.quantized_matmul``).
+        ``stats`` supplies the statistics in place of ``w``'s own: a
+        low-bit mode's per-channel ones ({"thr", "scale"} for TNN,
+        {"scale"} for TBN/BNN, each of shape (n,)), or INT8/INT4's
+        per-tensor grid ({"scale", "zero"}, scalars), onto which ``w`` is
+        then quantized: a tensor-parallel shard of a weight whose
+        statistics span the whole weight (``ops.quantized_matmul``).
         """
         from repro_torch.core import encoding, quantize
 
@@ -233,9 +235,17 @@ class QTensor:
         w = w.to(torch.float32)
         dim = 0 if per_channel else None
         pos = geometry is not None and geometry[2] % 32 != 0
+        if stats is not None and mode in (QuantMode.INT8, QuantMode.INT4):
+            q = quantize.AffineQuant(
+                scale=torch.as_tensor(stats["scale"], dtype=torch.float32, device=w.device),
+                zero_point=torch.as_tensor(stats["zero"], dtype=torch.int32, device=w.device),
+                bits=8 if mode == QuantMode.INT8 else 4)
+            return cls(payload={"q": quantize.affine_quantize(w, q)},
+                       scale=q.scale, zero=q.zero_point, mode=mode,
+                       shape=shape, bias=bias, geometry=geometry,
+                       layout=LAYOUT_AFFINE)
         if stats is not None:
-            if not per_channel or pos or mode not in (QuantMode.TNN, QuantMode.TBN,
-                                                      QuantMode.BNN):
+            if not per_channel or pos or not mode.is_lowbit:
                 raise ValueError(f"from_dense: stats= for per-channel {mode.value} "
                                  f"GeMM weights only")
             if mode == QuantMode.TNN:

@@ -118,16 +118,17 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, layout: ShardLa
 
 
 def project(params: Dict[str, Any] | QTensor, x: torch.Tensor,
-            mode: QuantMode, backend: str, role: Optional[str] = None) -> torch.Tensor:
+            mode: QuantMode, backend: str, role: Optional[str] = None,
+            stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """QuantLinear forward on a ``{"w": ...}`` leaf (``linear_apply``: the
-    QAT path, ``role`` its place on a tensor-parallel training split), or
-    on a packed :class:`QTensor` leaf (offline-packed weights, see
-    models/packing.py) — told apart by type; a packed leaf carries its own
-    mode, depth and scale."""
+    QAT path, ``role`` its place on a tensor-parallel training split,
+    ``stats`` statistics passed in), or on a packed :class:`QTensor` leaf
+    (offline-packed weights, see models/packing.py) — told apart by type;
+    a packed leaf carries its own mode, depth and scale."""
     if isinstance(params, QTensor):
         y = packed_matmul_any(params, x.reshape(-1, x.shape[-1]), backend)
         return y.reshape(*x.shape[:-1], params.out_features).to(x.dtype)
-    return linear_apply(params, x, mode, backend, role)
+    return linear_apply(params, x, mode, backend, role, stats)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@ runs on this rank's sequence shard and its probabilities are gathered
 same on every rank, and the router's gradient sums over the axis as its
 plan says), the tokens are gathered once (``sharding.tp_enter``) for the
 dispatch and the shared expert, gate and up run column-parallel on the
-rank's ffn slice with each expert's activation statistics, and down runs
+rank's ffn slice with each expert's activation statistics (under INT8 /
+INT4 also each weight's grid over its whole ffn, every expert's in one
+collective), and down runs
 row-parallel: every expert's and the shared expert's int32 partial
 counts, and their statistics, are reduced over the axis together
 (``ops.row_parallel_group``: one collective for the counts, one per
@@ -119,18 +121,23 @@ def _experts_tp(params: Dict[str, Any], h_in: torch.Tensor, xw: torch.Tensor,
         for k in leaves:
             leaves[k].append(shared[k]["w"])
     split = sharding.tp_split("ffn")
-    act = [None] * len(xs)
-    if mode.is_lowbit and split.axes:
+    n = len(xs)
+    act, wst = [None] * n, [None] * (2 * n)
+    if not mode.is_float and split.axes:
         # gate and up share their input: one set of statistics, one
         # collective per round for every expert
         act = ops.split_batch_stats_many(xs, mode, split)
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        # every gate's and up's grid over its whole ffn in one collective
+        wst = ops.split_weight_stats_many(leaves["gate"] + leaves["up"], mode, split)
 
-    def col(x, w, a):
+    def col(x, w, a, ws):
         return ops.quantized_matmul(x, w.to(torch.float32), mode, backend, role="col",
-                                    stats={"act": a}).to(dt)
+                                    stats={"act": a, "w": ws}).to(dt)
 
-    hs = [(F.silu(col(x, g, a).to(torch.float32)) * col(x, u, a).to(torch.float32)).to(dt)
-          for x, g, u, a in zip(xs, leaves["gate"], leaves["up"], act)]
+    hs = [(F.silu(col(x, g, a, wst[i]).to(torch.float32))
+           * col(x, u, a, wst[n + i]).to(torch.float32)).to(dt)
+          for i, (x, g, u, a) in enumerate(zip(xs, leaves["gate"], leaves["up"], act))]
     ys = ops.row_parallel_group(hs, leaves["down"], mode, backend)
     y_e = torch.stack(ys[:e]).to(dt)
     y_sh = ys[e].reshape(xw.shape[:-1] + (-1,)).to(dt) if shared is not None else None

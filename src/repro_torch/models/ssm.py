@@ -18,7 +18,8 @@ On a tensor-parallel split of "ssm_heads" (the training mesh) each rank
 computes its heads (:func:`_tp_dims`): the sequence is gathered before
 ``in_proj`` (the scan runs along all of it), ``in_proj`` runs
 column-parallel on the rank's columns (its heads' z, x and dt and the B
-and C of its heads' groups, taken from the whole weight), the conv on
+and C of its heads' groups, taken from the whole weight; an INT8/INT4
+grid is the whole weight's, with no collective), the conv on
 its channels, the scan and the D skip on its heads, the gated RMSNorm
 over all of d_inner with its sum of squares summed over the axis
 (``sharding.tp_all_reduce``, float32), and ``out_proj`` row-parallel back
@@ -34,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
 from repro_torch.models.attention import project
 from repro_torch.models.common import ModelConfig, einsum_f32, rms_norm
 from repro_torch.parallel import sharding
@@ -129,8 +131,12 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy, 
         # the whole sequence (float32 holding x's values), this rank's heads
         x = sharding.tp_enter(x)
         dims, cols, chans = _tp_dims(cfg, tp.tp_size, tp.tp_index, x.device)
-        w = params["in_proj"]["w"].index_select(1, cols)
-        zxbcdt = project({"w": w}, x, mode, backend, "col").to(dtype)
+        whole = params["in_proj"]["w"]
+        # an INT8/INT4 grid spans the whole in_proj, which every rank holds
+        stats = ({"w": ops.affine_weight_stats(whole, mode)}
+                 if mode in (QuantMode.INT8, QuantMode.INT4) else None)
+        zxbcdt = project({"w": whole.index_select(1, cols)}, x, mode, backend, "col",
+                         stats).to(dtype)
         conv_w, conv_b = params["conv_w"].index_select(1, chans), params["conv_b"][chans]
     b, s, d = x.shape
     din, g, n, p, h, conv_dim = dims

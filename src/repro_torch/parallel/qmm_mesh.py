@@ -304,7 +304,14 @@ def k_sharded_partial(a_loc, planes, *, mode: QuantMode, backend: str, spec, til
     matmul: the int32 core of its activation words ``a_loc`` against its
     weight words ``planes`` (the unfused kernel with ``k_valid=0``: BNN then
     gives ``-2 * popcount``; on the dense backend a signed dot over the bits
-    ``bit0 .. depth`` of the whole depth), in :data:`WIRE_DTYPE`."""
+    ``bit0 .. depth`` of the whole depth), in :data:`WIRE_DTYPE`.  INT8 /
+    INT4: ``a_loc`` and ``planes`` are the (grid, zero point) pairs of the
+    rank's k slice on the whole tensors' grids, and the partial is the
+    eq. (3) core of the slice, ``k_valid`` its depth: the zero points are
+    the global ones, so the ranks' partials sum to one device's core
+    exactly (each within ``k * 255**2`` of 0: int32 holds it)."""
+    if mode in (QuantMode.INT8, QuantMode.INT4):
+        return spec.fn(a_loc, planes, int(a_loc[0].shape[1]), tiles=tiles).to(WIRE_DTYPE)
     if backend == "dense":
         return _dense_partial(mode, a_loc, planes, bit0, depth).to(WIRE_DTYPE)
     return spec.fn(a_loc, planes, 0, tiles=tiles).to(WIRE_DTYPE)
@@ -314,7 +321,8 @@ def k_sharded_finish(acc: torch.Tensor, *, mode: QuantMode, backend: str, k: int
                      bias) -> torch.Tensor:
     """The reduced counts ``acc`` of :func:`k_sharded_partial` -> the float
     output: BNN's ``+ k`` (not on the dense backend, whose dot is signed)
-    and the eq. (2) epilogue, once, after the sum."""
+    and the eq. (2) epilogue, once, after the sum (the affine cores need
+    nothing more)."""
     if mode == QuantMode.BNN and backend != "dense":
         acc = k + acc
     return scale_epilogue(acc, row, col, bias)

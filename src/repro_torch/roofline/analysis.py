@@ -318,9 +318,13 @@ def train_step_flops(cfg, batch: int, seq: int, tp: int = 1) -> float:
 
 
 # all-reduces of one quantized projection's statistics: the activations'
-# (a sum, then the kept sum) and a row-parallel weight's per channel
-_ACT_STAT_REDUCES = {"tnn": 2, "tbn": 2, "bnn": 1}
-_W_STAT_REDUCES = {"tnn": 2, "tbn": 1, "bnn": 1}
+# (a sum, then the kept sum; the affine range: one max) and a row-parallel
+# weight's per channel (the affine grid: one max)
+_ACT_STAT_REDUCES = {"tnn": 2, "tbn": 2, "bnn": 1, "int8": 1, "int4": 1}
+_W_STAT_REDUCES = {"tnn": 2, "tbn": 1, "bnn": 1, "int8": 1, "int4": 1}
+# and a column-parallel weight split over "model": the affine grid spans
+# the whole weight (a per-channel one is the chunk's own)
+_COL_W_STAT_REDUCES = {"int8": 1, "int4": 1}
 
 
 def _block_collectives(cfg, mixer: str, ffn_kind: str, split, sp: bool, policy: str,
@@ -334,16 +338,19 @@ def _block_collectives(cfg, mixer: str, ffn_kind: str, split, sp: bool, policy: 
     tensor-parallel axis."""
     act = _ACT_STAT_REDUCES.get(policy, 0)
     w_st = _W_STAT_REDUCES.get(policy, 0)
+    col_w = _COL_W_STAT_REDUCES.get(policy, 0)
     c = {f"{ph}_{k}": 0 for ph in ("fwd", "bwd") for k in ("ag", "rs", "ar")}
     c["tail"] = None
 
-    def dense(n_proj, n_col, tp_on):
+    def dense(n_proj, n_col, tp_on, col_split=True):
         # n_proj projections: n_col column-parallel sharing one entered
-        # input, one row-parallel back into the residual stream
+        # input (their weights split over "model" unless the rank holds
+        # them whole: Mamba2's in_proj), one row-parallel back into the
+        # residual stream
         if not tp_on:
             c["fwd_ar"] += act * nb * n_proj
             return
-        c["fwd_ar"] += act * nb * n_col + act * nbt + w_st
+        c["fwd_ar"] += act * nb * n_col + act * nbt + w_st + col_w * n_col * col_split
         if sp:
             c["fwd_ag"] += 1
             c["fwd_rs"] += 1
@@ -357,7 +364,7 @@ def _block_collectives(cfg, mixer: str, ffn_kind: str, split, sp: bool, policy: 
     if mixer in ("A", "AL"):
         dense(4, 3, "heads" in split)
     elif mixer == "M":
-        dense(2, 1, "ssm_heads" in split)
+        dense(2, 1, "ssm_heads" in split, col_split=False)
         if "ssm_heads" in split:              # the gated norm's sum of squares
             c["fwd_ar"] += 1
             c["bwd_ar"] += 1
@@ -369,10 +376,11 @@ def _block_collectives(cfg, mixer: str, ffn_kind: str, split, sp: bool, policy: 
             # every expert's and the shared expert's statistics stacked: the
             # column-parallel inputs over the batch axes, the row-parallel
             # ones over the batch axes and the tensor-parallel axis, the
-            # down weights' over the latter; their int32 counts in one
-            # all-reduce; the router's probabilities and the tokens
-            # gathered, the combine's shard taken
-            c["fwd_ar"] += act * nb + act * nbt + w_st + 1
+            # down weights' (and an affine grid's gates and ups) over the
+            # latter; their int32 counts in one all-reduce; the router's
+            # probabilities and the tokens gathered, the combine's shard
+            # taken
+            c["fwd_ar"] += act * nb + act * nbt + w_st + col_w + 1
             if sp:
                 c["fwd_ag"] += 2
                 c["bwd_rs"] += 1
@@ -404,7 +412,9 @@ def train_mesh_collectives(cfg, tcfg, shardings, mesh, policy: str, seq: int) ->
       statistics over the batch axes (and the tensor-parallel axis for a
       row-parallel one) and a row-parallel weight's channel statistics
       over the tensor-parallel axis (an MoE layer's experts stacked: one
-      collective per round); tensor parallelism's boundaries: each split
+      collective per round); under int8 / int4 one max for an activation
+      range and one for each weight's grid, column-parallel ones too (but
+      a weight the rank holds whole); tensor parallelism's boundaries: each split
       region's input gathered (sequence parallelism) in the forward and
       its backward's reduce-scatter, each row-parallel output's
       reduce-scatter in the forward and its backward's gather (without

@@ -376,13 +376,15 @@ def test_placeholder_rank_does_a_quarter_of_the_products():
 
 
 @pytest.mark.parametrize("rules", ["train", "train_hybrid", "train_fsdp"])
-@pytest.mark.parametrize("policy", ["f32", "tnn"])
+@pytest.mark.parametrize("policy", ["f32", "tnn", "int8", "int4"])
 def test_placeholder_collectives_match_prediction(rules, policy):
     """A placeholder (2, 2) rank's collectives in one step (remat, int8
     moments under tnn) are those ``roofline.analysis.train_mesh_collectives``
     predicts from the shardings, kind by kind: the sequence-parallel
     gathers and reduce-scatters under TRAIN_RULES, the all-reduce pairs
-    under TRAIN_RULES_HYBRID, whole gathers under TRAIN_RULES_FSDP."""
+    under TRAIN_RULES_HYBRID, whole gathers under TRAIN_RULES_FSDP; under
+    the affine policies one max for each activation range and each
+    weight's grid, the column-parallel ones' too."""
     from repro_torch.data.pipeline import mesh_rows
     from repro_torch.launch.mesh import PlaceholderMesh
     from repro_torch.models.common import train_layout
