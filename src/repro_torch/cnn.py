@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.paper_cnn import PAPER_CNN, CNNConfig
 from repro_torch.core.conv import (check_conv_depth, conv2d_packed,
                                    conv2d_quantized, matmul_f32,
@@ -132,6 +133,7 @@ class PaperCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, c_in) float images -> (B, num_classes) logits."""
-        h = self.features(x)
-        pooled = h.sum(dim=(1, 2)) / f32_scalar(h.shape[1] * h.shape[2], h)
-        return matmul_f32(pooled, self.classifier)
+        with obs.annotate("repro_torch.cnn.forward"):
+            h = self.features(x)
+            pooled = h.sum(dim=(1, 2)) / f32_scalar(h.shape[1] * h.shape[2], h)
+            return matmul_f32(pooled, self.classifier)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.quantize import f32_scalar
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels._matmul_common import (
@@ -142,21 +143,22 @@ def conv_act_stats(x: torch.Tensor, mode: QuantMode, kh: int, kw: int,
     the im2col matrix.  Float32 device scalars; nothing here syncs the
     stream once a geometry has been seen.
     """
-    xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride,
-                                    padding)
-    b, hp, wp, c = xp.shape
-    mult = _patch_multiplicity(hp, wp, kh, kw, stride, oh, ow, xp.device)
-    w4 = mult[None, :, :, None]
-    absx = xp.abs()
-    count = f32_scalar(b * oh * ow * kh * kw * c, xp)
-    mean_abs = (absx * w4).sum() / count
-    if mode == QuantMode.BNN:
-        return {"scale": mean_abs}
-    thr = 0.7 * mean_abs
-    mask = (absx > thr).to(torch.float32)
-    nnz = (mask * w4).sum()
-    alpha = (absx * mask * w4).sum() / nnz.clamp(min=1.0)
-    return {"thr": thr, "scale": alpha}
+    with obs.annotate("repro_torch.quantize"):
+        xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride,
+                                        padding)
+        b, hp, wp, c = xp.shape
+        mult = _patch_multiplicity(hp, wp, kh, kw, stride, oh, ow, xp.device)
+        w4 = mult[None, :, :, None]
+        absx = xp.abs()
+        count = f32_scalar(b * oh * ow * kh * kw * c, xp)
+        mean_abs = (absx * w4).sum() / count
+        if mode == QuantMode.BNN:
+            return {"scale": mean_abs}
+        thr = 0.7 * mean_abs
+        mask = (absx > thr).to(torch.float32)
+        nnz = (mask * w4).sum()
+        alpha = (absx * mask * w4).sum() / nnz.clamp(min=1.0)
+        return {"thr": thr, "scale": alpha}
 
 
 # ---------------------------------------------------------------------------

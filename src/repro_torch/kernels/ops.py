@@ -306,25 +306,26 @@ def quantize_activations(x: torch.Tensor, mode: QuantMode, *,
     """
     if mode.is_float:
         return {"x": x}
-    if mode in (QuantMode.INT8, QuantMode.INT4):
-        bits = 8 if mode == QuantMode.INT8 else 4
-        q = (quantize.affine_calibrate(x, bits) if stats is None else
-             quantize.AffineQuant(scale=_stat(stats["scale"], x),
-                                  zero_point=stats["zero"].to(x.device), bits=bits))
-        return {"q": quantize.affine_quantize(x, q), "scale": q.scale,
-                "zero": q.zero_point}
-    if mode in (QuantMode.TNN, QuantMode.TBN):
+    with obs.annotate("repro_torch.quantize"):
+        if mode in (QuantMode.INT8, QuantMode.INT4):
+            bits = 8 if mode == QuantMode.INT8 else 4
+            q = (quantize.affine_calibrate(x, bits) if stats is None else
+                 quantize.AffineQuant(scale=_stat(stats["scale"], x),
+                                      zero_point=stats["zero"].to(x.device), bits=bits))
+            return {"q": quantize.affine_quantize(x, q), "scale": q.scale,
+                    "zero": q.zero_point}
+        if mode in (QuantMode.TNN, QuantMode.TBN):
+            if stats is not None:
+                t, _ = quantize.ternarize(x, threshold=_stat(stats["thr"], x))
+                scale = _stat(stats["scale"], x)
+            else:
+                t, scale = quantize.ternarize(x)
+            plus, minus = encoding.pack_ternary(t)
+            return {"plus": plus, "minus": minus, "scale": scale}
+        b, scale = quantize.binarize(x)
         if stats is not None:
-            t, _ = quantize.ternarize(x, threshold=_stat(stats["thr"], x))
             scale = _stat(stats["scale"], x)
-        else:
-            t, scale = quantize.ternarize(x)
-        plus, minus = encoding.pack_ternary(t)
-        return {"plus": plus, "minus": minus, "scale": scale}
-    b, scale = quantize.binarize(x)
-    if stats is not None:
-        scale = _stat(stats["scale"], x)
-    return {"bits": encoding.pack_binary(b), "scale": scale}
+        return {"bits": encoding.pack_binary(b), "scale": scale}
 
 
 def _b_planes(wb: QTensor, mode: QuantMode) -> Tuple[torch.Tensor, ...]:
@@ -438,42 +439,45 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
     cache (module docstring); a failing launch, or an armed
     ``kernel.compile`` fault, raises — there is no fallback.
     """
-    _check_qtensor(qt, "qmm", lowbit=False)
-    if x.ndim != 2:
-        raise ValueError(f"qmm expects x of rank 2, got shape {tuple(x.shape)}")
-    if x.shape[-1] != qt.k_valid:
-        raise ValueError(
-            f"depth mismatch: x has k={x.shape[-1]} but QTensor was packed "
-            f"with k_valid={qt.k_valid} (logical shape {qt.shape})")
-    backend = backend or DEFAULT_BACKEND
-    m, k = x.shape
-    n = qt.out_features
-    mode = qt.mode
-    if mode in (QuantMode.INT8, QuantMode.INT4):
-        backend = _affine_backend(mode, backend, fused=True)
-    _QMM_DISPATCH_CTR.inc(mode=mode.value, backend=backend, layout=registry.LAYOUT_GEMM)
-    if qt.pspec is not None and mode.is_lowbit:
-        from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
+    with obs.annotate("repro_torch.qmm"):
+        _check_qtensor(qt, "qmm", lowbit=False)
+        if x.ndim != 2:
+            raise ValueError(f"qmm expects x of rank 2, got shape {tuple(x.shape)}")
+        if x.shape[-1] != qt.k_valid:
+            raise ValueError(
+                f"depth mismatch: x has k={x.shape[-1]} but QTensor was packed "
+                f"with k_valid={qt.k_valid} (logical shape {qt.shape})")
+        backend = backend or DEFAULT_BACKEND
+        m, k = x.shape
+        n = qt.out_features
+        mode = qt.mode
+        if mode in (QuantMode.INT8, QuantMode.INT4):
+            backend = _affine_backend(mode, backend, fused=True)
+        _QMM_DISPATCH_CTR.inc(mode=mode.value, backend=backend, layout=registry.LAYOUT_GEMM)
+        if qt.pspec is not None and mode.is_lowbit:
+            from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
 
-        ctx = sharding.active()
-        plan = None if ctx is None else qmm_mesh.shard_plan(qt, ctx)
-        if plan is not None:
-            # the mesh path keeps the requested backend
-            return qmm_mesh.qmm_sharded(x, qt, plan, ctx.mesh, backend=backend,
-                                        act_stats=act_stats)
-        qmm_mesh.check_whole(qt)
-    faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
-    if mode.is_float:
-        return _float_passthrough(x, qt)
-    spec = registry.lookup(mode, backend, fused=True)
-    tiles = _plan_tiles(spec, mode, backend, m, n, k, x.device)
-    xa = quantize_activations(x.to(torch.float32), mode, stats=act_stats)
-    row = _as_row_scale(xa["scale"], m, x)
-    col = _as_col_vec(qt.scale, n, x)
-    b2 = None if qt.bias is None else _as_col_vec(qt.bias, n, x)
-    a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
-    extra = {"payload": qt.payload} if spec.payload_aware else {}
-    return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, tiles=tiles, **extra)
+            ctx = sharding.active()
+            plan = None if ctx is None else qmm_mesh.shard_plan(qt, ctx)
+            if plan is not None:
+                # the mesh path keeps the requested backend
+                return qmm_mesh.qmm_sharded(x, qt, plan, ctx.mesh, backend=backend,
+                                            act_stats=act_stats)
+            qmm_mesh.check_whole(qt)
+        faults.maybe_raise("kernel.compile", op="qmm", mode=mode.value, backend=backend)
+        if mode.is_float:
+            return _float_passthrough(x, qt)
+        spec = registry.lookup(mode, backend, fused=True)
+        tiles = _plan_tiles(spec, mode, backend, m, n, k, x.device)
+        xa = quantize_activations(x.to(torch.float32), mode, stats=act_stats)
+        row = _as_row_scale(xa["scale"], m, x)
+        col = _as_col_vec(qt.scale, n, x)
+        b2 = None if qt.bias is None else _as_col_vec(qt.bias, n, x)
+        a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
+        extra = {"payload": qt.payload} if spec.payload_aware else {}
+        with obs.annotate("repro_torch.lowbit_kernel"):
+            return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, tiles=tiles,
+                           **extra)
 
 
 def _qmm_oracle(x: torch.Tensor, qt: QTensor,
@@ -514,41 +518,43 @@ def qconv(x: torch.Tensor, qt: QTensor, *, stride: int = 1,
     :func:`conv_fused.conv_act_stats` of ``x``; bit-identical to the
     materializing oracle (im2col + :func:`qmm` with the same stats).  A
     failing launch, or an armed ``kernel.compile`` fault, raises."""
-    _check_qtensor(qt, "qconv", lowbit=True)
-    if qt.geometry is None:
-        raise ValueError("qconv needs a QTensor packed with "
-                         "pack_conv_filters (geometry missing)")
-    if x.ndim != 4:
-        raise ValueError(f"qconv expects x of rank 4 (B, H, W, Cin), got "
-                         f"shape {tuple(x.shape)}")
-    kh, kw_, cin, cout = qt.geometry
-    if x.shape[-1] != cin:
-        raise ValueError(f"channel mismatch: x has Cin={x.shape[-1]} but "
-                         f"QTensor geometry is {qt.geometry}")
-    backend = backend or DEFAULT_BACKEND
-    _QCONV_DISPATCH_CTR.inc(mode=qt.mode.value, backend=backend,
-                            layout=registry.LAYOUT_IM2COL)
-    x = x.to(torch.float32).contiguous()
-    if act_stats is None:
-        stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, stride, padding)
-    else:
-        stats = {k: _stat(v, x) for k, v in act_stats.items()}
-    if qt.pspec is not None:
-        from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
+    with obs.annotate("repro_torch.qconv"):
+        _check_qtensor(qt, "qconv", lowbit=True)
+        if qt.geometry is None:
+            raise ValueError("qconv needs a QTensor packed with "
+                             "pack_conv_filters (geometry missing)")
+        if x.ndim != 4:
+            raise ValueError(f"qconv expects x of rank 4 (B, H, W, Cin), got "
+                             f"shape {tuple(x.shape)}")
+        kh, kw_, cin, cout = qt.geometry
+        if x.shape[-1] != cin:
+            raise ValueError(f"channel mismatch: x has Cin={x.shape[-1]} but "
+                             f"QTensor geometry is {qt.geometry}")
+        backend = backend or DEFAULT_BACKEND
+        _QCONV_DISPATCH_CTR.inc(mode=qt.mode.value, backend=backend,
+                                layout=registry.LAYOUT_IM2COL)
+        x = x.to(torch.float32).contiguous()
+        if act_stats is None:
+            stats = conv_fused.conv_act_stats(x, qt.mode, kh, kw_, stride, padding)
+        else:
+            stats = {k: _stat(v, x) for k, v in act_stats.items()}
+        if qt.pspec is not None:
+            from repro_torch.parallel import qmm_mesh, sharding   # qmm_mesh imports ops
 
-        ctx = sharding.active()
-        plan = None if ctx is None else qmm_mesh.shard_plan_conv(qt, ctx)
-        if plan is not None:
-            return qmm_mesh.qconv_sharded(x, qt, plan, ctx.mesh, stats, backend=backend,
-                                          stride=stride, padding=padding)
-        qmm_mesh.check_whole(qt)
-    faults.maybe_raise("kernel.compile", op="qconv", mode=qt.mode.value, backend=backend)
-    spec = registry.lookup(qt.mode, backend, fused=True,
-                           layout=registry.LAYOUT_IM2COL)
-    col = _as_col_vec(qt.scale, cout, x)
-    b2 = None if qt.bias is None else _as_col_vec(qt.bias, cout, x)
-    return spec.fn(x, conv_fused.conv_weight_planes(qt), qt.geometry,
-                   stride, padding, stats, col, b2)
+            ctx = sharding.active()
+            plan = None if ctx is None else qmm_mesh.shard_plan_conv(qt, ctx)
+            if plan is not None:
+                return qmm_mesh.qconv_sharded(x, qt, plan, ctx.mesh, stats, backend=backend,
+                                              stride=stride, padding=padding)
+            qmm_mesh.check_whole(qt)
+        faults.maybe_raise("kernel.compile", op="qconv", mode=qt.mode.value, backend=backend)
+        spec = registry.lookup(qt.mode, backend, fused=True,
+                               layout=registry.LAYOUT_IM2COL)
+        col = _as_col_vec(qt.scale, cout, x)
+        b2 = None if qt.bias is None else _as_col_vec(qt.bias, cout, x)
+        with obs.annotate("repro_torch.lowbit_kernel"):
+            return spec.fn(x, conv_fused.conv_weight_planes(qt), qt.geometry,
+                           stride, padding, stats, col, b2)
 
 
 def _qconv_oracle(x: torch.Tensor, qt: QTensor, act_stats, stride: int,
@@ -790,16 +796,17 @@ class _QuantizedMatmul(torch.autograd.Function):
         from repro_torch.core.conv import matmul_f32
         from repro_torch.parallel import sharding
 
-        x, w = ctx.saved_tensors
-        g = g.to(torch.float32)
-        tp = sharding.tp_split()
-        if ctx.role == "row" and tp is not None:
-            g = sharding.tp_gather_rows(g, ctx.lead, tp)
-        gx = matmul_f32(g, w.t())
-        gw = matmul_f32(x.t(), g)
-        if ctx.mode.is_lowbit:
-            gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
-        return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None, None
+        with obs.annotate("repro_torch.ste_backward"):
+            x, w = ctx.saved_tensors
+            g = g.to(torch.float32)
+            tp = sharding.tp_split()
+            if ctx.role == "row" and tp is not None:
+                g = sharding.tp_gather_rows(g, ctx.lead, tp)
+            gx = matmul_f32(g, w.t())
+            gw = matmul_f32(x.t(), g)
+            if ctx.mode.is_lowbit:
+                gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
+            return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None, None
 
 
 class _RowParallelGroup(torch.autograd.Function):
@@ -841,21 +848,22 @@ class _RowParallelGroup(torch.autograd.Function):
     def backward(ctx, *gs):
         from repro_torch.core.conv import matmul_f32
 
-        tensors = ctx.saved_tensors
-        xs, ws = tensors[:ctx.n], tensors[ctx.n:]
-        gxs, gws = [], []
-        for x, w, g in zip(xs, ws, gs):
-            if g is None:
-                gxs.append(None)
-                gws.append(None)
-                continue
-            g = g.to(torch.float32)
-            gx = matmul_f32(g, w.to(torch.float32).t())
-            if ctx.mode.is_lowbit:
-                gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
-            gxs.append(gx.to(x.dtype))
-            gws.append(matmul_f32(x.to(torch.float32).t(), g).to(w.dtype))
-        return (None, None, None, None, None, *gxs, *gws)
+        with obs.annotate("repro_torch.ste_backward"):
+            tensors = ctx.saved_tensors
+            xs, ws = tensors[:ctx.n], tensors[ctx.n:]
+            gxs, gws = [], []
+            for x, w, g in zip(xs, ws, gs):
+                if g is None:
+                    gxs.append(None)
+                    gws.append(None)
+                    continue
+                g = g.to(torch.float32)
+                gx = matmul_f32(g, w.to(torch.float32).t())
+                if ctx.mode.is_lowbit:
+                    gx = gx * (x.abs() <= 1.0)      # clip-range STE (hard tanh)
+                gxs.append(gx.to(x.dtype))
+                gws.append(matmul_f32(x.to(torch.float32).t(), g).to(w.dtype))
+            return (None, None, None, None, None, *gxs, *gws)
 
 
 def row_parallel_group(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],

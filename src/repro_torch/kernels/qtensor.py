@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.modes import QuantMode, accumulator_bound
 
 __all__ = ["QTensor", "PAYLOAD_KEYS", "POS_PAYLOAD_KEYS", "LAYOUT_BITPLANE",
@@ -224,69 +225,70 @@ class QTensor:
         """
         from repro_torch.core import encoding, quantize
 
-        k, n = w.shape
-        shape = (int(k), int(n))
-        _check_depth(mode, shape[0])
-        if mode in (QuantMode.F32, QuantMode.BF16):
-            dt = torch.float32 if mode == QuantMode.F32 else torch.bfloat16
-            return cls(payload={"w": w.to(dt)}, scale=None, mode=mode,
-                       shape=shape, bias=bias, geometry=geometry,
-                       layout=LAYOUT_DENSE)
-        w = w.to(torch.float32)
-        dim = 0 if per_channel else None
-        pos = geometry is not None and geometry[2] % 32 != 0
-        if stats is not None and mode in (QuantMode.INT8, QuantMode.INT4):
-            q = quantize.AffineQuant(
-                scale=torch.as_tensor(stats["scale"], dtype=torch.float32, device=w.device),
-                zero_point=torch.as_tensor(stats["zero"], dtype=torch.int32, device=w.device),
-                bits=8 if mode == QuantMode.INT8 else 4)
-            return cls(payload={"q": quantize.affine_quantize(w, q)},
-                       scale=q.scale, zero=q.zero_point, mode=mode,
-                       shape=shape, bias=bias, geometry=geometry,
-                       layout=LAYOUT_AFFINE)
-        if stats is not None:
-            if not per_channel or pos or not mode.is_lowbit:
-                raise ValueError(f"from_dense: stats= for per-channel {mode.value} "
-                                 f"GeMM weights only")
+        with obs.annotate("repro_torch.weight_pack"):
+            k, n = w.shape
+            shape = (int(k), int(n))
+            _check_depth(mode, shape[0])
+            if mode in (QuantMode.F32, QuantMode.BF16):
+                dt = torch.float32 if mode == QuantMode.F32 else torch.bfloat16
+                return cls(payload={"w": w.to(dt)}, scale=None, mode=mode,
+                           shape=shape, bias=bias, geometry=geometry,
+                           layout=LAYOUT_DENSE)
+            w = w.to(torch.float32)
+            dim = 0 if per_channel else None
+            pos = geometry is not None and geometry[2] % 32 != 0
+            if stats is not None and mode in (QuantMode.INT8, QuantMode.INT4):
+                q = quantize.AffineQuant(
+                    scale=torch.as_tensor(stats["scale"], dtype=torch.float32, device=w.device),
+                    zero_point=torch.as_tensor(stats["zero"], dtype=torch.int32, device=w.device),
+                    bits=8 if mode == QuantMode.INT8 else 4)
+                return cls(payload={"q": quantize.affine_quantize(w, q)},
+                           scale=q.scale, zero=q.zero_point, mode=mode,
+                           shape=shape, bias=bias, geometry=geometry,
+                           layout=LAYOUT_AFFINE)
+            if stats is not None:
+                if not per_channel or pos or not mode.is_lowbit:
+                    raise ValueError(f"from_dense: stats= for per-channel {mode.value} "
+                                     f"GeMM weights only")
+                if mode == QuantMode.TNN:
+                    t = torch.sign(w) * (w.abs() > stats["thr"].reshape(1, n))
+                    plus, minus = encoding.pack_ternary(t.t())
+                    payload = {"plus": plus, "minus": minus}
+                else:
+                    payload = {"bits": encoding.pack_binary(w.t())}
+                return cls(payload=payload, scale=stats["scale"], mode=mode, shape=shape,
+                           bias=bias, geometry=geometry)
             if mode == QuantMode.TNN:
-                t = torch.sign(w) * (w.abs() > stats["thr"].reshape(1, n))
+                thr = 0.7 * quantize.mean_abs(w, dim=dim, keepdim=True)
+                mask = w.abs() > thr
+                t = torch.sign(w) * mask
+                if dim is None:
+                    denom = mask.sum().clamp(min=1)
+                    total = (w.abs() * mask).sum()
+                else:
+                    denom = mask.sum(dim=dim).clamp(min=1)
+                    total = (w.abs() * mask).sum(dim=dim)
+                scale = total / denom.to(torch.float32)
                 plus, minus = encoding.pack_ternary(t.t())
                 payload = {"plus": plus, "minus": minus}
-            else:
+                if pos:
+                    payload.update(_positional_conv_planes(t.t(), mode, geometry))
+                return cls(payload=payload, scale=scale, mode=mode, shape=shape,
+                           bias=bias, geometry=geometry)
+            if mode in (QuantMode.TBN, QuantMode.BNN):
+                scale = quantize.mean_abs(w, dim=dim)
                 payload = {"bits": encoding.pack_binary(w.t())}
-            return cls(payload=payload, scale=stats["scale"], mode=mode, shape=shape,
-                       bias=bias, geometry=geometry)
-        if mode == QuantMode.TNN:
-            thr = 0.7 * quantize.mean_abs(w, dim=dim, keepdim=True)
-            mask = w.abs() > thr
-            t = torch.sign(w) * mask
-            if dim is None:
-                denom = mask.sum().clamp(min=1)
-                total = (w.abs() * mask).sum()
-            else:
-                denom = mask.sum(dim=dim).clamp(min=1)
-                total = (w.abs() * mask).sum(dim=dim)
-            scale = total / denom.to(torch.float32)
-            plus, minus = encoding.pack_ternary(t.t())
-            payload = {"plus": plus, "minus": minus}
-            if pos:
-                payload.update(_positional_conv_planes(t.t(), mode, geometry))
-            return cls(payload=payload, scale=scale, mode=mode, shape=shape,
-                       bias=bias, geometry=geometry)
-        if mode in (QuantMode.TBN, QuantMode.BNN):
-            scale = quantize.mean_abs(w, dim=dim)
-            payload = {"bits": encoding.pack_binary(w.t())}
-            if pos:
-                payload.update(_positional_conv_planes(w.t(), mode, geometry))
-            return cls(payload=payload, scale=scale, mode=mode, shape=shape,
-                       bias=bias, geometry=geometry)
-        if mode in (QuantMode.INT8, QuantMode.INT4):
-            q = quantize.affine_calibrate(w, 8 if mode == QuantMode.INT8 else 4)
-            return cls(payload={"q": quantize.affine_quantize(w, q)},
-                       scale=q.scale, zero=q.zero_point, mode=mode,
-                       shape=shape, bias=bias, geometry=geometry,
-                       layout=LAYOUT_AFFINE)
-        raise ValueError(mode)
+                if pos:
+                    payload.update(_positional_conv_planes(w.t(), mode, geometry))
+                return cls(payload=payload, scale=scale, mode=mode, shape=shape,
+                           bias=bias, geometry=geometry)
+            if mode in (QuantMode.INT8, QuantMode.INT4):
+                q = quantize.affine_calibrate(w, 8 if mode == QuantMode.INT8 else 4)
+                return cls(payload={"q": quantize.affine_quantize(w, q)},
+                           scale=q.scale, zero=q.zero_point, mode=mode,
+                           shape=shape, bias=bias, geometry=geometry,
+                           layout=LAYOUT_AFFINE)
+            raise ValueError(mode)
 
     @classmethod
     def from_legacy_dict(cls, d: Dict[str, Any], mode: QuantMode, *,

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.core.conv import matmul_f32
 from repro_torch.core.quantize import f32_scalar
 from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
@@ -215,10 +216,11 @@ def forward(params, batch, cfg: ModelConfig, layout: ShardLayout):
 def prefill(params, batch, caches, cfg: ModelConfig, layout: ShardLayout):
     """Run the prompt, fill ``caches`` in place.  -> (last-position
     logits (B,1,Vp), caches)."""
-    x = sharding.constrain(_embed(params, batch, cfg), ("batch", "seq", "embed"))
-    x, _ = _layers(params, x, cfg, layout, decode=False, caches=caches)
-    x = apply_norm(params["final_norm"], x, cfg)
-    return logits_from_hidden(params, x[:, -1:], cfg, layout), caches
+    with obs.annotate("repro_torch.prefill"):
+        x = sharding.constrain(_embed(params, batch, cfg), ("batch", "seq", "embed"))
+        x, _ = _layers(params, x, cfg, layout, decode=False, caches=caches)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return logits_from_hidden(params, x[:, -1:], cfg, layout), caches
 
 
 def decode_step(params, batch, caches, step, cfg: ModelConfig, layout: ShardLayout):

@@ -34,6 +34,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.modes import DEFAULT_DEVICE, QuantMode, resolve_device
@@ -138,65 +139,66 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy, 
         zxbcdt = project({"w": whole.index_select(1, cols)}, x, mode, backend, "col",
                          stats).to(dtype)
         conv_w, conv_b = params["conv_w"].index_select(1, chans), params["conv_b"][chans]
-    b, s, d = x.shape
-    din, g, n, p, h, conv_dim = dims
-    hg = h // g
-    q = min(cfg.ssm_chunk, s)
-    assert s % q == 0, f"seq {s} must be a multiple of ssm_chunk {q}"
-    nc = s // q
+    with obs.annotate("repro_torch.ssd"):
+        b, s, d = x.shape
+        din, g, n, p, h, conv_dim = dims
+        hg = h // g
+        q = min(cfg.ssm_chunk, s)
+        assert s % q == 0, f"seq {s} must be a multiple of ssm_chunk {q}"
+        nc = s // q
 
-    z, xbc_raw, dt = _split_proj(zxbcdt, dims)
-    xbc = F.silu(_causal_conv(xbc_raw.to(f32), conv_w.to(f32), conv_b.to(f32)))
-    xin = xbc[..., :din].reshape(b, s, g, hg, p)
-    bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
-    cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
-    dt = F.softplus(dt.to(f32) + params["dt_bias"])                  # (B,S,H)
-    da = dt * -torch.exp(params["A_log"])                            # (B,S,H)
+        z, xbc_raw, dt = _split_proj(zxbcdt, dims)
+        xbc = F.silu(_causal_conv(xbc_raw.to(f32), conv_w.to(f32), conv_b.to(f32)))
+        xin = xbc[..., :din].reshape(b, s, g, hg, p)
+        bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
+        cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
+        dt = F.softplus(dt.to(f32) + params["dt_bias"])                  # (B,S,H)
+        da = dt * -torch.exp(params["A_log"])                            # (B,S,H)
 
-    xin_c = xin.reshape(b, nc, q, g, hg, p)
-    b_c = bmat.reshape(b, nc, q, g, n)
-    c_c = cmat.reshape(b, nc, q, g, n)
-    dt_c = dt.reshape(b, nc, q, g, hg)
-    cum = torch.cumsum(da.reshape(b, nc, q, g, hg), dim=2)           # (B,nc,Q,G,Hg)
+        xin_c = xin.reshape(b, nc, q, g, hg, p)
+        b_c = bmat.reshape(b, nc, q, g, n)
+        c_c = cmat.reshape(b, nc, q, g, n)
+        dt_c = dt.reshape(b, nc, q, g, hg)
+        cum = torch.cumsum(da.reshape(b, nc, q, g, hg), dim=2)           # (B,nc,Q,G,Hg)
 
-    # ---- intra-chunk (quadratic in Q only) ----
-    cb = einsum_f32("bcign,bcjgn->bcgij", c_c, b_c)                  # (B,nc,G,Q,Q)
-    ci = cum.permute(0, 1, 3, 4, 2)                                  # (B,nc,G,Hg,Q)
-    decay = torch.exp(torch.clamp(ci[..., :, None] - ci[..., None, :], -60.0, 0.0))
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    scores = cb[:, :, :, None] * decay * torch.where(mask, 1.0, 0.0)
-    scores = scores * dt_c.permute(0, 1, 3, 4, 2)[..., None, :]      # weight by dt_j
-    y_intra = einsum_f32("bcghij,bcjghp->bcighp", scores, xin_c)
+        # ---- intra-chunk (quadratic in Q only) ----
+        cb = einsum_f32("bcign,bcjgn->bcgij", c_c, b_c)                  # (B,nc,G,Q,Q)
+        ci = cum.permute(0, 1, 3, 4, 2)                                  # (B,nc,G,Hg,Q)
+        decay = torch.exp(torch.clamp(ci[..., :, None] - ci[..., None, :], -60.0, 0.0))
+        mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+        scores = cb[:, :, :, None] * decay * torch.where(mask, 1.0, 0.0)
+        scores = scores * dt_c.permute(0, 1, 3, 4, 2)[..., None, :]      # weight by dt_j
+        y_intra = einsum_f32("bcghij,bcjghp->bcighp", scores, xin_c)
 
-    # ---- chunk states ----
-    decay_to_end = torch.exp(torch.clamp(ci[..., -1:] - ci, -60.0, 0.0))
-    xw = xin_c * (dt_c * decay_to_end.permute(0, 1, 4, 2, 3))[..., None]
-    s_c = einsum_f32("bcjgn,bcjghp->bcghnp", b_c, xw)                # (B,nc,G,Hg,N,P)
+        # ---- chunk states ----
+        decay_to_end = torch.exp(torch.clamp(ci[..., -1:] - ci, -60.0, 0.0))
+        xw = xin_c * (dt_c * decay_to_end.permute(0, 1, 4, 2, 3))[..., None]
+        s_c = einsum_f32("bcjgn,bcjghp->bcghnp", b_c, xw)                # (B,nc,G,Hg,N,P)
 
-    # ---- inter-chunk loop ----
-    chunk_decay = torch.exp(torch.clamp(cum[:, :, -1], min=-60.0))   # (B,nc,G,Hg)
-    hstate = torch.zeros((b, g, hg, n, p), dtype=f32, device=x.device)
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(hstate)
-        hstate = hstate * chunk_decay[:, c, ..., None, None] + s_c[:, c]
-    h_prevs = torch.stack(h_prevs, dim=1)                            # (B,nc,G,Hg,N,P)
+        # ---- inter-chunk loop ----
+        chunk_decay = torch.exp(torch.clamp(cum[:, :, -1], min=-60.0))   # (B,nc,G,Hg)
+        hstate = torch.zeros((b, g, hg, n, p), dtype=f32, device=x.device)
+        h_prevs = []
+        for c in range(nc):
+            h_prevs.append(hstate)
+            hstate = hstate * chunk_decay[:, c, ..., None, None] + s_c[:, c]
+        h_prevs = torch.stack(h_prevs, dim=1)                            # (B,nc,G,Hg,N,P)
 
-    decay_from_start = torch.exp(torch.clamp(cum, min=-60.0))        # (B,nc,Q,G,Hg)
-    y_inter = einsum_f32("bcign,bcghnp->bcighp", c_c, h_prevs)
-    y_inter = y_inter * decay_from_start[..., None]
+        decay_from_start = torch.exp(torch.clamp(cum, min=-60.0))        # (B,nc,Q,G,Hg)
+        y_inter = einsum_f32("bcign,bcghnp->bcighp", c_c, h_prevs)
+        y_inter = y_inter * decay_from_start[..., None]
 
-    y = (y_intra + y_inter).reshape(b, s, g, hg, p)
-    y = y + xin * params["D"].reshape(g, hg)[None, None, :, :, None]
-    y = y.reshape(b, s, din) * F.silu(z.to(f32))
-    if tp is None:
-        y = rms_norm(y, params["norm"].to(f32), cfg.norm_eps)
-        role = None
-    else:
-        # the gated norm spans all of d_inner: its sum of squares over the axis
-        var = sharding.tp_all_reduce((y * y).sum(dim=-1, keepdim=True)) / (din * tp.tp_size)
-        y = (y * torch.rsqrt(var + cfg.norm_eps)) * params["norm"].to(f32)
-        role = "row"
+        y = (y_intra + y_inter).reshape(b, s, g, hg, p)
+        y = y + xin * params["D"].reshape(g, hg)[None, None, :, :, None]
+        y = y.reshape(b, s, din) * F.silu(z.to(f32))
+        if tp is None:
+            y = rms_norm(y, params["norm"].to(f32), cfg.norm_eps)
+            role = None
+        else:
+            # the gated norm spans all of d_inner: its sum of squares over the axis
+            var = sharding.tp_all_reduce((y * y).sum(dim=-1, keepdim=True)) / (din * tp.tp_size)
+            y = (y * torch.rsqrt(var + cfg.norm_eps)) * params["norm"].to(f32)
+            role = "row"
     out = project(params["out_proj"], y.to(dtype), mode, backend, role)
     if return_state:
         kc = cfg.ssm_conv - 1

@@ -17,6 +17,31 @@ Quick tour::
 
     print(obs.to_prometheus(reg.snapshot()))
 
+The spans the port opens (each kernel a span's code launches belongs to
+the innermost one open at its launch):
+
+* ``repro_torch.cnn.forward`` — ``PaperCNN.forward``, one batch;
+* ``repro_torch.prefill`` — ``models.model.prefill``, one packed forward;
+* ``repro_torch.train.step`` — one training step, with its phases
+  ``repro_torch.train.forward`` (the loss), ``repro_torch.train.backward``
+  (``torch.autograd.grad``, remat recompute included) and
+  ``repro_torch.train.optimizer`` (``adamw.adamw_update``);
+* ``repro_torch.qmm`` / ``repro_torch.qconv`` — the kernels' entry
+  points (their own time: casts, scale vectors, plan lookup), holding
+  ``repro_torch.quantize`` (``ops.quantize_activations``,
+  ``conv_fused.conv_act_stats``: activation statistics, ternarize, pack)
+  and ``repro_torch.lowbit_kernel`` (the hand-written kernels' launches,
+  the conv's pack pass included);
+* ``repro_torch.weight_pack`` — ``QTensor.from_dense``, weight packing at
+  run time (the QAT forward packs its master weights per call);
+* ``repro_torch.ssd`` — the Mamba2 mixer between ``in_proj`` and
+  ``out_proj``: causal conv, chunked scan, gate and norm;
+* ``repro_torch.ste_backward`` — the straight-through backward of a
+  quantized projection (float32 products and the clip mask).
+
+The serving engine's regions keep the reference's names
+(``decode_step``, ``prefill_chunk``, ``prefill_bucket``).
+
 ``REPRO_OBS=off`` hard-disables everything (record calls are single
 attribute-lookup no-ops, event sinks never open); ``REPRO_OBS_EVENTS``
 points engine event logs at a JSONL file; ``REPRO_OBS_SNAPSHOT`` makes

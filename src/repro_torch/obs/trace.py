@@ -2,8 +2,12 @@
 
 ``annotate("prefill_chunk")`` wraps a host-side region in
 ``torch.profiler.record_function`` so a ``torch.profiler`` trace shows
-the engine's regions beside the kernels they launched.  When obs is
-disabled it is a null context, so the serving loop never pays for it.
+the program's regions beside the kernels they launched.  It enters a
+``record_function`` only while obs is on and a profiler session is
+recording; otherwise it is one shared null context, so code that runs
+with no profiler open pays a flag check per region.
+
+The port's span names are listed in the package docstring.
 
 Counterpart of ``repro/obs/trace.py``, whose ``jax.profiler
 .TraceAnnotation`` this replaces.
@@ -14,14 +18,19 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from .registry import obs_enabled
 
 __all__ = ["annotate"]
 
+_NULL = contextlib.nullcontext()
+
 
 def annotate(name: str):
-    """Context manager naming a host region in torch.profiler traces."""
-    if not obs_enabled():
-        return contextlib.nullcontext()
+    """Context manager naming a host region in torch.profiler traces; a
+    shared null context when obs is off or no profiler session is
+    recording."""
+    if not (_profiler._is_profiler_enabled and obs_enabled()):
+        return _NULL
     return torch.profiler.record_function(name)

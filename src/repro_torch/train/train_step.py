@@ -71,6 +71,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.modes import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import ModelConfig, ShardLayout
@@ -204,9 +205,11 @@ def value_and_grad(loss_fn, params, batch):
     ``params``, each leaf of its parameter's dtype (zeros where unused)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, metrics = loss_fn(leaves, batch)
+        with obs.annotate("repro_torch.train.forward"):
+            loss, metrics = loss_fn(leaves, batch)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with obs.annotate("repro_torch.train.backward"):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, flat))
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
@@ -312,6 +315,10 @@ def make_train_step(cfg: ModelConfig, layout: ShardLayout,
         return cache[key]
 
     def train_step(state, batch):
+        with obs.annotate("repro_torch.train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         ctx = sharding.active()
         shardings = mesh = plans = None
         kw: Dict[str, Any] = {}
@@ -329,8 +336,9 @@ def make_train_step(cfg: ModelConfig, layout: ShardLayout,
         if tcfg.ef_compression:
             grads, new_ef = compression.ef_compress_update(grads, state["ef"], mesh=mesh)
 
-        new_params, new_opt, opt_metrics = adamw.adamw_update(
-            grads, state["opt"], params, tcfg.optimizer, shardings=shardings, mesh=mesh)
+        with obs.annotate("repro_torch.train.optimizer"):
+            new_params, new_opt, opt_metrics = adamw.adamw_update(
+                grads, state["opt"], params, tcfg.optimizer, shardings=shardings, mesh=mesh)
         new_state = {"params": new_params, "opt": new_opt}
         if tcfg.ef_compression:
             new_state["ef"] = new_ef

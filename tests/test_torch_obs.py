@@ -7,8 +7,9 @@ instrumentation) on the CPU, against the JAX package's:
   reference's ``python -m repro.obs --check`` accepts the port's
   snapshots (engine and process registries) and its events JSONL, and
   both render the same Prometheus text;
-* ``annotate`` is a ``torch.profiler.record_function`` region (a null
-  context when obs is off);
+* ``annotate`` is a ``torch.profiler.record_function`` region while a
+  profiler session records (one shared null context when obs is off or
+  no session is open);
 * ``qmm`` / ``qconv`` count their dispatches (obs-gated);
 * an engine's counters reconcile exactly with its Results and
   ``page_stats()``, and equal the reference engine's on the same
@@ -119,12 +120,18 @@ def test_eventlog_envelope_and_off_switch(tmp_path, obs_on):
 
 
 def test_annotate_is_a_record_function_region(obs_on):
-    with obs.annotate("decode_step") as region:
-        pass
-    assert isinstance(obs.annotate("x"), torch.profiler.record_function)
-    assert region is not None
-    obs.set_enabled(False)
-    assert isinstance(obs.annotate("x"), contextlib.nullcontext)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with obs.annotate("decode_step") as region:
+            pass
+        assert isinstance(obs.annotate("x"), torch.profiler.record_function)
+        assert region is not None
+        obs.set_enabled(False)
+        off = obs.annotate("x")
+    assert "decode_step" in {e.name for e in prof.events()}
+    assert isinstance(off, contextlib.nullcontext)
+    obs.set_enabled(True)
+    idle = obs.annotate("x")
+    assert isinstance(idle, contextlib.nullcontext) and idle is off
 
 
 def test_write_snapshot_if_configured(tmp_path, obs_on, monkeypatch):
