@@ -57,7 +57,8 @@ without printing a result:
    (the first a warm-up).  Every kernel must have launched, the packing
    pass once per conv launch (pack + conv per low-bit layer); the logits
    must be finite; a batch must be ``torch.equal`` to the same module
-   run through the plain versions, layer by layer; each low-bit layer
+   run through the plain versions, layer by layer (the statistics
+   kernel once per conv too); each low-bit layer
    must equal the materializing oracle (im2col + ``qmm``); a small CNN
    on the card must match the CPU run to 1e-5; a ``qmm`` request must
    launch its quantization's kernels and one GeMM, nothing else (no copy
@@ -85,7 +86,11 @@ without printing a result:
    yardstick the port never calls; for the convs float32 ``F.conv2d``,
    and ``library_bf16_ms`` bf16 ``F.conv2d`` in channels_last), plus each
    kernel's own device time (a conv row: its wrapper, pack + conv, and
-   both kernels' device time)
+   both kernels' device time; a statistics row, ``conv_stats_<mode>``,
+   holds ``act_stats_kernel`` at each main-path conv input and at
+   VGG-Small's five conv inputs at batch 1,024, ``VGG_SMALL_INPUTS``,
+   against its plain version on the same tensor to ``STAT_RTOL`` and
+   against a float64 evaluation of its weighted formulas to ``F64_RTOL``)
    and one CNN batch's device time by kernel from ``torch.profiler``
    (popcount and dense); the tensor-core kernels' bound is 2*m*n*k at the
    int8 rate of 1,979 TOP/s or bytes at 3.35 TB/s, whichever is larger.
@@ -399,6 +404,12 @@ GEMM_REPLACES = {
 CONV_REPLACES = "src/repro/kernels/conv_fused.py:369"
 # the Pallas conv's in-kernel quantize + pack, now a pass of its own
 PACK_REPLACES = "src/repro/kernels/conv_fused.py:369 (in-kernel quantize + pack)"
+# no TPU kernel: the JAX package leaves the conv statistics to XLA
+STATS_REPLACES = "src/repro/kernels/conv_fused.py:170 (XLA ops)"
+# the statistics kernel against its plain version (float32 tree sums, so a
+# few ULPs apart at these sizes) and against float64 sums of the same
+# weighted formulas (one float32 rounding of a float64 sum)
+STAT_RTOL, F64_RTOL = 2.0 ** -16, 1e-6
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/lowbit_gemm.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/lowbit_conv.cu"
 DENSE_SOURCE = "src/repro_torch/kernels/csrc/dense_tc.cu"
@@ -413,6 +424,11 @@ TABLE3 = ("f32", "u8", "u4", "tnn", "tbn", "bnn")
 PAPER_A73 = {"tnn/f32": 3.63, "tbn/f32": 3.75, "bnn/f32": 10.9, "tnn/u8": 2.51,
              "tnn/u4": 1.44, "bnn/tnn": 2.99}
 BATCH, BATCHES = 256, 4
+# the inputs of VGG-Small's five TNN convs (3x3 SAME, stride 1) at batch
+# 1,024, where act_stats_kernel runs its full grid of blocks: phase 6's
+# statistics rows
+VGG_SMALL_INPUTS = [(1024, 32, 32, 128), (1024, 16, 16, 128), (1024, 16, 16, 256),
+                    (1024, 8, 8, 256), (1024, 8, 8, 512)]
 # Phase 3/4b GeMM geometries beside GEMM_GRID and the CNN's im2col shapes:
 # ragged m, n and k (kw % 4 != 0: the dense kernel's 4-byte weight
 # copies), the plan's 32 tile (1000 x 130 on 132 SMs), A streamed instead
@@ -607,7 +623,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def profiled(fn):
     """(key_averages rows of the CUDA kernels one ``fn()`` ran, host ms)
-    from ``torch.profiler``: [(kernel name, device ms, calls), ...]."""
+    from ``torch.profiler``: [(kernel name, device ms, calls), ...].  The
+    program's spans (``repro_torch.*``, ``obs.annotate``), which the
+    profiler lists among the device rows over the kernels they hold, are
+    left out, so that no kernel counts twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -620,7 +639,7 @@ def profiled(fn):
         host_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and not e.key.startswith("repro_torch.")]
     return sorted(rows, key=lambda r: -r[1]), host_ms
 
 
@@ -800,6 +819,103 @@ def affine_requests(dev):
         for mode in ("int8", "int4"):
             requests.append((mode, x, ops.pack_weights(w, QuantMode(mode))))
     return requests
+
+
+def stats_f64(x, mode: str, kh: int, kw: int, stride: int, padding: str,
+              thr=None) -> dict:
+    """``conv_act_stats``' weighted formulas in float64 on ``x``'s device:
+    the padded input times the multiplicity map, thr = 0.7 mean |A|; the
+    masked sums take ``thr`` where given (the kernel's own, so that only
+    the sums are compared)."""
+    from repro_torch.kernels import conv_fused
+
+    xp, (oh, ow) = conv_fused.conv_spatial_pad(x.double(), kh, kw, stride, padding)
+    b, hp, wp, c = xp.shape
+    m = conv_fused._patch_multiplicity(hp, wp, kh, kw, stride, oh, ow, x.device)
+    m = m.double()[None, :, :, None]
+    a = xp.abs()
+    mean = (a * m).sum().item() / (b * oh * ow * kh * kw * c)
+    if mode == "bnn":
+        return {"scale": mean}
+    keep = a > (0.7 * mean if thr is None else thr)
+    return {"thr": 0.7 * mean,
+            "scale": (a * m * keep).sum().item() / max((m * keep).sum().item(), 1.0)}
+
+
+def stats_rows(dev, gen, main_inputs, launches, launches2, check):
+    """Phase 6's statistics rows, one a mode: ``act_stats_kernel``
+    (``conv_fused.conv_act_stats`` on CUDA operands, 3x3 SAME or the
+    layer's geometry) at the mode's main-path conv inputs
+    (``main_inputs[mode]``: [(x, kh, kw, stride), ...]) and at
+    ``VGG_SMALL_INPUTS`` (ReLU'd N(0, 1), 3x3 SAME).  Each call is held
+    against the plain version on the same tensor (``STAT_RTOL``; the
+    largest |kernel - plain| goes to ``check.max_err``) and against
+    :func:`stats_f64` (``F64_RTOL``), and must give the same bits twice;
+    then ms (CUDA events), the kernel's device ms (torch.profiler), the
+    plain version's ms and the bound (``conv_stats_work`` bytes), each
+    summed over the main path's inputs and, under ``vgg_small_b1024``,
+    over VGG-Small's."""
+    import torch
+    from repro_torch.kernels import conv_fused
+    from repro_torch.kernels.modes import QuantMode
+
+    def acc():
+        return {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "shapes_bhwc": []}
+
+    sums = {m: {"main": acc(), "vgg": acc()} for m in MODES}
+    f64_err = {m: 0.0 for m in MODES}
+
+    def measure(mode, x, kh, kw, stride, where):
+        name, qm = f"conv_stats_{mode}", QuantMode(mode)
+        what = f"{name} at {tuple(x.shape)} k{kh} s{stride}"
+
+        def call():
+            return conv_fused.conv_act_stats(x, qm, kh, kw, stride, "SAME")
+
+        def plain():
+            return conv_fused.conv_act_stats_torch(x, qm, kh, kw, stride, "SAME")
+        got, again, want = call(), call(), plain()
+        ref = stats_f64(x, mode, kh, kw, stride, "SAME",
+                        None if mode == "bnn" else got["thr"].item())
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+        for key, v in got.items():
+            if not torch.equal(v, again[key]):
+                raise AssertionError(f"{what}: {key} differs between two calls")
+            g, p, f = v.item(), want[key].item(), ref[key]
+            check.max_err[name] = max(check.max_err.get(name, 0.0), abs(g - p))
+            f64_err[mode] = max(f64_err[mode], abs(g - f) / abs(f) if f else abs(g))
+            if not (abs(g - p) <= STAT_RTOL * abs(p) and abs(g - f) <= F64_RTOL * abs(f)):
+                raise AssertionError(f"{what}: {key} {g!r}, plain {p!r}, float64 {f!r}")
+        s = sums[mode][where]
+        s["ms"] += cuda_ms(call, reps=20)
+        s["device_ms"] += kernel_device_ms(call, "act_stats_kernel", reps=5) or 0.0
+        s["plain_ms"] += cuda_ms(plain, reps=5, warmup=1)
+        s["bound_ms"] += work_bound(roofline().conv_stats_work(mode, *x.shape))[0]
+        s["shapes_bhwc"].append(list(x.shape))
+
+    for mode in MODES:
+        for x, kh, kw, stride in main_inputs[mode]:
+            measure(mode, x, kh, kw, stride, "main")
+    for shape in VGG_SMALL_INPUTS:
+        x = torch.relu(torch.randn(shape, generator=gen, device=dev))
+        for mode in MODES:
+            measure(mode, x, 3, 3, 1, "vgg")
+        del x
+    rows = []
+    for mode in MODES:
+        name, main, vgg = f"conv_stats_{mode}", sums[mode]["main"], sums[mode]["vgg"]
+        vgg["device_ms"] = vgg["device_ms"] or None
+        rows.append({
+            "name": name, "route": "cuda", "source": CONV_SOURCE,
+            "replaces": STATS_REPLACES, "launches": launches.get(name, 0),
+            "launches_dense_path": launches2.get(name, 0),
+            "max_abs_err": check.max_err[name], "max_rel_err_f64": f64_err[mode],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "device_ms": main["device_ms"] or None,
+            "shapes_bhwc": main["shapes_bhwc"], "vgg_small_b1024": vgg})
+    return rows
 
 
 def gemm_rows(dev, gen, requests, cnn_shapes, max_sm_mhz, check=None):
@@ -4226,9 +4342,10 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     for m in MODES:
-        if launches[f"conv_pack_{m}"] != launches[f"lowbit_conv_{m}"]:
-            raise AssertionError(f"main path: {launches[f'conv_pack_{m}']} packs for "
-                                 f"{launches[f'lowbit_conv_{m}']} {m} convs")
+        for first in ("conv_stats", "conv_pack"):
+            if launches.get(f"{first}_{m}", 0) != launches[f"lowbit_conv_{m}"]:
+                raise AssertionError(f"main path: {launches.get(f'{first}_{m}', 0)} "
+                                     f"{first} for {launches[f'lowbit_conv_{m}']} {m} convs")
     for y, acc in gemm_out:
         if not torch.isfinite(y).all():
             raise AssertionError("qmm request gave non-finite output")
@@ -4433,11 +4550,12 @@ def main(argv=None) -> int:
     # -- 6. times ----------------------------------------------------------
 
     # where one CNN batch's device time goes, by kernel: the repository's
-    # kernels by name (the packing pass, the conv kernels), the rest is
-    # PyTorch's own (statistics, ReLU, max-pool, the float first layer)
+    # kernels by name (the statistics, the packing pass, the conv kernels),
+    # the rest is PyTorch's own (ReLU, max-pool, the float first layer)
     def by_kernel(rows):
         ours = {k: sum(ms for name, ms, _ in rows if k in name)
-                for k in ("conv_pack_kernel", "lowbit_conv_kernel", "dense_conv_kernel")}
+                for k in ("act_stats_kernel", "conv_pack_kernel", "lowbit_conv_kernel",
+                          "dense_conv_kernel")}
         ours["pytorch_kernels"] = sum(ms for name, ms, _ in rows
                                       if "lowbit::" not in name and "tc::" not in name)
         return ours
@@ -4547,6 +4665,10 @@ def main(argv=None) -> int:
             "max_abs_err": check.max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             "device_ms": device_ms or None, "shapes_bhwc": shp})
+
+    kernels.extend(stats_rows(
+        dev, gen, {m: [(x, *qt.geometry[:2], stride) for x, qt, stride, _, _ in conv_layers(m)]
+                   for m in MODES}, launches, launches2, check))
 
     for mode in MODES:
         kernels.append(conv_row(f"lowbit_conv_{mode}", CONV_SOURCE, CONV_REPLACES,

@@ -7,7 +7,9 @@ seconds.  The libraries and their entry points:
 
 * ``lowbit_gemm``: ``lowbit_gemm_launch`` (popcount GeMM, fused or int32);
 * ``lowbit_conv``: ``conv_pack_launch`` (quantize + pack the padded
-  input once), ``lowbit_conv_launch`` (popcount implicit-im2col conv);
+  input once), ``lowbit_conv_launch`` (popcount implicit-im2col conv),
+  ``conv_stats_launch`` (the activation statistics the pack quantizes
+  with, one or two passes);
 * ``dense_tc``: ``dense_gemm_launch``, ``dense_conv_launch`` (planes
   decoded to int8, tensor cores);
 * ``affine_gemm``: ``affine_gemm_launch`` (u8 / u4 raw accumulator).
@@ -27,7 +29,7 @@ for bit the plain version's.
 Launch counts: :func:`launch` counts each launch under the wrapper's key,
 after the launch succeeded, so a run can show which kernels its main path
 went through: ``lowbit_gemm_<mode>_{fused,i32}``, ``conv_pack_<mode>``,
-``lowbit_conv_<mode>``, ``dense_gemm_<mode>``, ``dense_conv_<mode>``,
+``lowbit_conv_<mode>``, ``conv_stats_<mode>``, ``dense_gemm_<mode>``, ``dense_conv_<mode>``,
 ``affine_gemm_{u8,u4}``.
 
 Records on ``meta``: a wrapper whose operands all lie on the ``meta``
@@ -84,7 +86,11 @@ _SIGNATURES = {
         # mode, a0, a1, B, Hp, Wp, C, kh, kw, stride, OH, OW, b0, b1, cout,
         # words, k_valid, scale, col, bias, out, stream
         "lowbit_conv_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]},
+                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        # mode, x, B, H, W, C, kh, kw, stride, OH, OW, pad_top, pad_left,
+        # scratch, scratch bytes, out, stream
+        "conv_stats_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P, _I, _P, _P]},
     "dense_tc": {
         # mode, a0, a1, b0, b1, m, n, kw, k_valid, tile, row, row_stride,
         # col, bias, out, stream

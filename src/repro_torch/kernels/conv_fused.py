@@ -13,6 +13,11 @@ Weights arrive in the per-patch-position layout (:func:`conv_weight_planes`:
 the contiguous payload when ``Cin % 32 == 0``, the pack-time positional
 planes otherwise, an exact repack for legacy containers).
 
+The statistics themselves, on CUDA operands, are one hand-written kernel
+of the same library (``act_stats_kernel``: two passes over the unpadded
+input, float64 sums in a fixed order); :func:`conv_act_stats_torch` is its
+plain version, which CPU operands take.
+
 Two backends:
 
 * ``"cuda"`` — ``csrc/lowbit_conv.cu`` (replaces the reference's
@@ -48,7 +53,8 @@ from repro_torch.kernels._matmul_common import (
 from repro_torch.kernels.modes import QuantMode
 
 __all__ = ["conv_out_hw", "conv_spatial_pad", "conv_act_stats",
-           "conv_problem_dims", "geom_tag", "im2col_hbm_bytes",
+           "conv_act_stats_torch", "axis_multiplicity", "conv_problem_dims",
+           "geom_tag", "im2col_hbm_bytes",
            "conv_weight_planes", "gather_patch_tile",
            "quantize_patch_values", "conv_pack_cuda", "conv_pack_torch",
            "packed_conv_args", "conv_fused_cuda", "conv_fused_torch"]
@@ -115,6 +121,19 @@ def im2col_hbm_bytes(x_shape, geometry, stride: int, padding: str,
             "fused": b * (h + ph) * (w + pw) * cw * 4 * planes}
 
 
+def axis_multiplicity(n: int, k: int, stride: int, out: int) -> np.ndarray:
+    """How many patches along one axis (``k`` taps, ``stride``, ``out``
+    outputs) hold each of the axis' ``n`` padded positions, in closed
+    form: the outputs o with o * stride <= p <= o * stride + k - 1.  The
+    per-axis table ``act_stats_kernel`` builds (``axis_multiplicity`` in
+    ``csrc/lowbit_conv.cu``); :func:`_patch_multiplicity` is the outer
+    product of two of them."""
+    p = np.arange(n)
+    hi = np.minimum(p // stride, out - 1)
+    lo = np.where(p < k, 0, (p - k + stride) // stride)
+    return np.maximum(hi - lo + 1, 0)
+
+
 @functools.lru_cache(maxsize=64)
 def _patch_multiplicity(hp: int, wp: int, kh: int, kw: int, stride: int,
                         oh: int, ow: int, device: torch.device) -> torch.Tensor:
@@ -138,27 +157,43 @@ def conv_act_stats(x: torch.Tensor, mode: QuantMode, kh: int, kw: int,
                    ) -> Dict[str, torch.Tensor]:
     """Scalar quantization statistics of the *implicit* im2col matrix:
     mean |A| (BNN ``{"scale"}``), and for the ternary modes the TWN
-    threshold and the masked mean (``{"thr", "scale"}``), in one O(|x|)
-    pass with each padded-input element weighted by its multiplicity in
-    the im2col matrix.  Float32 device scalars; nothing here syncs the
-    stream once a geometry has been seen.
+    threshold and the masked mean (``{"thr", "scale"}``), each
+    padded-input element weighted by its multiplicity in the im2col
+    matrix.  Float32 device scalars; nothing here syncs the stream.
+
+    On CUDA operands ``act_stats_kernel`` (counted under
+    ``conv_stats_<mode>``; raises on what it does not take), on ``meta``
+    its record, on CPU operands the plain version
+    :func:`conv_act_stats_torch`.
     """
     with obs.annotate("repro_torch.quantize"):
-        xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride,
-                                        padding)
-        b, hp, wp, c = xp.shape
-        mult = _patch_multiplicity(hp, wp, kh, kw, stride, oh, ow, xp.device)
-        w4 = mult[None, :, :, None]
-        absx = xp.abs()
-        count = f32_scalar(b * oh * ow * kh * kw * c, xp)
-        mean_abs = (absx * w4).sum() / count
-        if mode == QuantMode.BNN:
-            return {"scale": mean_abs}
-        thr = 0.7 * mean_abs
-        mask = (absx > thr).to(torch.float32)
-        nnz = (mask * w4).sum()
-        alpha = (absx * mask * w4).sum() / nnz.clamp(min=1.0)
-        return {"thr": thr, "scale": alpha}
+        x = x.to(torch.float32)
+        if runs_kernel(x):
+            return _launch_stats(mode, x.contiguous(), kh, kw, stride, padding)
+        return conv_act_stats_torch(x, mode, kh, kw, stride, padding)
+
+
+def conv_act_stats_torch(x: torch.Tensor, mode: QuantMode, kh: int, kw: int,
+                         stride: int = 1, padding: str = "SAME"
+                         ) -> Dict[str, torch.Tensor]:
+    """Plain version of :func:`conv_act_stats`: float32 sums over the
+    padded input times the multiplicity map, in one O(|x|) pass per
+    statistic; the map is built and copied once per geometry (that copy
+    syncs the stream)."""
+    xp, (oh, ow) = conv_spatial_pad(x.to(torch.float32), kh, kw, stride, padding)
+    b, hp, wp, c = xp.shape
+    mult = _patch_multiplicity(hp, wp, kh, kw, stride, oh, ow, xp.device)
+    w4 = mult[None, :, :, None]
+    absx = xp.abs()
+    count = f32_scalar(b * oh * ow * kh * kw * c, xp)
+    mean_abs = (absx * w4).sum() / count
+    if mode == QuantMode.BNN:
+        return {"scale": mean_abs}
+    thr = 0.7 * mean_abs
+    mask = (absx > thr).to(torch.float32)
+    nnz = (mask * w4).sum()
+    alpha = (absx * mask * w4).sum() / nnz.clamp(min=1.0)
+    return {"thr": thr, "scale": alpha}
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +339,40 @@ def _check_conv_input(x: torch.Tensor, cin: int) -> None:
 
 _PACK_KEYS = {mode: f"conv_pack_{mode.value}" for mode in _MODE_ID}
 _CONV_KEYS = {mode: f"lowbit_conv_{mode.value}" for mode in _MODE_ID}
+_STATS_KEYS = {mode: f"conv_stats_{mode.value}" for mode in _MODE_ID}
+# conv_stats_launch's scratch (float64 partial sums and 64-bit partial
+# counts of up to STATS_BLOCKS = 1,024 blocks, then two tickets) and its
+# largest H + W (STATS_TABLE: the per-axis tables in shared memory)
+_STATS_SCRATCH_BYTES = 1024 * 16 + 8
+_STATS_TABLE = 8192
+
+
+def _launch_stats(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,
+                  stride: int, padding: str) -> Dict[str, torch.Tensor]:
+    """``act_stats_kernel``: pass 1 (mean |A|, thr), then for TNN/TBN pass
+    2 (alpha), into one float32 (3,) buffer whose elements are the
+    returned scalars.  An empty ``x`` launches it too, over nothing: the
+    plain version's NaN mean and thr and zero alpha."""
+    bsz, h, w, c = x.shape
+    oh, ow, ph, pw = conv_out_hw(h, w, kh, kw, stride, padding)
+    if x.numel() >= 2**31:
+        raise ValueError("conv stats kernel indexes elements with 32-bit ints")
+    if h + w > _STATS_TABLE:
+        raise ValueError(f"conv stats kernel takes H + W <= {_STATS_TABLE}, "
+                         f"got {h} + {w}")
+    out = torch.empty(3, dtype=torch.float32, device=x.device)
+    stats = ({"scale": out[0]} if mode == QuantMode.BNN
+             else {"thr": out[1], "scale": out[2]})
+    if x.is_meta:
+        _build.record(_STATS_KEYS[mode], b=bsz, h=h, w=w, c=c, kh=kh, kw=kw,
+                      stride=stride, oh=oh, ow=ow)
+        return stats
+    scratch = torch.empty(_STATS_SCRATCH_BYTES, dtype=torch.uint8, device=x.device)
+    _build.launch(
+        "conv_stats_launch", _STATS_KEYS[mode], x.get_device(), _MODE_ID[mode],
+        x.data_ptr(), bsz, h, w, c, kh, kw, stride, oh, ow, ph // 2, pw // 2,
+        scratch.data_ptr(), _STATS_SCRATCH_BYTES, out.data_ptr())
+    return stats
 
 
 def _launch_pack(mode: QuantMode, x: torch.Tensor, kh: int, kw: int,

@@ -1,7 +1,9 @@
 // Implicit-im2col low-bit convolution for Hopper (sm_90a): TNN, TBN, BNN.
 //
 // Replaces the Pallas kernel conv_fused._conv_pallas_fused
-// (kernels/conv_fused.py) of the JAX package, as two kernels on one stream:
+// (kernels/conv_fused.py) of the JAX package, as two kernels on one stream
+// (act_stats_kernel, further down, computes the per-tensor statistics that
+// the packing pass quantizes with):
 //
 //   conv_pack_kernel   the in-kernel quantize + pack of the Pallas kernel,
 //                      done once per input pixel: x (B, H, W, C) float32
@@ -110,6 +112,171 @@ conv_pack_kernel(const float* __restrict__ x, int H, int W, int C, int Hp,
   }
 }
 
+// ---------------------------------------------------------------------------
+// act_stats_kernel: the activation statistics of the implicit im2col matrix
+// (conv_fused.conv_act_stats on CUDA operands).
+//
+// Replaces no TPU kernel: the JAX package leaves these statistics to XLA.
+// Every element of the padded input appears in m(h) * m(w) patches, m the
+// per-axis patch multiplicity (axis_multiplicity), so over the unpadded x
+// (B, H, W, C) float32:
+//   pass 1  S = sum m |x|  ->  mean_abs = S / (B OH OW KH KW C) and, for
+//           TNN/TBN, thr = 0.7f * mean_abs; BNN stops here;
+//   pass 2  N = sum m [|x| > thr], A = sum m |x| [|x| > thr], thr read on the
+//           device  ->  alpha = A / max(N, 1).
+// A pad pixel is 0 and adds nothing to any sum, so no padded copy is made and
+// no multiplicity map is read: each block builds the per-axis tables in
+// shared memory.
+//
+// What bounds it: bytes, one read of x a pass (pass 2 needs thr, hence all of
+// pass 1, before its first element).  Loads are float4 where C % 4 == 0 and x
+// is 16-byte aligned (one coalesced 512-byte load a warp), scalar otherwise;
+// each thread keeps STATS_UNROLL loads in flight.  Sums are float64 and
+// weighted counts 64-bit integers; each block writes its partial, and the
+// block that finishes last (an integer ticket, no float atomics) adds the
+// partials in index order.  The grid depends on the shape alone, so a rerun
+// gives the same bits; each result is rounded to float32 once.
+
+constexpr int STATS_BLOCKS = 1024;   // the most blocks a pass runs
+constexpr int STATS_UNROLL = 4;      // loads in flight a thread
+constexpr int STATS_TABLE = 8192;    // the most H + W (per-axis tables)
+
+// Patches along one axis (k taps, stride, out outputs) that hold padded
+// position p: the o in [0, out) with o * stride <= p <= o * stride + k - 1.
+__device__ inline int axis_multiplicity(int p, int k, int stride, int out) {
+  const int hi = p / stride < out - 1 ? p / stride : out - 1;
+  const int lo = p < k ? 0 : (p - k + stride) / stride;
+  return hi >= lo ? hi - lo + 1 : 0;
+}
+
+// n / d for n, d < 2^31 by a multiply-high and a shift, d fixed for a launch.
+struct Divider {
+  uint32_t d, magic, shift;
+  explicit Divider(uint32_t divisor) : d(divisor), shift(0) {
+    while ((1u << shift) < d) ++shift;
+    magic = static_cast<uint32_t>(((1ull << 32) * ((1ull << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return (__umulhi(n, magic) + n) >> shift;
+  }
+};
+
+struct StatsShape {
+  uint32_t nvec;                       // VEC-float vectors in x
+  Divider per_pixel, per_image, per_row;   // C / VEC, H * W, W
+  int H, W, KH, KW, stride, OH, OW, pad_top, pad_left;
+};
+
+// Sum over the block in a fixed order (shuffles, then the warps in order);
+// the total is thread 0's.
+template <typename T>
+__device__ T block_sum(T v, T* warps) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T total = 0;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < THREADS / 32; ++i) total += warps[i];
+  return total;
+}
+
+// out: mean_abs, thr (pass 1), alpha (pass 2).
+template <int PASS, int VEC>
+__global__ void __launch_bounds__(THREADS)
+act_stats_kernel(const float* __restrict__ x, StatsShape s, double count,
+                 double* __restrict__ part_sum,
+                 unsigned long long* __restrict__ part_n,
+                 unsigned int* __restrict__ ticket, float* __restrict__ out) {
+  extern __shared__ int mult[];        // m(h) for h < H, then m(w)
+  __shared__ double warp_sum[THREADS / 32];
+  __shared__ unsigned long long warp_n[THREADS / 32];
+  __shared__ bool last;
+  const int W = s.W;
+  const int* mh = mult;
+  const int* mw = mult + s.H;
+  for (int i = threadIdx.x; i < s.H + W; i += THREADS)
+    mult[i] = i < s.H ? axis_multiplicity(i + s.pad_top, s.KH, s.stride, s.OH)
+                      : axis_multiplicity(i - s.H + s.pad_left, s.KW, s.stride,
+                                          s.OW);
+  __syncthreads();
+  float thr = 0.f;
+  if constexpr (PASS == 2) thr = out[1];
+  double sum = 0.0;
+  unsigned long long n = 0;
+  const uint32_t step = gridDim.x * THREADS;
+  for (uint32_t base = blockIdx.x * THREADS + threadIdx.x; base < s.nvec;
+       base += step * STATS_UNROLL) {
+    float v[STATS_UNROLL][VEC];
+#pragma unroll
+    for (int u = 0; u < STATS_UNROLL; ++u) {
+      const uint32_t i = base + u * step;
+      if constexpr (VEC == 4) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < s.nvec) q = __ldg(reinterpret_cast<const float4*>(x) + i);
+        v[u][0] = q.x;
+        v[u][1] = q.y;
+        v[u][2] = q.z;
+        v[u][3] = q.w;
+      } else {
+        v[u][0] = i < s.nvec ? __ldg(x + i) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < STATS_UNROLL; ++u) {
+      const uint32_t i = base + u * step;
+      if (i >= s.nvec) continue;
+      const uint32_t pix = s.per_pixel.div(i);
+      const uint32_t img = pix - s.per_image.div(pix) * s.per_image.d;
+      const uint32_t h = s.per_row.div(img);
+      const int m = mh[h] * mw[img - h * s.per_row.d];
+      double a = 0.0;
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float f = fabsf(v[u][j]);
+        if (PASS == 1 || f > thr) {
+          a += static_cast<double>(f);
+          ++c;
+        }
+      }
+      sum += static_cast<double>(m) * a;
+      if constexpr (PASS == 2) n += static_cast<unsigned long long>(m * c);
+    }
+  }
+  const double block_total = block_sum(sum, warp_sum);
+  unsigned long long block_n = 0;
+  if constexpr (PASS == 2) block_n = block_sum(n, warp_n);
+  if (threadIdx.x == 0) {
+    part_sum[blockIdx.x] = block_total;
+    if constexpr (PASS == 2) part_n[blockIdx.x] = block_n;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The last block: every partial, in index order (read past L1).
+  double t_sum = 0.0;
+  unsigned long long t_n = 0;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += THREADS) {
+    t_sum += __ldcg(part_sum + b);
+    if constexpr (PASS == 2) t_n += __ldcg(part_n + b);
+  }
+  const double total = block_sum(t_sum, warp_sum);
+  unsigned long long total_n = 0;
+  if constexpr (PASS == 2) total_n = block_sum(t_n, warp_n);
+  if (threadIdx.x == 0) {
+    if constexpr (PASS == 1) {
+      const float mean = static_cast<float>(total / count);
+      out[0] = mean;
+      out[1] = __fmul_rn(0.7f, mean);
+    } else {
+      out[2] = static_cast<float>(
+          total / static_cast<double>(total_n > 0 ? total_n : 1ull));
+    }
+  }
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 lowbit_conv_kernel(const uint32_t* __restrict__ a0,
@@ -214,5 +381,68 @@ extern "C" int lowbit_conv_launch(int mode, const void* a0, const void* a1,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LOWBIT_CONV_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 BNN, 1 TNN, 2 TBN.  x (B, H, W, C) float32, the input of a conv of
+// KH x KW taps at `stride` with OH x OW outputs, padded by pad_top/pad_left
+// (conv_fused.conv_out_hw); scratch of scratch_bytes >= STATS_BLOCKS * 16 + 8
+// bytes (partials and the two passes' tickets); out 3 float32: mean_abs, thr,
+// alpha (BNN writes mean_abs and an unused thr).  Pass 1, then for TNN/TBN
+// pass 2, on `stream`.  An empty x runs one block a pass over nothing and
+// writes what the plain version gives: mean_abs and thr 0/0 (NaN), alpha 0.
+// Returns cudaGetLastError() after the launches.
+extern "C" int conv_stats_launch(int mode, const void* x, int B, int H, int W,
+                                 int C, int KH, int KW, int stride, int OH,
+                                 int OW, int pad_top, int pad_left,
+                                 void* scratch, int scratch_bytes, void* out,
+                                 void* stream) {
+  using namespace lowbit;
+  if (mode < BNN || mode > TBN || B < 0 || H < 0 || W < 0 || C < 0 ||
+      KH <= 0 || KW <= 0 || stride <= 0 || OH < 0 || OW < 0 ||
+      pad_top < 0 || pad_left < 0 || H + W > STATS_TABLE ||
+      scratch_bytes < STATS_BLOCKS * 16 + 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long numel = static_cast<long long>(B) * H * W * C;
+  if (numel >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec =
+      C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? 4 : 1;
+  // (a divisor of an empty x's zero extent is taken as 1: nothing divides)
+  auto divider = [](int d) {
+    return Divider(static_cast<uint32_t>(d > 0 ? d : 1));
+  };
+  StatsShape s{static_cast<uint32_t>(numel / vec), divider(C / vec),
+               divider(H * W), divider(W),
+               H, W, KH, KW, stride, OH, OW, pad_top, pad_left};
+  const long long per_block = static_cast<long long>(THREADS) * STATS_UNROLL;
+  const long long want = (s.nvec + per_block - 1) / per_block;
+  const int blocks = static_cast<int>(
+      want < 1 ? 1 : want < STATS_BLOCKS ? want : STATS_BLOCKS);
+  const double count = static_cast<double>(static_cast<long long>(B) * OH *
+                                           OW * KH * KW * C);
+  const size_t smem = static_cast<size_t>(H + W) * sizeof(int);
+  auto* part_sum = static_cast<double*>(scratch);
+  auto* part_n =
+      reinterpret_cast<unsigned long long*>(part_sum + STATS_BLOCKS);
+  auto* ticket = reinterpret_cast<unsigned int*>(part_n + STATS_BLOCKS);
+  auto* o = static_cast<float*>(out);
+  auto* xf = static_cast<const float*>(x);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(ticket, 0, 2 * sizeof(unsigned int), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+#define ACT_STATS_PASS(PASS, T)                                               \
+  if (vec == 4)                                                               \
+    act_stats_kernel<PASS, 4><<<blocks, THREADS, smem, st>>>(                 \
+        xf, s, count, part_sum, part_n, T, o);                                \
+  else                                                                        \
+    act_stats_kernel<PASS, 1><<<blocks, THREADS, smem, st>>>(                 \
+        xf, s, count, part_sum, part_n, T, o);
+  ACT_STATS_PASS(1, ticket)
+  if (mode != BNN) {
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    ACT_STATS_PASS(2, ticket + 1)
+  }
+#undef ACT_STATS_PASS
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,8 @@ clock.  A card run reads its maximum SM clock from ``nvidia-smi`` and
 passes it as ``HW(sm_clock_hz=...)``.
 
 The work functions (:func:`gemm_work`, :func:`dense_gemm_work`,
-:func:`affine_gemm_work`, :func:`conv_pack_work`, :func:`conv_work`,
-:func:`conv_fused_work`, and :func:`kernel_work` over a
+:func:`affine_gemm_work`, :func:`conv_pack_work`, :func:`conv_stats_work`,
+:func:`conv_work`, :func:`conv_fused_work`, and :func:`kernel_work` over a
 ``_build.record`` entry) take a kernel's problem dims and return its
 :class:`Work`: operations by class and the bytes the kernel must move
 (each input read once, each output written once).  ``chip_smoke.py``'s
@@ -46,7 +46,7 @@ from typing import Dict, Optional, Tuple
 
 __all__ = ["HW", "Work", "RooflineTerms", "model_flops", "roofline_from_artifact",
            "NPOPC", "gemm_work", "dense_gemm_work", "affine_gemm_work", "conv_pack_work",
-           "conv_work", "conv_fused_work", "kernel_work", "proj_shapes",
+           "conv_stats_work", "conv_work", "conv_fused_work", "kernel_work", "proj_shapes",
            "kv_bytes_per_token", "lm_bounds", "train_step_flops", "train_mesh_collectives",
            "DTYPE_CLASS"]
 
@@ -149,6 +149,13 @@ def conv_pack_work(mode: str, b: int, h: int, w: int, c: int, hp: int, wp: int) 
     return Work({}, float(b * h * w * c * 4 + 4 * _PLANES[mode][0] * b * hp * wp * -(-c // 32)))
 
 
+def conv_stats_work(mode: str, b: int, h: int, w: int, c: int) -> Work:
+    """The conv activation statistics (``conv_stats_<mode>``): one read of
+    the float32 (b, h, w, c) input a pass, two for TNN/TBN (the masked sums
+    need the threshold first), one for BNN; three scalars out."""
+    return Work({}, float((1 if mode == "bnn" else 2) * 4 * b * h * w * c))
+
+
 def conv_work(mode: str, b: int, hp: int, wp: int, cin: int, kh: int, kw: int,
               stride: int, oh: int, ow: int, cout: int, words: int,
               dense: bool = False) -> Work:
@@ -190,6 +197,8 @@ def kernel_work(key: str, problem: Dict[str, int]) -> Work:
     if key.startswith("conv_pack_"):
         return conv_pack_work(key[len("conv_pack_"):], p["b"], p["h"], p["w"], p["c"],
                               p["hp"], p["wp"])
+    if key.startswith("conv_stats_"):
+        return conv_stats_work(key[len("conv_stats_"):], p["b"], p["h"], p["w"], p["c"])
     for prefix, dense in (("lowbit_conv_", False), ("dense_conv_", True)):
         if key.startswith(prefix):
             return conv_work(key[len(prefix):], p["b"], p["hp"], p["wp"], p["cin"], p["kh"],

@@ -11,6 +11,12 @@
   tests pin bit-identical to ``pallas``; a handful run ``pallas`` in
   interpret mode;
 * the port's fused conv against its materializing oracle: ``torch.equal``;
+* the statistics kernel's arithmetic, which runs only on the card: its
+  per-axis multiplicity tables (``axis_multiplicity``, the kernel's closed
+  form) against the brute-force map ``_patch_multiplicity``, the float64
+  weighted sums over the unpadded input against the plain version (rtol
+  2**-16, as above), and its ``meta`` record and roofline bytes, over
+  k in {1, 3, 5} x stride in {1, 2, 3} x SAME/VALID x odd/even H and W;
 * the packing pass both conv kernels run first (``conv_pack_cuda`` on CPU
   tensors, i.e. its plain version ``conv_pack_torch``) against the JAX
   ``_pack_activation_planes`` after ``conv_spatial_pad``, with the JAX
@@ -28,8 +34,10 @@ from repro.kernels import ops as jops
 from repro.kernels.modes import QuantMode as JMode
 from repro_torch import interop
 from repro_torch.core import conv as tconv
-from repro_torch.kernels import conv_fused, ops
+from repro_torch.kernels import _build, conv_fused, ops
 from repro_torch.kernels.modes import QuantMode
+from repro_torch.roofline import analysis
+from test_torch_kernels_gpu import weighted_stats_f64
 
 STAT_RTOL = 2.0 ** -16
 MODES = ["tnn", "tbn", "bnn"]
@@ -66,6 +74,62 @@ def test_conv_act_stats_parity(mode, case):
     assert sorted(got) == sorted(ref)
     for key in ref:
         np.testing.assert_allclose(got[key].item(), float(ref[key]), rtol=STAT_RTOL)
+
+
+# (k, stride, padding, (H, W)) of the statistics kernel's geometry cases
+STATS_GEOMS = [(k, stride, padding, hw) for k in (1, 3, 5) for stride in (1, 2, 3)
+               for padding in ("SAME", "VALID") for hw in ((7, 9), (8, 10))]
+
+
+def _geom_id(g):
+    k, stride, padding, (h, w) = g
+    return f"k{k}s{stride}{padding.lower()}_{h}x{w}"
+
+
+@pytest.mark.parametrize("geom", STATS_GEOMS, ids=_geom_id)
+def test_axis_multiplicity_outer_is_patch_multiplicity(geom):
+    k, stride, padding, (h, w) = geom
+    oh, ow, ph, pw = conv_fused.conv_out_hw(h, w, k, k, stride, padding)
+    mh = conv_fused.axis_multiplicity(h + ph, k, stride, oh)
+    mw = conv_fused.axis_multiplicity(w + pw, k, stride, ow)
+    want = conv_fused._patch_multiplicity(h + ph, w + pw, k, k, stride, oh, ow,
+                                          torch.device("cpu"))
+    np.testing.assert_array_equal(np.outer(mh, mw).astype(np.float32), want.numpy())
+    assert mh.sum() == oh * k and mw.sum() == ow * k
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("geom", STATS_GEOMS, ids=_geom_id)
+def test_unpadded_weighted_stats_match_plain(mode, geom):
+    """The kernel's formulas (float64 sums over the unpadded input, the
+    per-axis tables at each pixel's padded position) give the plain
+    version's statistics."""
+    k, stride, padding, (h, w) = geom
+    rng = np.random.default_rng(k * 100 + stride * 10 + h)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((2, h, w, 12)), 0).astype(np.float32))
+    plain = conv_fused.conv_act_stats_torch(x, QuantMode(mode), k, k, stride, padding)
+    thr = None if mode == "bnn" else float(plain["thr"])
+    got = weighted_stats_f64(x, mode, k, k, stride, padding, thr)
+    assert sorted(got) == sorted(plain)
+    for key in plain:
+        np.testing.assert_allclose(got[key], plain[key].item(), rtol=STAT_RTOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("geom", STATS_GEOMS, ids=_geom_id)
+def test_conv_act_stats_on_meta_records_kernel(mode, geom):
+    k, stride, padding, (h, w) = geom
+    oh, ow, _, _ = conv_fused.conv_out_hw(h, w, k, k, stride, padding)
+    x = torch.empty((3, h, w, 40), device="meta")
+    _build.reset_records()
+    stats = conv_fused.conv_act_stats(x, QuantMode(mode), k, k, stride, padding)
+    assert sorted(stats) == (["scale"] if mode == "bnn" else ["scale", "thr"])
+    assert all(v.is_meta and v.shape == () and v.dtype == torch.float32
+               for v in stats.values())
+    problem = dict(b=3, h=h, w=w, c=40, kh=k, kw=k, stride=stride, oh=oh, ow=ow)
+    assert _build.records() == [(f"conv_stats_{mode}", problem)]
+    work = analysis.kernel_work(f"conv_stats_{mode}", problem)
+    assert work.ops == {} and work.bytes == (1 if mode == "bnn" else 2) * 4 * 3 * h * w * 40
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -11,6 +11,7 @@ and are built with ``--fmad=false``, so the eq. (2) epilogue rounds as
 the plain version does.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -167,7 +168,8 @@ def test_conv_kernel_matches_plain(cuda_device, mode, case):
         qt = pack_conv_filters(f, QuantMode(mode), bias=bias)
         _build.reset_launches()
         got = ops.qconv(x, qt, stride=stride, padding=padding, backend="cuda")
-        assert _build.launches() == {f"conv_pack_{mode}": 1, f"lowbit_conv_{mode}": 1}
+        assert _build.launches() == {f"conv_stats_{mode}": 1, f"conv_pack_{mode}": 1,
+                                     f"lowbit_conv_{mode}": 1}
         plain = ops.qconv(x, qt, stride=stride, padding=padding, backend="torch")
         assert torch.equal(got, plain)
 
@@ -189,6 +191,123 @@ def test_conv_pack_kernel_matches_plain(cuda_device, mode, case):
     assert len(got) == len(want) == (1 if mode == "bnn" else 2)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# (kernel, stride, padding) of the statistics cases, each at C in STATS_CHANNELS:
+# C = 3 takes scalar loads, the others float4 (and scalar again from a
+# pointer 4 bytes past a 16-byte boundary)
+STATS_GEOMS = [(3, 1, "SAME"), (3, 2, "SAME"), (3, 1, "VALID"), (1, 1, "SAME"),
+               (5, 1, "SAME")]
+STATS_CHANNELS = [3, 32, 100, 128]
+
+
+def weighted_stats_f64(x, mode, kh, kw, stride, padding, thr=None):
+    """``conv_act_stats``' weighted formulas in float64 over the unpadded
+    ``x``, each element weighted by the outer product of the per-axis
+    multiplicity tables at its padded position (what ``act_stats_kernel``
+    sums).  The masked sums take ``thr`` where given (the kernel's own, so
+    that only the sums are compared), else 0.7 mean |A|."""
+    from repro_torch.kernels import conv_fused
+
+    b, h, w, c = x.shape
+    oh, ow, ph, pw = conv_fused.conv_out_hw(h, w, kh, kw, stride, padding)
+    mh = conv_fused.axis_multiplicity(h + ph, kh, stride, oh)[ph // 2:ph // 2 + h]
+    mw = conv_fused.axis_multiplicity(w + pw, kw, stride, ow)[pw // 2:pw // 2 + w]
+    m = torch.from_numpy(np.outer(mh, mw)).to(x.device, torch.float64)[None, :, :, None]
+    a = x.double().abs()
+    mean = float((a * m).sum()) / (b * oh * ow * kh * kw * c)
+    if mode == "bnn":
+        return {"scale": mean}
+    keep = a > (0.7 * mean if thr is None else thr)
+    alpha = float((a * m * keep).sum()) / max(float((m * keep).sum()), 1.0)
+    return {"thr": 0.7 * mean, "scale": alpha}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("geom", STATS_GEOMS)
+@pytest.mark.parametrize("c", STATS_CHANNELS)
+def test_conv_stats_kernel_matches_f64(cuda_device, mode, geom, c):
+    """``act_stats_kernel`` against a float64 evaluation of the same
+    weighted formulas, within 1e-6 relative: one float32 rounding of a
+    float64 sum, and of the 0.7 product for thr.  A second call gives the
+    same bits, and the conv with the kernel's statistics is the
+    materializing oracle's with them."""
+    from repro_torch.kernels import conv_fused
+
+    k, stride, padding = geom
+    qm = QuantMode(mode)
+    g = torch.Generator(device=cuda_device).manual_seed(k * 1000 + stride * 100 + c)
+    x = torch.relu(torch.randn((3, 11, 10, c), generator=g, device=cuda_device))
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    flat[1:] = x.flatten()
+    views = [x] + ([flat[1:].view(x.shape)] if c % 4 == 0 else [])   # 4 bytes off
+    for xv in views:
+        _build.reset_launches()
+        got = conv_fused.conv_act_stats(xv, qm, k, k, stride, padding)
+        again = conv_fused.conv_act_stats(xv, qm, k, k, stride, padding)
+        assert _build.launches() == {f"conv_stats_{mode}": 2}
+        assert sorted(got) == (["scale"] if mode == "bnn" else ["scale", "thr"])
+        for key in got:
+            assert got[key].dtype == torch.float32 and got[key].shape == ()
+            assert torch.equal(got[key], again[key]), key
+        thr = None if mode == "bnn" else float(got["thr"])
+        want = weighted_stats_f64(xv, mode, k, k, stride, padding, thr)
+        for key in got:
+            assert abs(float(got[key]) - want[key]) <= 1e-6 * want[key], (key, float(got[key]),
+                                                                          want[key])
+    f = torch.randn((k, k, c, 24), generator=g, device=cuda_device)
+    qt = pack_conv_filters(f, qm)
+    got = conv_fused.conv_act_stats(x, qm, k, k, stride, padding)
+    assert torch.equal(ops.qconv(x, qt, stride=stride, padding=padding, act_stats=got),
+                       ops._qconv_oracle(x, qt, got, stride, padding))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_conv_stats_kernel_empty_batch(cuda_device, monkeypatch, mode):
+    """An empty batch on the card launches the kernel too, never the
+    plain version, and gives the plain version's statistics (NaN mean and
+    thr, zero alpha); the conv of that batch is empty."""
+    from repro_torch.kernels import conv_fused
+
+    qm = QuantMode(mode)
+    want = conv_fused.conv_act_stats(torch.empty((0, 6, 5, 8)), qm, 3, 3, 1, "SAME")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("conv_act_stats_torch ran on CUDA operands")
+    monkeypatch.setattr(conv_fused, "conv_act_stats_torch", plain)
+    x = torch.empty((0, 6, 5, 8), device=cuda_device)
+    _build.reset_launches()
+    got = conv_fused.conv_act_stats(x, qm, 3, 3, 1, "SAME")
+    assert _build.launches() == {f"conv_stats_{mode}": 1}
+    assert sorted(got) == sorted(want)
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=0,
+                                   equal_nan=True)
+    qt = pack_conv_filters(torch.randn((3, 3, 8, 16), device=cuda_device), qm)
+    assert ops.qconv(x, qt, backend="cuda").shape == (0, 6, 5, 16)
+
+
+def test_vgg_small_forward_counts_conv_stats(cuda_device):
+    """A ``PaperCNN`` forward at VGG-Small's widths (batch 4) takes its
+    statistics from the kernel: one ``conv_stats_tnn`` launch per TNN
+    conv, beside its pack and conv, and the plain-backend model on the
+    same statistics gives the same logits."""
+    from repro_torch.cnn import PaperCNN
+    from repro_torch.configs.paper_cnn import CNNConfig, ConvSpec
+
+    cfg = CNNConfig(name="vgg-small", img_size=32, c_in=3, num_classes=10, convs=(
+        ConvSpec(128, mode="f32"), ConvSpec(128, pool=True), ConvSpec(256),
+        ConvSpec(256, pool=True), ConvSpec(512), ConvSpec(512, pool=True)))
+    model = PaperCNN(cfg, seed=3, device=cuda_device)
+    plain = PaperCNN(cfg, seed=3, device=cuda_device, backend="torch")
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    imgs = torch.randn((4, 32, 32, 3), generator=g, device=cuda_device)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    logits = model(imgs)
+    assert _build.launches() == {"conv_stats_tnn": 5, "conv_pack_tnn": 5,
+                                 "lowbit_conv_tnn": 5}
+    assert torch.equal(logits, plain(imgs))
 
 
 def test_cuda_operands_never_run_plain(cuda_device):
