@@ -10,9 +10,11 @@ its window, and frees the program's state; the
 check then gives the program's numbers.  ``--control`` adds the
 numbers of the reference put in the program's place at the precision
 below the configuration's (the driver's ``control``).  ``--faults``
-repeats a seed with a fault planted in the program (:data:`FAULTS`).
-One JSON line per seed and reading.  The benchmark's own runs never
-run this.
+repeats a seed with a fault planted in the program (:func:`plant`: the
+driver's own ``FAULTS``, else :data:`FAULTS`).  A cell on more than one
+chip runs on as many cards, with the fault planted on every rank
+(``gpubench/ranks.py``).  One JSON line per seed and reading.  The
+benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ import json
 import pathlib
 import sys
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 for _p in (ROOT / "src", ROOT):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
-from gpubench import harness  # noqa: E402
+from gpubench import harness, ranks  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -160,23 +163,39 @@ def _train(kind):
 FAULTS = {"image_batches": _cnn, "lm_prefill": _prefill, "lm_train": _train}
 
 
+def plant(cell: harness.Cell, kind: Optional[str]):
+    """A context manager planting fault ``kind`` in the program for
+    ``cell``: the driver module's own ``FAULTS[kind]()`` where it has one,
+    else this module's table; none where ``kind`` is None."""
+    if kind is None:
+        return contextlib.nullcontext()
+    driver = cell.traffic["driver"]
+    own = getattr(harness.load_module("drivers", driver), "FAULTS", {})
+    if kind in own:
+        return own[kind]()
+    return FAULTS[driver](kind)
+
+
 def readings(cell: harness.Cell, seed: int, units: int, device, control: bool = False,
              fault: str = None) -> dict:
-    """One seed's numbers: the program's (with ``fault`` planted), and the
-    control's."""
+    """One seed's numbers: the program's (with ``fault`` planted on every
+    rank), and the control's."""
     drv = harness.load_module("drivers", cell.traffic["driver"])
-    plant = FAULTS[cell.traffic["driver"]](fault) if fault else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with plant:
-        run = drv.Run(cell, seed, device)
-        first = getattr(run, "first_window_unit", lambda: 0)()
-        for i in range(first, first + units):
-            run.step(i)
-        getattr(run, "record", lambda: None)()
-    run.release()
-    out = {"seed": seed, "fault": fault, "program": run.check()}
-    if control:
-        out["control"] = run.control()
+    with ranks.lead(cell, seed, device, fault) as lead:
+        with plant(cell, fault):
+            run = drv.Run(cell, seed, device)
+            lead.built()
+            first = getattr(run, "first_window_unit", lambda: 0)()
+            for i in range(first, first + units):
+                lead.call(run, "step", i)
+            if hasattr(run, "record"):
+                lead.call(run, "record")
+        lead.call(run, "release")
+        out = {"seed": seed, "fault": fault, "program": lead.call(run, "check")}
+        if control:
+            out["control"] = lead.call(run, "control")
+        lead.end()
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -193,8 +212,8 @@ def main(argv=None) -> int:
     harness.set_cache_dirs()
     import torch
 
-    if not torch.cuda.is_available():
-        print("calibrate: no CUDA device", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"calibrate: {args.workload} needs {cell.chips} CUDA device(s)", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     for seed in args.seeds:

@@ -14,6 +14,8 @@ Nothing here imports the program.  A cell is ``workloads[i]`` of
 * ``limits/<cell>.json``: the limit of each number the check compares;
 * ``metrics/<metric>.py`` (or ``metrics/<prefix>.py`` for
   ``<prefix>.<suffix>``): the reader of a per-layer metric.
+
+A cell on more than one chip runs on as many ranks (``ranks.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import os
 import pathlib
 import sys
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -35,9 +37,9 @@ ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 __all__ = ["HERE", "ROOT", "FORBIDDEN", "set_cache_dirs", "load_json", "Cell", "find_cell",
-           "load_module", "closed_loop", "Window", "Trace", "profile", "breakdown",
-           "forbidden_modules", "percentile", "device_info", "metric_reader",
-           "is_port_kernel", "is_float_gemm"]
+           "load_module", "closed_loop", "Window", "Trace", "profiler", "read_profile",
+           "profile", "breakdown", "forbidden_modules", "percentile", "device_info",
+           "metric_reader", "is_port_kernel", "is_float_gemm"]
 
 
 def set_cache_dirs() -> None:
@@ -210,21 +212,20 @@ class Trace:
         return sum(e - s for name, s, e in self.kernels if match(name))
 
 
-def profile(run_units: Callable[[], None], units: int, unit_wall_s: float,
-            work: Dict[str, Any], peak_bytes: int) -> Trace:
-    """Run ``run_units()`` (``units`` units of the cell's work) under
-    ``torch.profiler`` with CPU and CUDA activities and read its events."""
-    import torch
-    from torch.autograd import DeviceType
+def profiler():
+    """A ``torch.profiler`` session with CPU and CUDA activities."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_units()
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
+    return torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def read_profile(prof, units: int, unit_wall_s: float, window_s: float,
+                 work: Dict[str, Any], peak_bytes: int) -> Trace:
+    """The Trace of a finished :func:`profiler` session over ``units``
+    units."""
+    from torch.autograd import DeviceType
+
     dev, host = [], []
     for e in prof.events():
         span = (e.name, e.time_range.start * 1e-6, e.time_range.end * 1e-6)
@@ -237,6 +238,21 @@ def profile(run_units: Callable[[], None], units: int, unit_wall_s: float,
             host.append(span)
     return Trace(units=units, unit_wall_s=unit_wall_s, device_ops=dev, host_ops=host,
                  window_s=window_s, work=work, peak_bytes=peak_bytes)
+
+
+def profile(run_units: Callable[[], None], units: int, unit_wall_s: float,
+            work: Dict[str, Any], peak_bytes: int) -> Trace:
+    """Run ``run_units()`` (``units`` units of the cell's work) under
+    :func:`profiler` and read its events."""
+    import torch
+
+    torch.cuda.synchronize()
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        run_units()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    return read_profile(prof, units, unit_wall_s, window_s, work, peak_bytes)
 
 
 def _host_namer(trace: Trace) -> Callable[[float], str]:
@@ -289,9 +305,13 @@ def forbidden_modules() -> List[str]:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
-def device_info(torch, device, count: int) -> Dict[str, Any]:
+def device_info(torch, device, count: int, peaks: Sequence[int] = ()) -> Dict[str, Any]:
+    """The result's ``device``: ``memory_peak_bytes`` is the fullest rank's
+    peak (this process's, and ``peaks`` from the other ranks)."""
+    own = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
+    by_rank = [own] + [int(p) for p in peaks]
     if device.type == "cuda":
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": count,
-                "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
-    return {"platform": device.type, "kind": device.type, "count": count,
-            "memory_peak_bytes": 0}
+        out = {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": count}
+    else:
+        out = {"platform": device.type, "kind": device.type, "count": count}
+    return {**out, "memory_peak_bytes": max(by_rank), "memory_peak_bytes_by_rank": by_rank}

@@ -15,10 +15,13 @@ state is freed, and the plain reference checks what the timed path
 produced; the numbers compared and their limits are the last lines on
 standard error and the last key of the result.
 
+A cell that asks for more than one chip runs on as many cards: this
+process is rank 0 and starts the others (``gpubench/ranks.py``).
+
 The last line on standard output is the result (JSON).  Without a CUDA
 device (or with fewer than the cell asks for), without the program's
-package, or with JAX or the JAX package loaded by the end, the run exits
-non-zero and prints no result.
+package, with JAX or the JAX package loaded by the end, or where another
+rank fails, the run exits non-zero and prints no result.
 """
 
 import time
@@ -27,6 +30,7 @@ T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
 
@@ -35,7 +39,7 @@ for _p in (ROOT / "src", ROOT):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
-from gpubench import harness  # noqa: E402
+from gpubench import calibrate, harness, ranks  # noqa: E402
 
 
 def _per_layer(cell, trace) -> dict:
@@ -48,52 +52,63 @@ def _per_layer(cell, trace) -> dict:
 
 
 def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool, device,
-             t0: float = None) -> dict:
-    """Set up, measure and check ``cell`` on ``device``; the result line's
-    object (the numbers compared under its last key, "checks")."""
+             t0: float = None, fault: str = None) -> dict:
+    """Set up, measure and check ``cell`` on ``device`` (rank 0's, where
+    the cell has more ranks: ``gpubench/ranks.py``); the result line's
+    object (the numbers compared under its last key, "checks").
+    ``fault`` plants one of ``calibrate``'s faults on every rank."""
     import torch
 
     t0 = T0 if t0 is None else t0
     cuda = device.type == "cuda"
     drv = harness.load_module("drivers", cell.traffic["driver"])
-    run = drv.Run(cell, seed, device)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-    setup_s = time.perf_counter() - t0
-    first = getattr(run, "first_window_unit", lambda: 0)()
-    window = harness.closed_loop(run.step, seconds, first)
-    dev = harness.device_info(torch, device, cell.chips)
-    result = {"correct": False, "attempted": window.done, "failed": 0}
-    if trace:
-        units = run.units_for_trace()
-        begin = [first + window.done]
+    with ranks.lead(cell, seed, device, fault) as lead, calibrate.plant(cell, fault):
+        run = drv.Run(cell, seed, device)
+        lead.built()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        setup_s = time.perf_counter() - t0
+        first = getattr(run, "first_window_unit", lambda: 0)()
+        window = harness.closed_loop(lead.unit(run), seconds, first)
+        dev = harness.device_info(torch, device, cell.chips,
+                                  [r["peak"] for r in lead.settle("report")])
+        result = {"correct": False, "attempted": window.done, "failed": 0}
+        if trace:
+            units = run.units_for_trace()
+            begin = [first + window.done]
 
-        def stretch():
-            for i in range(begin[0], begin[0] + units):
-                run.step(i)
-            begin[0] += units
-        tr = harness.Trace(units, window.per_unit_s, [], [], 0.0, run.work(),
-                           dev["memory_peak_bytes"])
-        # a profiler session now and then records no device operation
-        for _ in range(3 if cuda else 0):
-            tr = harness.profile(stretch, units, window.per_unit_s, run.work(),
-                                 dev["memory_peak_bytes"])
-            if tr.kernels:
-                break
-        metrics = _per_layer(cell, tr)
-        dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
-        result["breakdown"] = harness.breakdown(tr)
-    else:
-        values = run.end_to_end(window)
-        values["setup_s"] = (setup_s, "s")
-        metrics = {}
-        for m in cell.end_to_end:
-            value, unit = values[m["name"]]
-            metrics[m["name"]] = {"value": value, "unit": unit}
-    getattr(run, "record", lambda: None)()
-    run.release()
-    checks = run.check()
+            def stretch():
+                lead.announce("stretch", begin[0], units)
+                for i in range(begin[0], begin[0] + units):
+                    run.step(i)
+                begin[0] += units
+            tr = harness.Trace(units, window.per_unit_s, [], [], 0.0, run.work(),
+                               dev["memory_peak_bytes"])
+            # a profiler session now and then records no device operation
+            for _ in range(3 if cuda else 0):
+                lead.settle("profile")
+                tr = harness.profile(stretch, units, window.per_unit_s, run.work(),
+                                     dev["memory_peak_bytes"])
+                if tr.kernels:
+                    break
+            metrics = _per_layer(cell, tr)
+            busy = [tr.busy_s] + [r["busy_s"] for r in lead.settle("report")
+                                  if r["busy_s"] is not None]
+            dev.update(busy_s=sum(busy) / len(busy), window_s=tr.window_s)
+            result["breakdown"] = harness.breakdown(tr)
+        else:
+            values = run.end_to_end(window)
+            values["setup_s"] = (setup_s, "s")
+            metrics = {}
+            for m in cell.end_to_end:
+                value, unit = values[m["name"]]
+                metrics[m["name"]] = {"value": value, "unit": unit}
+        if hasattr(run, "record"):
+            lead.call(run, "record")
+        lead.call(run, "release")
+        checks = lead.call(run, "check")
+        lead.end()
     limits = {name: cell.limits[name]["limit"] for name in checks}
     bad = [name for name, v in checks.items() if not v <= limits[name]]
     result.update(correct=not bad, failed=len(bad), metrics=metrics, device=dev)
@@ -119,7 +134,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     torch.set_num_threads(2)
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0))
+    try:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                          torch.device("cuda", 0))
+    except ranks.RankFailed as e:
+        # a rank that failed can leave this process's collectives waiting
+        # on the device, and the interpreter's teardown with them
+        print(f"gpubench: {e}", file=sys.stderr, flush=True)
+        os._exit(4)
     found = harness.forbidden_modules()
     if found:
         print(f"gpubench: modules of JAX or the JAX package were loaded: {found}",

@@ -1,13 +1,24 @@
 """Each cell of ``BENCHMARK.json`` at a size the CPU runs in seconds: the
-same files, with the configuration cut to a few narrow layers (the CNN's
-modes as its configuration has them, plus a TBN conv; Mamba2 at the
-port's ``SMOKE`` sizes) and the traffic to a few small units."""
+same files, with the configuration and the traffic cut by the cell's
+smoke file, ``gpubench/smoke/<cell>.json``:
+
+* ``config``, ``traffic``: the keys that shrink the cell (each replaces
+  the key of the cell's own file);
+* ``suffix``: the suffix of the cell's per-layer metrics;
+* ``span_calls``: the calls of each program span a unit makes at that
+  size (``test_bench_spans_gpu.py``);
+* ``ranks``: for a cell on more than one chip, the ranks its smoke run
+  uses (gloo ranks on the CPU);
+* ``why``: what the cut keeps.
+"""
 
 from __future__ import annotations
 
 import copy
+import json
 import pathlib
 import sys
+from typing import Any, Dict
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 for _p in (ROOT / "src", ROOT):
@@ -16,27 +27,28 @@ for _p in (ROOT / "src", ROOT):
 
 from gpubench import harness  # noqa: E402
 
-CELLS = ("vgg_small.b1024", "mamba2.prefill_8x1024", "mamba2.qat_8x512")
+CELLS = tuple(w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"])
 
-CNN_SMOKE = {"img_size": 8, "convs": [
-    {"c_out": 8, "kernel": 3, "stride": 1, "mode": "f32", "pool": False},
-    {"c_out": 16, "kernel": 3, "stride": 1, "mode": "tnn", "pool": True},
-    {"c_out": 16, "kernel": 3, "stride": 1, "mode": "tbn", "pool": False},
-    {"c_out": 16, "kernel": 3, "stride": 1, "mode": "tnn", "pool": True}]}
-MAMBA2_SMOKE = {"num_layers": 2, "d_model": 64, "vocab_size": 512, "ssm_state": 16,
-                "ssm_headdim": 16, "ssm_chunk": 32}
-TRAFFIC_SMOKE = {
-    "vgg_small.b1024": {"batch": 16, "pool": 3, "warmup": 1, "profile_units": 2},
-    "mamba2.prefill_8x1024": {"batch": 2, "prompt_len": 64, "pool": 8, "warmup": 1,
-                              "profile_units": 1, "rerun": 2},
-    "mamba2.qat_8x512": {"batch": 2, "seq": 64, "pool": 8, "profile_units": 1,
-                         "wgrad_layers": 2},
-}
+
+def smoke_file(name: str) -> pathlib.Path:
+    return harness.HERE / "smoke" / f"{name}.json"
+
+
+def smoke(name: str) -> Dict[str, Any]:
+    """Cell ``name``'s smoke file."""
+    path = smoke_file(name)
+    if not path.is_file():
+        raise FileNotFoundError(f"cell {name!r} has no smoke file {path}")
+    return json.loads(path.read_text())
 
 
 def smoke_cell(name: str) -> harness.Cell:
-    """Cell ``name`` with its configuration and traffic cut to smoke size."""
+    """Cell ``name`` with its configuration and traffic cut to smoke size
+    (and its ranks to the smoke file's ``ranks``)."""
+    cut = smoke(name)
     cell = copy.deepcopy(harness.find_cell(name))
-    cell.config.update(CNN_SMOKE if name.startswith("vgg") else MAMBA2_SMOKE)
-    cell.traffic.update(TRAFFIC_SMOKE[name])
+    cell.config.update(cut["config"])
+    cell.traffic.update(cut["traffic"])
+    if cell.chips > 1:
+        cell.chips = cut["ranks"]
     return cell

@@ -8,7 +8,7 @@ import re
 
 import pytest
 
-from smoke import CELLS, ROOT
+from smoke import CELLS, ROOT, smoke, smoke_file
 from gpubench import harness
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -29,8 +29,12 @@ def test_keys_and_command():
 
 def test_cells_listed():
     assert [w["name"] for w in BENCH["workloads"]] == list(CELLS)
+    assert len(set(CELLS)) == len(CELLS)
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(set(pairs)) == len(pairs)
+    # at most a quarter of the cells, rounded down, on four chips; one always may
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(CELLS) // 4)
 
 
 def test_names_units_and_lines():
@@ -72,9 +76,10 @@ def test_per_layer_entries():
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_resolves(name):
-    """The cell's config, traffic, driver, reference, limits and readers
-    are found by the names in its entry, and it reports ``setup_s``, one
-    more end-to-end metric and a per-layer one."""
+    """The cell's config, traffic, driver, reference, limits, readers and
+    smoke file are found by the names in its entry, it asks for 1 or 4
+    chips, and it reports ``setup_s``, one more end-to-end metric and a
+    per-layer one."""
     cell = harness.find_cell(name)
     entry = {w["name"]: w for w in BENCH["workloads"]}[name]
     cfg = {c["name"]: c for c in BENCH["configs"]}[entry["config"]]
@@ -82,7 +87,14 @@ def test_cell_resolves(name):
     assert cell.config["name"] == entry["config"]
     assert cell.config["reduced"] == cfg["reduced"]
     assert all(k in cell.config for k in cfg["reduced"])
-    assert entry["chips"] == 1
+    assert entry["chips"] in (1, 4)
+    assert smoke_file(name).is_file(), f"{name} needs its smoke file {smoke_file(name)}"
+    cut = smoke(name)
+    assert {"config", "traffic", "suffix", "span_calls"} <= set(cut)
+    assert all(m["name"].endswith("." + cut["suffix"]) for m in cell.per_layer
+               if "." in m["name"])
+    if entry["chips"] > 1:
+        assert 2 <= cut["ranks"] <= entry["chips"]
     assert (harness.HERE / "drivers" / f"{cell.traffic['driver']}.py").is_file()
     assert (harness.HERE / "reference" / f"{entry['config']}.py").is_file()
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) >= 2

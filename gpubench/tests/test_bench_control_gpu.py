@@ -25,7 +25,11 @@ def card():
 
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_program_passes(card, name):
+    import torch
+
     cell = harness.find_cell(name)
+    if torch.cuda.device_count() < cell.chips:
+        pytest.skip(f"needs {cell.chips} CUDA devices")
     limits = {k: v["limit"] for k, v in cell.limits.items()}
     for seed in (3000000101, 3000000102, 3000000103):
         got = calibrate.readings(cell, seed, 3, card, control=True)

@@ -1,7 +1,7 @@
 """A run with the timed path broken underneath comes out not correct: for
 each fault a cell can have, planted in the program at smoke size on the
-CPU (``calibrate.FAULTS``), the rest of the run as the benchmark drives
-it.  And the control (the reference one precision down in the program's
+CPU (``calibrate.plant``, on every rank), the rest of the run as the
+benchmark drives it.  And the control (the reference one precision down in the program's
 place) fails a limit that the program passes."""
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ def test_fault_is_not_correct(name, fault):
     cell = smoke_cell(name)
     sound = run.run_cell(cell, 41, 0.1, False, torch.device("cpu"))
     assert sound["correct"], sound["checks"]
-    with calibrate.FAULTS[cell.traffic["driver"]](fault):
-        broken = run.run_cell(cell, 41, 0.1, False, torch.device("cpu"))
+    broken = run.run_cell(cell, 41, 0.1, False, torch.device("cpu"), fault=fault)
     assert not broken["correct"], broken["checks"]
 
 

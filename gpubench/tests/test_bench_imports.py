@@ -25,8 +25,8 @@ _REFS = """
 import json, sys
 sys.path[:0] = [{root!r}]
 from gpubench import harness
-for name in ("vgg_small", "mamba2_1_3b"):
-    harness.load_module("reference", name)
+for config in json.loads((harness.ROOT / "BENCHMARK.json").read_text())["configs"]:
+    harness.load_module("reference", config["name"])
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("repro_torch", "jax", "jaxlib", "repro"))))
 """

@@ -13,19 +13,11 @@ import collections
 
 import pytest
 
-from smoke import CELLS, smoke_cell
-from gpubench import harness, spans
+from smoke import CELLS, smoke, smoke_cell
+from gpubench import harness, ranks, spans
 
 pytestmark = pytest.mark.gpu
 
-SUFFIX = {"vgg_small.b1024": "cnn", "mamba2.prefill_8x1024": "prefill",
-          "mamba2.qat_8x512": "train"}
-# per unit at smoke size: the CNN's three low-bit convs, Mamba2's two
-# layers (two projections each; a QAT step runs its forward twice)
-CALLS = {"vgg_small.b1024": {"quantize": 3, "lowbit_kernel": 3},
-         "mamba2.prefill_8x1024": {"quantize": 4, "lowbit_kernel": 4, "ssd": 2},
-         "mamba2.qat_8x512": {"quantize": 8, "lowbit_kernel": 8, "ssd": 4, "weight_pack": 8,
-                              "ste_backward": 4}}
 PARTS = ("quant_ms", "ssd_ms", "wpack_ms", "ste_bwd_ms", "optim_ms", "entry_ms", "other_ms")
 
 
@@ -40,10 +32,14 @@ def card():
 
 
 def _profiled(cell, device, monkeypatch):
-    """The cell's traced stretch at smoke size: the harness's Trace, and
-    the profiler session's events."""
+    """The cell's traced stretch at smoke size (rank 0's, on as many cards
+    as its smoke ranks): the harness's Trace, and the profiler session's
+    events."""
+    import torch
     import torch.profiler
 
+    if torch.cuda.device_count() < cell.chips:
+        pytest.skip(f"needs {cell.chips} CUDA devices")
     sessions = []
 
     class Keep(torch.profiler.profile):
@@ -53,17 +49,22 @@ def _profiled(cell, device, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "profile", Keep)
     drv = harness.load_module("drivers", cell.traffic["driver"])
-    run = drv.Run(cell, 3000000201, device)
-    first = getattr(run, "first_window_unit", lambda: 0)()
-    for i in range(first, first + 2):
-        run.step(i)
-    units = run.units_for_trace()
+    with ranks.lead(cell, 3000000201, device) as lead:
+        run = drv.Run(cell, 3000000201, device)
+        lead.built()
+        first = getattr(run, "first_window_unit", lambda: 0)()
+        for i in range(first, first + 2):
+            lead.call(run, "step", i)
+        units = run.units_for_trace()
 
-    def stretch():
-        for i in range(first + 2, first + 2 + units):
-            run.step(i)
-    trace = harness.profile(stretch, units, 1.0, run.work(), 0)
-    run.release()
+        def stretch():
+            lead.announce("stretch", first + 2, units)
+            for i in range(first + 2, first + 2 + units):
+                run.step(i)
+        lead.settle("profile")
+        trace = harness.profile(stretch, units, 1.0, run.work(), 0)
+        lead.call(run, "release")
+        lead.end()
     return trace, sessions[-1].events()
 
 
@@ -109,7 +110,7 @@ def test_spans_partition_the_kernels(card, name, monkeypatch):
     total = sp.kernel_s
     assert total > 0
     assert not [op for op in trace.device_ops if op[0].startswith(spans.PREFIX)]
-    for span, calls in CALLS[name].items():
+    for span, calls in smoke(name)["span_calls"].items():
         assert sp.get(spans.PREFIX + span).calls == calls * trace.units, span
     linked, lost = _linked(events)
     assert lost < 0.01 * total
@@ -118,6 +119,6 @@ def test_spans_partition_the_kernels(card, name, monkeypatch):
     lowbit = spans.device_ms(trace, spans.PREFIX + "lowbit_kernel")
     port = trace.kernel_s(harness.is_port_kernel) * 1e3 / trace.units
     assert abs(lowbit - port) <= 1e-3 * port
-    parts = [harness.metric_reader(f"{m}.{SUFFIX[name]}").read(trace) for m in PARTS]
+    parts = [harness.metric_reader(f"{m}.{smoke(name)['suffix']}").read(trace) for m in PARTS]
     assert sum(p for p in parts if p is not None) + lowbit == pytest.approx(
         total * 1e3 / trace.units, rel=5e-3)
