@@ -5,6 +5,14 @@
 The 4 always-on shared experts are modelled as one fused shared FFN of
 width 4 * 1408 = 5632 (mathematically identical for SwiGLU experts that
 are summed).
+
+``CONFIG`` and ``SMOKE`` are the block the JAX package models (top-k
+renormalised, capacity 1.25, the shared expert ungated, no q/k/v biases,
+rope_theta 1e4), which its parity tests pair them with.  ``PUBLISHED``
+is the published block (the model's config.json): q/k/v biases,
+rope_theta 1e6, rms_norm_eps 1e-6, the top-4 probabilities not
+renormalised (norm_topk_prob false), dropless routing, the shared expert
+scaled by sigmoid(x . w_gate), router_aux_loss_coef 0.001.
 """
 
 from repro_torch.models.common import ModelConfig
@@ -28,3 +36,9 @@ SMOKE = CONFIG.with_(
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=48,
     vocab_size=512, num_experts=8, num_experts_per_tok=4,
     shared_expert_d_ff=96, remat=False)
+
+# what the published block sets apart from CONFIG
+PUBLISHED_SWITCHES = dict(
+    qkv_bias=True, rope_theta=1e6, norm_eps=1e-6, moe_renormalize=False,
+    moe_dropless=True, shared_expert_gate=True, router_aux_loss=0.001)
+PUBLISHED = CONFIG.with_(**PUBLISHED_SWITCHES)

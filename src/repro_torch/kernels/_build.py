@@ -6,6 +6,9 @@ shared library with a plain ``extern "C"`` interface and loaded with
 seconds.  The libraries and their entry points:
 
 * ``lowbit_gemm``: ``lowbit_gemm_launch`` (popcount GeMM, fused or int32);
+* ``lowbit_gemm_grouped``: ``lowbit_gemm_grouped_launch`` (fused popcount
+  GeMMs of several groups of rows, each against its own weights, in one
+  launch);
 * ``lowbit_conv``: ``conv_pack_launch`` (quantize + pack the padded
   input once), ``lowbit_conv_launch`` (popcount implicit-im2col conv),
   ``conv_stats_launch`` (the activation statistics the pack quantizes
@@ -28,7 +31,8 @@ for bit the plain version's.
 
 Launch counts: :func:`launch` counts each launch under the wrapper's key,
 after the launch succeeded, so a run can show which kernels its main path
-went through: ``lowbit_gemm_<mode>_{fused,i32}``, ``conv_pack_<mode>``,
+went through: ``lowbit_gemm_<mode>_{fused,i32}``,
+``lowbit_gemm_grouped_<mode>``, ``conv_pack_<mode>``,
 ``lowbit_conv_<mode>``, ``conv_stats_<mode>``, ``dense_gemm_<mode>``, ``dense_conv_<mode>``,
 ``affine_gemm_{u8,u4}``.
 
@@ -65,7 +69,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # library name -> its source in csrc/
 SOURCES = {"lowbit_gemm": "lowbit_gemm.cu", "lowbit_conv": "lowbit_conv.cu",
-           "dense_tc": "dense_tc.cu", "affine_gemm": "affine_gemm.cu"}
+           "dense_tc": "dense_tc.cu", "affine_gemm": "affine_gemm.cu",
+           "lowbit_gemm_grouped": "lowbit_gemm_grouped.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -79,6 +84,11 @@ _SIGNATURES = {
     "lowbit_gemm": {"lowbit_gemm_launch":
                     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                      _P, _P, _P]},
+    # mode, a0, a1, rows, counts, groups, b0, b1, n, kw, k_valid, tile, row,
+    # col, bias, out, stream
+    "lowbit_gemm_grouped": {"lowbit_gemm_grouped_launch":
+                            [_I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P]},
     "lowbit_conv": {
         # mode, x, B, H, W, C, Hp, Wp, pad_top, pad_left, thr, p0, p1, stream
         "conv_pack_launch": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,

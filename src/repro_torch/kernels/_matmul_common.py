@@ -32,7 +32,7 @@ __all__ = ["TileConfig", "DEFAULT_TILES", "GEMM_TILES", "DENSE_TILES", "AFFINE_T
            "gemm_tile", "cta_tile", "popcount_i32", "PRODUCT_FNS", "chunked_bitwise_matmul",
            "scale_epilogue", "runs_kernel", "gemm_dims", "row_stride",
            "check_f32_vec", "check_row_scale", "sm_count",
-           "lowbit_matmul_call", "psum_accum_dtype"]
+           "lowbit_matmul_call", "lowbit_matmul_grouped_call", "psum_accum_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,4 +347,42 @@ def lowbit_matmul_call(mode: QuantMode, a_planes: Sequence[torch.Tensor],
         b_planes[0].data_ptr(), b_planes[-1].data_ptr(), m, n, kw, int(k_valid),
         cta_tile(tile, m, n, device), _ptr(row_scale), stride,
         _ptr(col_scale), _ptr(bias), out.data_ptr())
+    return out
+
+
+def lowbit_matmul_grouped_call(mode: QuantMode, a_planes: Sequence[torch.Tensor],
+                               b_planes: Sequence[torch.Tensor], counts: torch.Tensor,
+                               k_valid: int, row_scale: torch.Tensor,
+                               col_scale: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None, *,
+                               tile: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/lowbit_gemm_grouped.cu``: G fused products in one
+    launch, group g the A rows ``[g * rows, g * rows + counts[g])`` of the
+    (G * rows, kw) planes against the (G, n, kw) B^T planes' entry g, with
+    eq. (2)'s ``row_scale[g]`` (G,) and ``col_scale[g]`` / ``bias[g]``
+    (G, n).  -> float32 (G, rows, n), zero at each group's rows past its
+    count.  TNN and TBN, on CUDA planes; raises on anything else."""
+    if mode not in (QuantMode.TNN, QuantMode.TBN):
+        raise ValueError(f"the grouped GeMM takes tnn and tbn, got {mode.value}")
+    g, n, kw = b_planes[0].shape
+    m = a_planes[0].shape[0]
+    if g == 0 or m % g:
+        raise ValueError(f"{m} A rows do not split into {g} groups")
+    _, _, _, device = gemm_dims(mode, a_planes, [b.reshape(g * n, kw) for b in b_planes])
+    if device < 0:
+        raise ValueError("the grouped GeMM runs on CUDA planes only")
+    rows = m // g
+    if counts.dtype is not torch.int32 or counts.shape != (g,) or counts.get_device() != device:
+        raise ValueError(f"counts: expected ({g},) int32 on cuda:{device}")
+    check_f32_vec("row_scale", row_scale, g, device)
+    check_f32_vec("col_scale", col_scale, g * n, device)
+    check_f32_vec("bias", bias, g * n, device)
+    out = torch.empty((g, rows, n), dtype=torch.float32, device=a_planes[0].device)
+    key = f"lowbit_gemm_grouped_{mode.value}"
+    _build.launch(
+        "lowbit_gemm_grouped_launch", key, device, _MODE_ID[mode],
+        a_planes[0].data_ptr(), a_planes[-1].data_ptr(), rows, counts.data_ptr(), g,
+        b_planes[0].data_ptr(), b_planes[-1].data_ptr(), n, kw, int(k_valid),
+        cta_tile(tile, m, n, device), row_scale.data_ptr(), col_scale.data_ptr(),
+        _ptr(bias), out.data_ptr())
     return out

@@ -10,6 +10,9 @@ Counterpart of the GeMM and conv half of ``repro/kernels/ops.py``:
   last two in one kernel launch on the card; u8/u4 run the affine eq. (3)
   pipeline (raw accumulator kernel, rank-1 zero-point terms, eq. (2));
   f32/bf16 are a float32 product;
+* ``qmm_grouped(x, qts, counts, sizes)`` — one ``qmm`` a group of rows against
+  the group's entry of stacked containers (the routed experts), tnn and
+  tbn in one quantization and one kernel launch a container;
 * ``qconv(x, qt)`` — the low-bit modes through an implicit-im2col conv
   kernel;
 * ``packed_matmul(xa, qt)`` — the low-bit int32 core alone;
@@ -70,7 +73,7 @@ from repro_torch.core import encoding, quantize
 from repro_torch.kernels import conv_fused, dense_fused, registry
 from repro_torch.kernels import indexed_matmul as _indexed_matmul
 from repro_torch.kernels._matmul_common import (
-    DEFAULT_TILES, TileConfig, scale_epilogue)
+    DEFAULT_TILES, TileConfig, lowbit_matmul_grouped_call, scale_epilogue)
 from repro_torch.kernels.bnn_matmul import (
     bnn_matmul_cuda, bnn_matmul_fused_cuda, bnn_matmul_fused_torch,
     bnn_matmul_torch)
@@ -89,8 +92,8 @@ from repro_torch.resilience import faults
 from repro_torch.tune import cache as tune_cache
 from repro_torch.tune.space import AFFINE_SPACE, AFFINE_TORCH_SPACE, GEMM_SPACE, TORCH_SPACE
 
-__all__ = ["QuantMode", "QTensor", "qmm", "qconv", "pack_weights",
-           "quantize_activations", "packed_matmul", "has_conv_kernel",
+__all__ = ["QuantMode", "QTensor", "qmm", "qmm_grouped", "qconv", "pack_weights",
+           "quantize_activations", "quantize_groups", "packed_matmul", "has_conv_kernel",
            "lowbit_matmul", "int8_affine_matmul", "int4_affine_matmul",
            "quantized_matmul", "row_parallel_group", "split_batch_stats_many",
            "split_weight_stats_many", "affine_weight_stats", "DEFAULT_BACKEND"]
@@ -478,6 +481,116 @@ def qmm(x: torch.Tensor, qt: QTensor, *, backend: Optional[str] = None,
         with obs.annotate("repro_torch.lowbit_kernel"):
             return spec.fn(a_pl, _b_planes(qt, mode), k, row, col, b2, tiles=tiles,
                            **extra)
+
+
+def quantize_groups(x: torch.Tensor, counts: torch.Tensor,
+                    sizes: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Ternary activation quantization of (G, R, k) float32 ``x`` a group
+    at a time: group g's rows are ``x[g, :counts[g]]`` and the rows past
+    them are zero (``counts`` on ``x``'s device, ``sizes`` the same on the
+    host).  -> {"plus", "minus": (G * R, kw) int32 planes, "scale": (G,)
+    float32}.
+
+    Each group's threshold is :func:`quantize.ternarize`'s over its own
+    rows, bit for bit: 0.7 of the sum of |x| over those rows (one
+    reduction a group, of the same shape as ``quantize_activations``
+    makes) over their count times k.  A threshold sits among values of
+    the bf16 stream, where another reduction order moves many
+    activations across it at once; the scale, the mean |x| above it,
+    moves the output by its last bit alone, so one reduction over every
+    group gives it.  The zero rows stay (0, 0) words: no zero lies above
+    a threshold, which is never negative.
+    """
+    with obs.annotate("repro_torch.quantize"):
+        g, r, k = x.shape
+        a = x.abs()
+        sums = torch.stack([a[i, :c].sum() if c else a.new_zeros(())
+                            for i, c in enumerate(sizes)])
+        thr = 0.7 * (sums / (counts.to(torch.float32).clamp(min=1) * float(k)))
+        mask = a > thr[:, None, None]
+        denom = mask.sum(dim=(1, 2)).clamp(min=1).to(torch.float32)
+        scale = (a * mask).sum(dim=(1, 2)) / denom
+        mask = mask.reshape(g * r, k)
+        x2 = x.reshape(g * r, k)
+        return {"plus": encoding.pack_bits(mask & (x2 > 0)),
+                "minus": encoding.pack_bits(mask & (x2 < 0)), "scale": scale}
+
+
+def _col_rows(v, g: int, n: int) -> Optional[torch.Tensor]:
+    """A stacked container's scale / bias ((G,), (G, 1) or (G, n)) ->
+    (G, n) float32, contiguous (one row of n a group), or None."""
+    if v is None:
+        return None
+    return v.to(torch.float32).reshape(g, -1).expand(g, n).contiguous()
+
+
+def qmm_grouped(x: torch.Tensor, qts: Sequence[QTensor], counts: torch.Tensor,
+                sizes: Sequence[int], *, backend: Optional[str] = None) -> List[torch.Tensor]:
+    """Grouped quantized matmul: float ``x`` (G, R, k), group g's rows
+    ``x[g, :counts[g]]`` and zeros past them, against entry g of each
+    container of ``qts`` (stacked over G, all of one mode) -> a float32
+    (G, R, n) a container, zero at each group's rows past its count.
+    ``counts`` (G,) integers on ``x``'s device, ``sizes`` the same on the
+    host.
+
+    Each group's product is a ``qmm`` of its own rows: its activation
+    statistics cover those rows only.  Under tnn and tbn the groups share
+    one quantization (:func:`quantize_groups`), which every container of
+    ``qts`` reuses, and on the "cuda" backend with CUDA planes each
+    container is one launch of the grouped kernel
+    (``_matmul_common.lowbit_matmul_grouped_call``); elsewhere the mode's
+    kernel a group.  Other modes: one ``qmm`` a group.
+    """
+    backend = backend or DEFAULT_BACKEND
+    g, r, k = x.shape
+    mode = qts[0].mode
+    for qt in qts:
+        _check_qtensor(qt, "qmm_grouped", lowbit=False)
+        if qt.mode != mode or not qt.stacked or qt.k_valid != k:
+            raise ValueError(f"qmm_grouped: containers of mode {mode.value}, stacked over "
+                             f"{g} groups, of depth {k}; got {qt!r}")
+
+    def zeros(qt):
+        return torch.zeros((g, r, qt.out_features), dtype=torch.float32, device=x.device)
+
+    with obs.annotate("repro_torch.qmm"):
+        if mode not in (QuantMode.TNN, QuantMode.TBN):
+            outs = [zeros(qt) for qt in qts]
+            for i, c in enumerate(sizes):
+                for out, qt in zip(outs, qts):
+                    if c:
+                        out[i, :c] = qmm(x[i, :c], qt.period(i), backend=backend)
+            return outs
+        xa = quantize_groups(x.to(torch.float32), counts, sizes)
+        a_pl = tuple(xa[kk] for kk in _A_KEYS[mode])
+        grouped = x.is_cuda and backend == DEFAULT_BACKEND
+        if grouped:
+            counts32 = counts.to(torch.int32)
+        else:
+            spec = registry.lookup(mode, backend, fused=True)
+        outs = []
+        for qt in qts:
+            n = qt.out_features
+            col, bias = _col_rows(qt.scale, g, n), _col_rows(qt.bias, g, n)
+            b_pl = _b_planes(qt, mode)
+            if grouped:
+                with obs.annotate("repro_torch.lowbit_kernel"):
+                    outs.append(lowbit_matmul_grouped_call(
+                        mode, a_pl, b_pl, counts32, k, xa["scale"], col, bias))
+                continue
+            out = zeros(qt)
+            with obs.annotate("repro_torch.lowbit_kernel"):
+                for i, c in enumerate(sizes):
+                    if not c:
+                        continue
+                    extra = {"payload": qt.period(i).payload} if spec.payload_aware else {}
+                    out[i, :c] = spec.fn(tuple(p[i * r:i * r + c] for p in a_pl),
+                                         tuple(p[i] for p in b_pl), k,
+                                         xa["scale"][i].reshape(1, 1), col[i:i + 1],
+                                         None if bias is None else bias[i:i + 1],
+                                         tiles=None, **extra)
+            outs.append(out)
+    return outs
 
 
 def _qmm_oracle(x: torch.Tensor, qt: QTensor,

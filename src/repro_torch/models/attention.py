@@ -86,7 +86,11 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, layout: ShardLa
                    dtype=torch.float32, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """Physical (padded) attention weights on ``device``, drawn from
     ``generator``: random weights in real head slots, zero padding slots,
-    identical KV copies — output-exact vs the logical model."""
+    identical KV copies — output-exact vs the logical model.  With
+    ``cfg.qkv_bias`` wq, wk and wv carry a bias ``"b"`` (q and k N(0,
+    0.25), v N(0, 4e-4): large q/k and small v biases, as Qwen's are),
+    which :func:`project` adds to the product: the packed GeMM's eq. (2)
+    epilogue, or ``QuantLinear``'s bias on master weights."""
     dev = resolve_device(device)
     d, dh = cfg.d_model, cfg.head_dim_
     hl = head_layout(cfg.num_heads, cfg.num_kv_heads, layout.tp)
@@ -111,6 +115,15 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, layout: ShardLa
 
     p = {"wq": {"w": wq.to(dtype)}, "wk": {"w": wk.to(dtype)},
          "wv": {"w": wv.to(dtype)}, "wo": {"w": wo.to(dtype)}}
+    if cfg.qkv_bias:
+        # each projection's "b", laid out as its columns; drawn after the
+        # weights, so the weights' draws are those of a config without
+        bq = torch.randn((hl.h, dh), generator=generator, device=dev) * 0.5
+        bk = torch.randn((hl.kv, dh), generator=generator, device=dev) * 0.5
+        bv = torch.randn((hl.kv, dh), generator=generator, device=dev) * 0.02
+        p["wq"]["b"] = (bq[q_src] * q_real[:, None]).reshape(hl.hp * dh).to(dtype)
+        p["wk"]["b"] = bk[kv_src].reshape(hl.kvp * dh).to(dtype)
+        p["wv"]["b"] = bv[kv_src].reshape(hl.kvp * dh).to(dtype)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((dh,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((dh,), dtype=dtype, device=dev)

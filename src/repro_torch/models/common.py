@@ -117,11 +117,20 @@ class ModelConfig:
     shared_expert_d_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.01
+    # the top-k probabilities renormalised to sum to 1 (False: the
+    # router's own probabilities weigh the experts)
+    moe_renormalize: bool = True
+    # every routed token reaches its expert: no capacity, no drops
+    # (single device; models/moe.py)
+    moe_dropless: bool = False
+    # the shared expert scaled by sigmoid(x . w_gate), w_gate (d, 1) float
+    shared_expert_gate: bool = False
     # --- attention ---
     sliding_window: int = 0          # used by "AL" mixers
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     rope_theta: float = 10000.0
+    qkv_bias: bool = False           # q/k/v projections with a bias (qwen1.5)
     qk_norm: bool = False            # chameleon
     post_block_norm: bool = False    # gemma2 sandwich norms
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm (starcoder2)
@@ -191,9 +200,11 @@ class ModelConfig:
         d, dh = self.d_model, self.head_dim_
         h, kv = self.num_heads, self.num_kv_heads
         attn = d * (h * dh) + 2 * d * (kv * dh) + (h * dh) * d
+        if self.qkv_bias:
+            attn += h * dh + 2 * kv * dh
         dense_ffn = 3 * d * self.d_ff                    # gate, up, down
         expert_ffn = 3 * d * self.d_ff                   # per expert
-        shared_ffn = 3 * d * self.shared_expert_d_ff
+        shared_ffn = 3 * d * self.shared_expert_d_ff + (d if self.shared_expert_gate else 0)
         din, nstate, ng = self.ssm_d_inner, self.ssm_state, self.ssm_ngroups
         nh = self.ssm_nheads
         ssm = (d * (2 * din + 2 * ng * nstate + nh)      # in_proj (z, x, B, C, dt)

@@ -14,8 +14,10 @@ tensors carry the leading (P,) dim while its ``shape`` stays the logical
 (k, n) (``QTensor.stack``; the model takes period r with
 ``QTensor.period``); MoE expert weights (P, E, k, n) carry both leading
 dims (``moe._expert_matmul`` takes expert i with a second ``period``).
-Embeddings, norms, the MoE router, the SSM's conv and scan parameters
-and the LM head stay as they are.
+A projection's bias ``"b"`` (qwen1.5's q/k/v) travels inside its
+container as the eq. (2) epilogue's float32 bias.  Embeddings, norms,
+the MoE router and the shared expert's gate, the SSM's conv and scan
+parameters and the LM head stay as they are.
 At serve time ``attention.project`` sees a QTensor leaf and runs one
 ``ops.qmm`` per projection: decode streams 1/8 (ternary) or 1/16
 (binary) of the bf16 weight bytes per token.
@@ -95,7 +97,8 @@ def pack_lm_params(params: Dict[str, Any], cfg,
                     if mode.is_lowbit:
                         packed = _pack_leaf(tree["w"], mode)
                         if "b" in tree:
-                            packed = packed.replace(bias=tree["b"])
+                            # the epilogue's float32 (n,) bias, one cast here
+                            packed = packed.replace(bias=tree["b"].to(torch.float32))
                         if ctx is not None and tree["w"].ndim <= 3:
                             packed = qmm_mesh.take_local(
                                 _annotate_pspec(packed, prefix, ctx), ctx)

@@ -37,7 +37,13 @@ the innermost one open at its launch):
 * ``repro_torch.ssd`` — the Mamba2 mixer between ``in_proj`` and
   ``out_proj``: causal conv, chunked scan, gate and norm;
 * ``repro_torch.ste_backward`` — the straight-through backward of a
-  quantized projection (float32 products and the clip mask).
+  quantized projection (float32 products and the clip mask);
+* ``repro_torch.moe.route`` / ``.dispatch`` / ``.experts`` / ``.combine``
+  — ``models.moe.moe_ffn``'s stages: the router product, softmax and
+  top-k; the sort by expert, the counts (their host read, dropless) and
+  the row gather; every expert's products and glue, the shared expert's
+  too (the ``qmm`` spans inside keep theirs); the weighted sum, the
+  shared expert's gate and the aux loss.
 
 The serving engine's regions keep the reference's names
 (``decode_step``, ``prefill_chunk``, ``prefill_bucket``).

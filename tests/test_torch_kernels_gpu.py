@@ -97,6 +97,90 @@ def test_gemm_kernel_matches_plain(cuda_device, mode, shape):
                                  f"lowbit_gemm_{mode}_fused": 6}
 
 
+# groups of the grouped GeMM: empty, one row, a partial tile, whole tiles
+# of every tile size, and the full block of rows
+GROUP_SIZES = [0, 1, 100, 37, 130, 64, 16]
+
+
+@pytest.mark.parametrize("mode", ["tnn", "tbn"])
+@pytest.mark.parametrize("tile", [64, 32, 16])
+def test_grouped_gemm_kernel_is_one_gemm_a_group(cuda_device, mode, tile):
+    """``csrc/lowbit_gemm_grouped.cu`` against ``lowbit_gemm.cu`` launched
+    a group, in the same tile: each group's rows equal, its rows past
+    the count zero (the output starts as garbage), bias or none; n and k
+    ragged."""
+    from repro_torch.kernels._matmul_common import (lowbit_matmul_call,
+                                                    lowbit_matmul_grouped_call)
+
+    qm, groups, rows, n, k = QuantMode(mode), len(GROUP_SIZES), 130, 70, 1000
+    gen = torch.Generator(device=cuda_device).manual_seed(31 + tile)
+    a = torch.randint(-1, 2, (groups, rows, k), generator=gen, device=cuda_device).float()
+    for i, c in enumerate(GROUP_SIZES):
+        a[i, c:] = 0
+    b = torch.randint(-1, 2, (groups, n, k), generator=gen, device=cuda_device).float()
+    a_pl = _planes(a.reshape(groups * rows, k), True)
+    b_pl = [p.reshape(groups, n, -1) for p in _planes(b.reshape(groups * n, k), mode == "tnn")]
+    row = torch.rand((groups,), generator=gen, device=cuda_device) + 0.5
+    col = torch.rand((groups, n), generator=gen, device=cuda_device) + 0.5
+    bias = torch.randn((groups, n), generator=gen, device=cuda_device)
+    counts = torch.tensor(GROUP_SIZES, dtype=torch.int32, device=cuda_device)
+    for bb in (None, bias):
+        torch.empty((groups, rows, n), device=cuda_device).fill_(float("nan"))
+        _build.reset_launches()
+        out = lowbit_matmul_grouped_call(qm, a_pl, b_pl, counts, k, row, col, bb, tile=tile)
+        assert _build.launches() == {f"lowbit_gemm_grouped_{mode}": 1}
+        for i, c in enumerate(GROUP_SIZES):
+            assert not out[i, c:].any()
+            if c:
+                want = lowbit_matmul_call(qm, [p[i * rows:i * rows + c] for p in a_pl],
+                                          [p[i] for p in b_pl], k,
+                                          row_scale=row[i].reshape(1, 1), col_scale=col[i],
+                                          bias=None if bb is None else bb[i], tile=tile)
+                assert torch.equal(out[i, :c], want)
+
+
+@pytest.mark.parametrize("mode", ["tnn", "tbn"])
+def test_qmm_grouped_on_card_matches_plain(cuda_device, mode):
+    """``ops.qmm_grouped``: one quantization and one grouped launch a
+    container on the "cuda" backend, the plain kernel a group on
+    "torch", from the same quantization on the card: equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    sizes, rows, k, n = [5, 0, 40, 17], 40, 300, 90
+    x = torch.zeros((len(sizes), rows, k), device=cuda_device)
+    for i, c in enumerate(sizes):
+        x[i, :c] = torch.randn((c, k), generator=gen, device=cuda_device) * (i + 1)
+    qts = [ops.QTensor.stack([ops.pack_weights(
+        torch.randn((k, n), generator=gen, device=cuda_device), QuantMode(mode))
+        for _ in sizes]) for _ in range(2)]
+    counts = torch.tensor(sizes, device=cuda_device)
+    _build.reset_launches()
+    got = ops.qmm_grouped(x, qts, counts, sizes)
+    assert _build.launches() == {f"lowbit_gemm_grouped_{mode}": 2}
+    want = ops.qmm_grouped(x, qts, counts, sizes, backend="torch")
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+
+
+def test_quantize_groups_on_card_is_quantize_activations_a_group(cuda_device):
+    """Each group's planes from ``ops.quantize_groups`` equal
+    ``quantize_activations`` of the group's rows alone, bit for bit (the
+    same threshold), on bf16 values at the MoE cell's widths; the scale
+    to its last bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    sizes, rows, k = [546, 0, 700, 1, 389], 700, 1408
+    x = torch.zeros((len(sizes), rows, k), device=cuda_device)
+    for i, c in enumerate(sizes):
+        x[i, :c] = torch.randn((c, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = ops.quantize_groups(x, torch.tensor(sizes, device=cuda_device), sizes)
+    plus, minus = (t.reshape(len(sizes), rows, -1) for t in (q["plus"], q["minus"]))
+    for i, c in enumerate(sizes):
+        if c:
+            want = ops.quantize_activations(x[i, :c].clone(), QuantMode.TNN)
+            assert torch.equal(plus[i, :c], want["plus"])
+            assert torch.equal(minus[i, :c], want["minus"])
+            torch.testing.assert_close(q["scale"][i], want["scale"], rtol=1e-6, atol=0)
+
+
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` copied into a contiguous view that starts 4 bytes past a
     16-byte boundary."""

@@ -6,7 +6,10 @@ smoke sizes, under a CPU ``torch.profiler`` session:
   ``repro_torch.obs`` docstring lists, as many per unit as the model has
   entry-point calls (one conv statistics pass per low-bit conv; per
   Mamba2 layer two projections and one scan, a QAT step's forward run
-  twice under remat, one straight-through backward per projection);
+  twice under remat, one straight-through backward per projection), and
+  a 2-layer packed prefill of the published Qwen1.5-MoE block (per layer
+  q, k, v, o, three projections for each of 8 experts and for the shared
+  expert, and the four MoE stages once each);
 * ``repro_torch.quantize`` and ``repro_torch.lowbit_kernel`` nest under
   ``repro_torch.qmm`` / ``repro_torch.qconv``;
 * with no profiler session open, or with obs off, no
@@ -98,6 +101,24 @@ def _prefill_unit():
     return unit
 
 
+def _moe_prefill_unit():
+    """The published Qwen1.5-MoE block's packed prefill, 2 layers of 8
+    experts (every one gets rows: 2 x 64 tokens, top-4)."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+
+    cfg = qwen2_moe_a2_7b.SMOKE.with_(**qwen2_moe_a2_7b.PUBLISHED_SWITCHES, quant_policy="tnn",
+                                      dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    packed = pack_lm_params(model.init_lm(gen, cfg, LAYOUT, device="cpu"), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
+
+    def unit():
+        with torch.no_grad():
+            caches = init_caches(cfg, LAYOUT, tokens.shape[0], tokens.shape[1], device="cpu")
+            model.prefill(packed, {"tokens": tokens}, caches, cfg, LAYOUT)
+    return unit
+
+
 def _train_unit():
     cfg, params, tokens = _mamba2(remat=True)
     step = make_train_step(cfg, LAYOUT, TrainStepConfig(optimizer=AdamWConfig()))
@@ -111,6 +132,12 @@ UNITS = {
     "cnn": (_cnn_unit, {"cnn.forward": 1, "qconv": 5, "quantize": 5, "lowbit_kernel": 5}),
     "prefill": (_prefill_unit, {"prefill": 1, "qmm": 4, "quantize": 4, "lowbit_kernel": 4,
                                 "ssd": 2}),
+    # a layer: q, k, v, o; the routed experts' grouped qmm of gate and up
+    # (one quantization, two launches) and of down; the shared expert's 3,
+    # in its own entry of dispatch and experts while the counts travel
+    "moe_prefill": (_moe_prefill_unit, {"prefill": 1, "qmm": 18, "quantize": 18,
+                                        "lowbit_kernel": 20, "moe.route": 2, "moe.dispatch": 4,
+                                        "moe.experts": 4, "moe.combine": 2}),
     "train": (_train_unit, {"train.step": 1, "train.forward": 1, "train.backward": 1,
                             "train.optimizer": 1, "weight_pack": 8, "qmm": 8, "quantize": 8,
                             "lowbit_kernel": 8, "ssd": 4, "ste_backward": 4}),
